@@ -1,0 +1,19 @@
+"""Host data substrate: NumPy copies of the reference's datasets and batching."""
+from repro_torch.data.loader import bucket_steps, epoch_batches
+from repro_torch.data.partition import dirichlet_label_partition
+from repro_torch.data.synthetic import (
+    FederatedDataset,
+    make_classification,
+    make_federated_classification,
+    make_image_like,
+)
+
+__all__ = [
+    "bucket_steps",
+    "epoch_batches",
+    "dirichlet_label_partition",
+    "FederatedDataset",
+    "make_classification",
+    "make_federated_classification",
+    "make_image_like",
+]

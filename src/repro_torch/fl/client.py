@@ -1,0 +1,173 @@
+"""Client-side local training (paper Eq. 3), all selected clients at once.
+
+:class:`BatchedCohortTrainer` runs every selected client's local epochs
+together: per-client parameters are stacked along a leading client axis and
+one SGD step of the whole cohort is ``torch.func.vmap`` of ``grad`` over that
+axis.  A Python loop over the padded step axis takes the place of the
+reference's ``lax.scan``.  The returned update is ``w_local − w_global``
+after all local epochs, flattened in the reference's leaf order.
+
+The batch schedule (:func:`build_cohort_plan`) is host NumPy, bitwise the
+reference's: ragged clients are padded within a batch (zero sample weight)
+and along the step axis (zero step validity), and a padded step changes no
+parameter.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch.func import grad_and_value, vmap
+
+from repro_torch.core.distributed import flatten_rows
+from repro_torch.data.loader import bucket_steps
+from repro_torch.device import DeviceLike, resolve_device
+
+Params = Dict[str, torch.Tensor]
+
+
+def client_batch_rng(seed: int, t: int, cid: int) -> np.random.Generator:
+    """Placement-independent batch RNG: one stream per (seed, round, client)."""
+    entropy = [int(seed) & 0xFFFFFFFFFFFFFFFF, int(t), int(cid)]
+    return np.random.default_rng(np.random.SeedSequence(entropy))
+
+
+@dataclasses.dataclass
+class CohortPlan:
+    """Padded batch schedule for one round's selected cohort (host arrays)."""
+
+    x: np.ndarray            # (P, S, B, *feat) float32
+    y: np.ndarray            # (P, S, B) int32
+    sample_w: np.ndarray     # (P, S, B) float32: 1 = real sample, 0 = pad
+    step_valid: np.ndarray   # (P, S) float32: 1 = real step, 0 = pad
+    epochs: List[int]
+    num_samples: List[int]
+
+    @property
+    def num_clients(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def num_steps(self) -> int:
+        return self.x.shape[1]
+
+
+def build_cohort_plan(
+    client_data: Sequence[Tuple[np.ndarray, np.ndarray]],
+    epochs: Sequence[int],
+    batch_size: int,
+    rngs: Sequence[np.random.Generator],
+) -> CohortPlan:
+    """Stack every selected client's shuffled epoch batches into one schedule.
+
+    ``rngs`` holds one Generator per client (the :func:`client_batch_rng`
+    streams), each consumed epoch by epoch with one ``permutation`` per epoch.
+    """
+    if not client_data:
+        raise ValueError("empty cohort")
+    rngs = list(rngs)
+    if len(rngs) != len(client_data):
+        raise ValueError(f"got {len(rngs)} per-client rngs, expected {len(client_data)}")
+    feat = client_data[0][0].shape[1:]
+    per_client = []
+    steps_per_client: List[int] = []
+    for (x, y), e, rng_k in zip(client_data, epochs, rngs):
+        n = len(x)
+        nb = -(-n // batch_size) if n else 0
+        s_k = max(1, int(e)) * nb
+        bx = np.zeros((s_k, batch_size, *feat), np.float32)
+        by = np.zeros((s_k, batch_size), np.int32)
+        bw = np.zeros((s_k, batch_size), np.float32)
+        s = 0
+        for _ in range(max(1, int(e))):
+            order = rng_k.permutation(n)
+            for start in range(0, n, batch_size):
+                ix = order[start : start + batch_size]
+                bx[s, : len(ix)] = x[ix]
+                by[s, : len(ix)] = y[ix]
+                bw[s, : len(ix)] = 1.0
+                s += 1
+        per_client.append((bx, by, bw))
+        steps_per_client.append(s_k)
+
+    s_max = max(max(steps_per_client), 1)
+    s_pad = bucket_steps(s_max)
+    p = len(client_data)
+    px = np.zeros((p, s_pad, batch_size, *feat), np.float32)
+    py = np.zeros((p, s_pad, batch_size), np.int32)
+    pw = np.zeros((p, s_pad, batch_size), np.float32)
+    pv = np.zeros((p, s_pad), np.float32)
+    for k, (bx, by, bw) in enumerate(per_client):
+        s_k = steps_per_client[k]
+        px[k, :s_k], py[k, :s_k], pw[k, :s_k] = bx, by, bw
+        pv[k, :s_k] = 1.0
+    return CohortPlan(
+        x=px, y=py, sample_w=pw, step_valid=pv,
+        epochs=[max(1, int(e)) for e in epochs],
+        num_samples=[len(x) for x, _ in client_data],
+    )
+
+
+def cohort_stats(losses: np.ndarray, plan: CohortPlan) -> List[Dict[str, float]]:
+    """Per-client stats from the (P, S) loss trace, over valid steps only."""
+    out: List[Dict[str, float]] = []
+    for k in range(plan.num_clients):
+        v = plan.step_valid[k] > 0
+        lk = losses[k][v]
+        out.append({
+            "mean_loss": float(np.mean(lk)) if lk.size else float("nan"),
+            "final_loss": float(lk[-1]) if lk.size else float("nan"),
+            "samples_processed": float(plan.sample_w[k].sum()),
+            "steps": float(v.sum()),
+        })
+    return out
+
+
+class BatchedCohortTrainer:
+    """Runs all P selected clients' local epochs as one batched computation.
+
+    Each step: ``vmap(grad_and_value(loss))`` over the client axis, where a
+    client's loss is its per-example losses × sample weights, summed and
+    divided by ``max(Σw, 1)``; the gradient is gated by the step's validity
+    before the SGD update, so a padded step leaves the parameters bitwise
+    unchanged.  Steps past the last valid step of every client are such
+    no-ops for the whole cohort and are not run.
+    """
+
+    def __init__(self, model, learning_rate: float, batch_size: int, device: DeviceLike = "cuda"):
+        self.model = model
+        self.lr = float(learning_rate)
+        self.batch_size = batch_size
+        self.device = resolve_device(device)
+
+        def client_loss(params: Params, x, y, w):
+            per = model.per_example_loss(params, x, y)
+            return torch.sum(per * w) / torch.clamp(torch.sum(w), min=1.0)
+
+        self._step = vmap(grad_and_value(client_loss))
+
+    def train_cohort(self, global_params: Params, plan: CohortPlan) -> Tuple[torch.Tensor, List[Dict[str, float]]]:
+        """Returns (flat (P, D) fp32 update matrix in leaf order, per-client stats)."""
+        dev = self.device
+        p, s_pad = plan.step_valid.shape
+        xs = torch.from_numpy(plan.x).to(dev)
+        ys = torch.from_numpy(plan.y).to(dev).long()
+        ws = torch.from_numpy(plan.sample_w).to(dev)
+        valid = torch.from_numpy(plan.step_valid).to(dev)
+        params = {k: v.unsqueeze(0).expand(p, *v.shape).clone() for k, v in global_params.items()}
+        losses = torch.zeros((p, s_pad), dtype=torch.float32, device=dev)
+        any_valid = np.flatnonzero(plan.step_valid.max(axis=0) > 0)
+        n_steps = int(any_valid[-1]) + 1 if any_valid.size else 0
+        with torch.no_grad():
+            for s in range(n_steps):
+                grads, loss = self._step(params, xs[:, s], ys[:, s], ws[:, s])
+                v = valid[:, s]
+                for k in params:
+                    gate = v.view(-1, *([1] * (params[k].dim() - 1)))
+                    params[k] = params[k] - self.lr * (grads[k] * gate)
+                losses[:, s] = loss
+            flat = flatten_rows({k: params[k] - global_params[k] for k in params})
+        stats = cohort_stats(losses.cpu().numpy(), plan)
+        return flat, stats

@@ -1,0 +1,224 @@
+"""The federated round loop (paper Algorithm 4's outer loop).
+
+Runs T rounds of: select → local training of the whole cohort (batched) →
+Eq. 4 aggregation through the ``weighted_aggregate`` kernel → strategy
+bookkeeping (FLrce's relationship ingest and Alg. 3 early stopping) →
+evaluation, with exact resource accounting through a :class:`ResourceLedger`.
+
+The port has one engine (``"batched"``) and one driver (``"loop"``): one
+Python iteration and one host sync per round.  The round's flat (D,) model
+and (P, D) update matrix stay on the device and are shared by aggregation,
+ingest and early stopping.  ``device=`` names the ledger's energy profile;
+the torch device is ``torch_device=`` and defaults to ``"cuda"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.distributed import flatten_params
+from repro_torch.data.synthetic import FederatedDataset
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.fl.aggregation import aggregation_weights
+from repro_torch.fl.client import BatchedCohortTrainer, build_cohort_plan, client_batch_rng
+from repro_torch.fl.metrics import ResourceLedger, communication_efficiency, computation_efficiency
+from repro_torch.fl.strategy import TorchStrategy
+from repro_torch.kernels import ops as kops
+from repro_torch.models.cnn import param_count
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class RoundRecord:
+    t: int
+    accuracy: float
+    mean_client_loss: float
+    energy_kj: float
+    bytes_gb: float
+    selected: List[int]
+    exploited: bool
+    stopped: bool
+    wall_s: float
+    evaluated: bool = True   # the port evaluates every round; kept for the
+    # reference's record layout
+
+
+@dataclasses.dataclass
+class FLResult:
+    strategy: str
+    records: List[RoundRecord]
+    final_accuracy: float
+    rounds_run: int
+    stopped_early: bool
+    ledger: ResourceLedger
+    final_params: Params
+
+    @property
+    def energy_kj(self) -> float:
+        return self.ledger.energy_j / 1e3
+
+    @property
+    def bytes_gb(self) -> float:
+        return self.ledger.total_bytes / 1e9
+
+    @property
+    def computation_efficiency(self) -> float:
+        return computation_efficiency(self.final_accuracy, self.ledger.energy_j)
+
+    @property
+    def communication_efficiency(self) -> float:
+        return communication_efficiency(self.final_accuracy, self.ledger.total_bytes)
+
+    def summary(self) -> Dict[str, float]:
+        return {
+            "strategy": self.strategy,
+            "final_accuracy": self.final_accuracy,
+            "rounds": self.rounds_run,
+            "stopped_early": self.stopped_early,
+            "energy_kj": self.energy_kj,
+            "bytes_gb": self.bytes_gb,
+            "comp_eff": self.computation_efficiency,
+            "comm_eff": self.communication_efficiency,
+        }
+
+
+def nan_safe_mean(values: Sequence[float]) -> float:
+    """Mean over the finite entries; NaN only when every entry is NaN."""
+    vals = np.asarray(list(values), np.float64)
+    finite = vals[~np.isnan(vals)]
+    return float(finite.mean()) if finite.size else float("nan")
+
+
+def finalize_result(
+    *,
+    strategy: TorchStrategy,
+    records: List[RoundRecord],
+    stopped: bool,
+    ledger: ResourceLedger,
+    final_params: Params,
+) -> FLResult:
+    """Assemble the FLResult; the final accuracy is the last round's."""
+    final_accuracy = records[-1].accuracy if records else 0.0
+    return FLResult(
+        strategy=strategy.name,
+        records=records,
+        final_accuracy=final_accuracy,
+        rounds_run=len(records),
+        stopped_early=stopped,
+        ledger=ledger,
+        final_params=final_params,
+    )
+
+
+def _check_config(strategy: TorchStrategy, t: int, cid: int, cfg) -> None:
+    if cfg.prox_mu != 0.0 or cfg.mask is not None or cfg.freeze_frac != 0.0:
+        raise ValueError(
+            f"{strategy.name} asks for prox/mask/freeze local training (round {t}, "
+            f"client {cid}); the port trains plain local SGD only"
+        )
+
+
+def run_federated(
+    model,
+    dataset: FederatedDataset,
+    strategy: TorchStrategy,
+    *,
+    max_rounds: int = 100,
+    learning_rate: float = 0.05,
+    batch_size: int = 32,
+    device: str = "jetson_nano",
+    seed: int = 0,
+    init_params: Optional[Params] = None,
+    verbose: bool = False,
+    engine: str = "batched",
+    driver: str = "loop",
+    torch_device: DeviceLike = "cuda",
+) -> FLResult:
+    if engine != "batched":
+        raise ValueError(f"the port runs engine='batched' only, got {engine!r}")
+    if driver != "loop":
+        raise ValueError(f"the port runs driver='loop' only, got {driver!r}")
+    if max_rounds < 1:
+        raise ValueError(f"max_rounds must be >= 1, got {max_rounds}")
+    dev = resolve_device(torch_device)
+    if init_params is None:
+        params = model.init(seed, dev)
+    else:
+        params = {k: v.to(dev, torch.float32) for k, v in init_params.items()}
+    n_params = param_count(params)
+    strategy.bind_device(dev)
+    trainer = BatchedCohortTrainer(model, learning_rate, batch_size, dev)
+    ledger = ResourceLedger(device=device)
+    eval_x = torch.from_numpy(dataset.eval_x).to(dev)
+    eval_y = torch.from_numpy(dataset.eval_y).to(dev)
+    sizes = dataset.client_sizes()
+    records: List[RoundRecord] = []
+    stopped = False
+
+    for t in range(max_rounds):
+        t0 = time.perf_counter()
+        ids = strategy.select(t)
+        # the round's flat buffer: flattened once, shared by aggregation,
+        # relationship modeling and early stopping
+        w_before, unflatten = flatten_params(params)
+        cfgs = [strategy.client_config(t, int(cid), params) for cid in ids]
+        for cid, cfg in zip(ids, cfgs):
+            _check_config(strategy, t, int(cid), cfg)
+        rngs = [client_batch_rng(seed, t, int(cid)) for cid in ids]
+        plan = build_cohort_plan(
+            [dataset.client_data(int(cid)) for cid in ids],
+            [cfg.epochs for cfg in cfgs],
+            batch_size,
+            rngs,
+        )
+        update_matrix, stats = trainer.train_cohort(params, plan)
+
+        # resource accounting: host float64 arithmetic, as in the reference
+        for cid, cfg in zip(ids, cfgs):
+            flops = (
+                model.flops_per_sample() * int(sizes[int(cid)]) * cfg.epochs * cfg.compute_fraction
+            )
+            ledger.charge_training(flops)
+            ledger.charge_download(n_params, cfg.download_fraction)
+            ledger.charge_upload(n_params, cfg.upload_fraction)
+
+        # Eq. 4 aggregation (weights float64 → float32 on the host)
+        weights = torch.from_numpy(
+            np.asarray(aggregation_weights(sizes[ids]), np.float32)
+        ).to(dev)
+        params = unflatten(kops.weighted_aggregate(w_before, update_matrix, weights))
+
+        stop = strategy.post_round(t, w_before, ids, update_matrix, stats)
+        ledger.end_round()
+
+        with torch.no_grad():
+            acc = float(model.accuracy(params, eval_x, eval_y))
+        rec = RoundRecord(
+            t=t,
+            accuracy=acc,
+            mean_client_loss=nan_safe_mean([s["mean_loss"] for s in stats]),
+            energy_kj=ledger.energy_j / 1e3,
+            bytes_gb=ledger.total_bytes / 1e9,
+            selected=[int(c) for c in ids],
+            exploited=strategy.last_round_was_exploit,
+            stopped=bool(stop),
+            wall_s=time.perf_counter() - t0,
+        )
+        records.append(rec)
+        if verbose:
+            print(
+                f"[{strategy.name}] round {t:3d} acc={acc:.4f} "
+                f"loss={rec.mean_client_loss:.4f} stop={stop} wall={rec.wall_s:.3f}s"
+            )
+        if stop:
+            stopped = True
+            break
+
+    return finalize_result(
+        strategy=strategy, records=records, stopped=stopped, ledger=ledger, final_params=params,
+    )

@@ -1,0 +1,62 @@
+"""Dispatch for the port's kernels: CUDA tensors launch the hand-written
+kernel, CPU tensors take its plain PyTorch version, mixed devices raise.
+
+There is no override and no fallback: a CUDA tensor never reaches a plain
+version, and a failed build or launch raises.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import aggregate as _aggregate
+from repro_torch.kernels import gram as _gram
+
+KERNELS = ("cross_gram", "gram", "weighted_aggregate")
+
+
+def _device_type(name: str, *tensors: torch.Tensor) -> str:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: operands on different devices {sorted(map(str, devices))}")
+    kind = devices.pop().type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: unsupported device type {kind!r}")
+    return kind
+
+
+def cross_gram(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(K, D) × (Q, D) → (K, Q) fp32, ``u @ v.T``."""
+    if _device_type("cross_gram", u, v) == "cuda":
+        return _gram.cross_gram_cuda(u, v)
+    return _gram.cross_gram_plain(u, v)
+
+
+def gram(u: torch.Tensor) -> torch.Tensor:
+    """(P, D) → (P, P) fp32, ``u @ u.T``."""
+    if _device_type("gram", u) == "cuda":
+        return _gram.gram_cuda(u)
+    return _gram.gram_plain(u)
+
+
+def weighted_aggregate(w: torch.Tensor, u: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Eq. 4: ``w + p @ u`` → (D,) fp32."""
+    if _device_type("weighted_aggregate", w, u, p) == "cuda":
+        return _aggregate.weighted_aggregate_cuda(w, u, p)
+    return _aggregate.weighted_aggregate_plain(w, u, p)
+
+
+def launch_counts() -> Dict[str, int]:
+    """How many times each kernel's wrapper launched it since the last reset."""
+    return {
+        "cross_gram": _gram.CROSS_GRAM_LAUNCHES,
+        "gram": _gram.GRAM_LAUNCHES,
+        "weighted_aggregate": _aggregate.AGGREGATE_LAUNCHES,
+    }
+
+
+def reset_launch_counts() -> None:
+    _gram.CROSS_GRAM_LAUNCHES = 0
+    _gram.GRAM_LAUNCHES = 0
+    _aggregate.AGGREGATE_LAUNCHES = 0

@@ -1,0 +1,111 @@
+"""Kernel and loop tests that need a GPU (marked ``cuda``; they skip where
+there is none).  No JAX here, so the file runs where only the port is
+installed.
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch import resolve_device
+    from repro_torch.kernels import ops
+
+    dev = resolve_device("cuda")
+    ops.reset_launch_counts()
+    return dev
+
+
+def _scale(u, v):
+    return torch.linalg.vector_norm(u, dim=1)[:, None] * torch.linalg.vector_norm(v, dim=1)[None, :]
+
+
+@pytest.mark.parametrize("k,q,d", [(10, 100, 1), (10, 100, 2049), (1, 1, 7), (17, 33, 5000),
+                                   (10, 100, 4096), (3, 40, 65536)])
+def test_cross_gram_kernel_matches_plain(cuda, k, q, d):
+    from repro_torch.kernels import gram, ops
+
+    g = torch.Generator(device=cuda).manual_seed(d)
+    u = torch.randn(k, d, generator=g, device=cuda)
+    v = torch.randn(q, d, generator=g, device=cuda)
+    got = ops.cross_gram(u, v)
+    want = gram.cross_gram_plain(u, v)
+    assert torch.all((got - want).abs() <= 1e-4 * _scale(u, v))
+    assert torch.equal(got, ops.cross_gram(u, v))          # no atomics: bitwise repeatable
+    assert ops.launch_counts()["cross_gram"] == 2
+
+
+@pytest.mark.parametrize("p,d", [(10, 1), (10, 2049), (1, 595914), (17, 5000)])
+def test_gram_kernel_matches_plain(cuda, p, d):
+    from repro_torch.kernels import gram, ops
+
+    u = torch.randn(p, d, generator=torch.Generator(device=cuda).manual_seed(p), device=cuda)
+    got = ops.gram(u)
+    assert torch.all((got - gram.gram_plain(u)).abs() <= 1e-4 * _scale(u, u))
+    assert ops.launch_counts() == {"cross_gram": 0, "gram": 1, "weighted_aggregate": 0}
+
+
+@pytest.mark.parametrize("p,d", [(10, 1), (10, 2049), (1, 595914), (10, 4096), (3, 7)])
+def test_weighted_aggregate_kernel_matches_plain(cuda, p, d):
+    from repro_torch.kernels import aggregate, ops
+
+    g = torch.Generator(device=cuda).manual_seed(d)
+    w, u = torch.randn(d, generator=g, device=cuda), torch.randn(p, d, generator=g, device=cuda)
+    pw = torch.rand(p, generator=g, device=cuda)
+    got = ops.weighted_aggregate(w, u, pw)
+    want = aggregate.weighted_aggregate_plain(w, u, pw)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    assert ops.launch_counts()["weighted_aggregate"] == 1
+
+
+def test_wrappers_reject_bad_operands(cuda):
+    from repro_torch.kernels import ops
+
+    u = torch.randn(4, 8, device=cuda)
+    with pytest.raises(ValueError):
+        ops.cross_gram(u, u.double())
+    with pytest.raises(ValueError):
+        ops.cross_gram(u, u.t())
+    with pytest.raises(ValueError):
+        ops.cross_gram(u, torch.randn(4, 8))
+    with pytest.raises(ValueError):
+        ops.weighted_aggregate(torch.randn(7, device=cuda), u, torch.rand(4, device=cuda))
+    assert ops.launch_counts() == {"cross_gram": 0, "gram": 0, "weighted_aggregate": 0}
+
+
+def test_small_federation_gpu_matches_cpu(cuda):
+    from repro_torch.data import make_federated_classification
+    from repro_torch.fl import FLrce, run_federated
+    from repro_torch.kernels import ops
+    from repro_torch.models import MLPClassifier
+
+    ds = make_federated_classification(num_clients=8, num_samples=600, num_eval=200,
+                                       feature_dim=10, num_classes=4, seed=3)
+    model = MLPClassifier(10, 4, (16,))
+    init = model.init(0, "cpu")
+    dim = sum(p.numel() for p in init.values())
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        ops.reset_launch_counts()
+        strat = FLrce(8, 3, 2, dim=dim, es_threshold=10.0, explore_decay=0.5, seed=0)
+        runs[dev] = run_federated(model, ds, strat, max_rounds=6, learning_rate=0.1,
+                                  batch_size=16, init_params=init, torch_device=dev)
+        if dev == "cuda":
+            counts = ops.launch_counts()
+    a, b = runs["cuda"], runs["cpu"]
+    assert counts["cross_gram"] == 2 * a.rounds_run
+    assert counts["weighted_aggregate"] == a.rounds_run
+    assert counts["gram"] == sum(r.exploited for r in a.records) > 0
+    assert [r.selected for r in a.records] == [r.selected for r in b.records]
+    assert [r.exploited for r in a.records] == [r.exploited for r in b.records]
+    for ra, rb in zip(a.records, b.records):
+        assert ra.energy_kj == rb.energy_kj and ra.bytes_gb == rb.bytes_gb
+        assert abs(ra.accuracy - rb.accuracy) <= 2e-3
+        assert abs(ra.mean_client_loss - rb.mean_client_loss) <= 1e-4

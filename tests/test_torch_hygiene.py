@@ -1,0 +1,103 @@
+"""The port stands alone: no JAX and nothing of the reference package at
+run time, and no silent CPU fallback when CUDA is asked for."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+
+
+def _port_modules():
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(REPO / "src").with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_every_module_imports_without_jax_or_reference():
+    mods = _port_modules()
+    assert "repro_torch.kernels.ops" in mods and "repro_torch.fl.rounds" in mods
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k, mod in sys.modules.items() if mod is not None\n"
+        "             and (k in ('jax', 'repro') or k.startswith(('jax.', 'repro.'))))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_jax_or_reference_imports_in_source():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for name in _imports(path):
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "repro", "flax"), f"{path}: imports {name}"
+
+
+def test_cuda_requested_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the no-CUDA contract cannot be observed")
+    from repro_torch import resolve_device
+    from repro_torch.core.server import FLrceServer
+    from repro_torch.data import make_federated_classification
+    from repro_torch.fl import FLrce, run_federated
+    from repro_torch.models import MLPClassifier
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    with pytest.raises(RuntimeError):
+        FLrceServer(4, 3, 2, 1.0)
+    model = MLPClassifier(3, 2, (4,))
+    ds = make_federated_classification(num_clients=4, num_samples=60, num_eval=10,
+                                       feature_dim=3, num_classes=2, seed=0)
+    with pytest.raises(RuntimeError):
+        run_federated(model, ds, FLrce(4, 2, 1, dim=26), max_rounds=1, torch_device="cuda")
+    with pytest.raises(RuntimeError):
+        run_federated(model, ds, FLrce(4, 2, 1, dim=26), max_rounds=1)
+    with pytest.raises(RuntimeError):
+        model.init(0)
+
+
+def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    for cwd, script in ((REPO, REPO / "chip_smoke.py"), (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            script.write_text((REPO / "chip_smoke.py").read_text())
+        proc = subprocess.run([sys.executable, str(script)], cwd=cwd, capture_output=True,
+                              text=True, timeout=300)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
