@@ -3,23 +3,30 @@
 
     python3 chip_smoke.py
 
-1. Builds the three CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+1. Builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    ``nvcc`` for ``sm_90a`` and prints the build time.
 2. Kernel phase: holds each kernel against its plain PyTorch version on the
-   card, at the main path's shapes (K = P = 10, Q = M = 100, D = 595,914)
+   card, at the main paths' shapes (K = P = 10, Q = M = 100, D = 595,914)
    and at edge shapes, and times the kernel, the plain version and one
    PyTorch library call computing the same function (CUDA events, L2
    flushed before every launch), beside the least time the card could take.
+   ``topk_mask_rows`` must equal its plain version bitwise, ties, NaN, ±inf
+   and -0.0 included.
 3. Main path: the paper's CIFAR-10 model (§4.1 2conv+3fc, D = 595,914) in a
    100-client federation, 6 FLrce rounds through ``run_federated`` on the
    card.  Every kernel's launch count is reset just before the run and read
-   just after; each kernel must have run on that path.
+   just after; each kernel of the path must have run on it.
    Then 3 more rounds run under ``torch.profiler``: the device time by
    kernel and the device's busy share of the wall time are printed.
-4. Reference check: a small federation run on the card and on the CPU (the
-   kernels' plain versions) must make the same selections, exploit flags,
-   stop decision and ledger charges, with accuracies and losses within fp32
-   tolerance.
+4. Baselines (§4.1) on the same federation at full width: 4 Fedcom rounds
+   (``topk_mask_rows`` once per round), 4 FedAvg rounds and 2 rounds each
+   of Fedprox, Dropout, TimelyFL, PyramidFL and QuantizedFL, each with the
+   launch counts reset just before and read just after, and the time of
+   QuantizedFL's host-drawn rounding uniforms.
+5. Reference check: small federations (FLrce, Fedcom) run on the card and on
+   the CPU (the kernels' plain versions) must make the same selections,
+   exploit flags, stop decision and ledger charges, with accuracies and
+   losses within fp32 tolerance.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the exit code is
@@ -43,7 +50,10 @@ K_MAIN, Q_MAIN, D_MAIN = 10, 100, 595_914
 GRAM_RTOL = 1e-4           # |Δ| ≤ 1e-4·‖u_k‖‖v_j‖: fp32 sums over D reordered
 AGG_ATOL = AGG_RTOL = 1e-6
 FP32_PEAK_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores (data sheet)
-L2_FLUSH_BYTES = 256 << 20
+# read before every timed launch: far more than the 50 MB L2, and long
+# enough (about 0.3 ms) that the host has queued the timed call before the
+# card reaches it, on a slow host too
+L2_FLUSH_BYTES = 1 << 30
 # 0.05 diverges on this data: the JAX package's run of the same
 # configuration, like the port's, reaches a NaN loss in round 1.
 MAIN_LR = 0.01
@@ -76,7 +86,7 @@ def memory_bandwidth(torch) -> tuple:
 class Timer:
     """Median CUDA-event time of one call, with L2 flushed before each.
 
-    The calls are queued without a synchronise in between: the 256 MB flush
+    The calls are queued without a synchronise in between: the 1 GiB flush
     keeps the card busy while the host runs the next wrapper, so the events
     time the device's work and not the host's launch overhead.  The flush
     reads its buffer, so it leaves clean lines in L2 and the timed call pays
@@ -131,9 +141,34 @@ def check_aggregate(name, got, want, torch) -> float:
     return float(err.max())
 
 
+def check_bitwise(name, got, want, torch) -> None:
+    """Equal bit patterns (so -0.0 and where NaN sits are checked too)."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: {tuple(got.shape)} {got.dtype} != {tuple(want.shape)} {want.dtype}")
+    if not torch.equal(got.contiguous().view(torch.int32), want.contiguous().view(torch.int32)):
+        fail(f"{name}: kernel and plain version differ bitwise")
+
+
+def topk_inputs(torch, gen) -> list:
+    """(label, u) pairs: normal values at the main and edge shapes, ties from
+    a small integer set, and NaN / ±inf / -0.0 mixed in."""
+    out = [(f"P={p} D={d}", torch.randn(p, d, generator=gen, device="cuda"))
+           for p, d in [(10, 1), (10, 2047), (10, 2049), (1, D_MAIN), (17, 5000), (K_MAIN, D_MAIN)]]
+    ties = torch.randint(-3, 4, (K_MAIN, 8193), generator=gen, device="cuda").float()
+    special = torch.randn(K_MAIN, 8195, generator=gen, device="cuda")
+    pick = torch.randint(0, 8, special.shape, generator=gen, device="cuda")
+    for code, value in ((0, float("nan")), (1, float("inf")), (2, float("-inf")), (3, -0.0)):
+        special = torch.where(pick == code, torch.full_like(special, value), special)
+    special[0] = float("nan")
+    special[1, :2048] = -0.0
+    return out + [("ties P=10 D=8193", ties), ("nan/inf/-0 P=10 D=8195", special)]
+
+
 def kernel_phase(torch, timer, bandwidth) -> dict:
     from repro_torch.kernels import aggregate as kagg
     from repro_torch.kernels import gram as kgram
+    from repro_torch.kernels import topk_mask as ktopk
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -157,6 +192,12 @@ def kernel_phase(torch, timer, bandwidth) -> dict:
         err = check_aggregate(f"weighted_aggregate P={p} D={d}", kagg.weighted_aggregate_cuda(w, u, pw),
                               kagg.weighted_aggregate_plain(w, u, pw), torch)
         print(f"  weighted_aggregate edge P={p:3d} D={d:7d}: max |Δ| {err:.2e}")
+    for label, u in topk_inputs(torch, gen):
+        for keep_frac in (0.001, 0.1, 0.5, 1.0):
+            check_bitwise(f"topk_mask_rows {label} keep_frac={keep_frac}",
+                          ktopk.topk_mask_rows_cuda(u, keep_frac=keep_frac),
+                          ktopk.topk_mask_rows_plain(u, keep_frac=keep_frac), torch)
+        print(f"  topk_mask_rows {label}: bitwise equal at keep_frac 0.001, 0.1, 0.5, 1.0")
 
     k, q, d = K_MAIN, Q_MAIN, D_MAIN
     u, v = randn(k, d), randn(q, d)
@@ -203,12 +244,39 @@ def kernel_phase(torch, timer, bandwidth) -> dict:
         library_ms=timer(lambda: torch.addmv(w, u.t(), pw)),
         shape=f"P={k} D={d}",
     ))
+    kf, bd = 0.1, ktopk.DEFAULT_BLOCK_D
+    k_keep = ktopk.keep_count(kf, bd)
+    check_bitwise("topk_mask_rows main", ktopk.topk_mask_rows_cuda(u, keep_frac=kf),
+                  ktopk.topk_mask_rows_plain(u, keep_frac=kf), torch)
+    padded = torch.nn.functional.pad(u, (0, (-d) % bd)).reshape(-1, bd)
+
+    def library_route():
+        mag = padded.abs()
+        kth = torch.topk(mag, k_keep, dim=1).values[:, k_keep - 1:]
+        return torch.where(mag >= kth, padded, 0.0)
+
+    # the selection's data-dependent work is counted as one compare per
+    # element per pattern bit of the radix select (31 bits)
+    b_ms, b_by = bound(4 * (k * d + k * d), 31 * k * d)
+    rows.append(dict(
+        name="topk_mask_rows", route="cuda", source="src/repro_torch/kernels/csrc/topk_mask.cu",
+        replaces="src/repro/kernels/topk_mask.py:38", max_abs_err=0.0, rel_err=0.0,
+        ms=timer(lambda: ktopk.topk_mask_rows_cuda(u, keep_frac=kf)),
+        plain_ms=timer(lambda: ktopk.topk_mask_rows_plain(u, keep_frac=kf)),
+        bound_ms=b_ms, bound_by=b_by,
+        # no single PyTorch call computes it; the two-call route below is
+        # printed and kept in PERF.md, not in the JSON line
+        library_ms=None, route_ms=timer(library_route),
+        shape=f"P={k} D={d} keep_frac={kf}",
+    ))
     for r in rows:
+        lib = (f"library {r['library_ms']:.4f} ms" if r["library_ms"] is not None
+               else f"torch.topk+torch.where (two calls) {r['route_ms']:.4f} ms")
         print(f"  {r['name']:<18} {r['shape']:<22} max|Δ| {r['max_abs_err']:.3e}  "
               f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-              f"library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
+              f"{lib}  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
               f"-> {100 * r['bound_ms'] / r['ms']:.1f}% of bound")
-    del u, v, w
+    del u, v, w, padded
     torch.cuda.empty_cache()
     return {r["name"]: r for r in rows}
 
@@ -251,6 +319,8 @@ def main_path(torch) -> dict:
         fail(f"weighted_aggregate launched {launches['weighted_aggregate']} times in {rounds} rounds")
     if launches["gram"] != exploit_rounds or exploit_rounds == 0:
         fail(f"gram launched {launches['gram']} times over {exploit_rounds} exploit rounds (want > 0)")
+    if launches["topk_mask_rows"] != 0:
+        fail(f"topk_mask_rows launched {launches['topk_mask_rows']} times on the FLrce path")
     for r in res.records:
         if not (math.isfinite(r.accuracy) and math.isfinite(r.mean_client_loss)):
             fail(f"round {r.t}: non-finite accuracy/loss")
@@ -314,10 +384,77 @@ def profile_phase(torch, ds, model, params, round_wall_s: float, rounds: int = 3
         print(f"  {us / 1e3 / rounds:9.3f} ms/round  {100 * us / total_us:5.1f}%  {name} (this port)")
 
 
+def run_baseline(torch, name, rounds, ds, model, params, **kw):
+    """One full-width baseline job, its launch counts read just after."""
+    from repro_torch.fl import baselines, run_federated
+    from repro_torch.kernels import ops
+
+    strategy = getattr(baselines, name)(100, 10, 2, seed=0, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = run_federated(model, ds, strategy, max_rounds=rounds, learning_rate=MAIN_LR, batch_size=32,
+                        seed=0, init_params=params, torch_device="cuda")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = {"cross_gram": 0, "gram": 0, "weighted_aggregate": rounds,
+            "topk_mask_rows": rounds if name == "Fedcom" else 0}
+    if launches != want:
+        fail(f"{name}: launches {launches}, want {want}")
+    if res.rounds_run != rounds:
+        fail(f"{name}: ran {res.rounds_run} of {rounds} rounds")
+    for r in res.records:
+        if not (math.isfinite(r.accuracy) and math.isfinite(r.mean_client_loss)):
+            fail(f"{name} round {r.t}: non-finite accuracy/loss")
+        if len(r.selected) != 10 or len(set(r.selected)) != 10:
+            fail(f"{name} round {r.t}: bad selection {r.selected}")
+    for pname, prm in res.final_params.items():
+        if not torch.isfinite(prm).all():
+            fail(f"{name}: final params {pname} not finite")
+    summary = {k: v for k, v in res.summary().items() if k != "stopped_early"}
+    print(f"  {name:<11} per-round wall " + ", ".join(f"{r.wall_s:.3f}" for r in res.records)
+          + f" s; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches {launches}")
+    print(f"  {name:<11} summary {json.dumps(summary)}")
+    return res, launches, strategy
+
+
+def baselines_phase(torch, ds, model, params) -> dict:
+    """Every §4.1 baseline at full width; Fedcom is the top-k kernel's path."""
+    import numpy as np
+
+    runs = {}
+    for name, rounds, kw in [("Fedcom", 4, dict(keep_frac=0.1)), ("FedAvg", 4, {}),
+                             ("Fedprox", 2, {}), ("Dropout", 2, dict(keep_rate=0.5)),
+                             ("TimelyFL", 2, {}), ("PyramidFL", 2, {}), ("QuantizedFL", 2, {})]:
+        runs[name] = run_baseline(torch, name, rounds, ds, model, params, **kw)
+    # QuantizedFL's stochastic-rounding uniforms are drawn on the host
+    strategy = runs["QuantizedFL"][2]
+    sizes = [p.numel() for p in params.values()]
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(int)
+    ids = np.asarray(runs["QuantizedFL"][0].records[-1].selected)
+    t0 = time.perf_counter()
+    unif = strategy.rounding_uniforms(1, ids, offsets)
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.from_numpy(unif).to("cuda")
+    torch.cuda.synchronize()
+    print(f"  QuantizedFL host Threefry uniforms: {unif.size} draws in {draw_s:.3f} s, "
+          f"copy to the card {time.perf_counter() - t0:.3f} s (per round)")
+
+    def steady(name):
+        walls = sorted(r.wall_s for r in runs[name][0].records[1:])
+        return walls[len(walls) // 2]
+
+    print(f"  steady round wall (median after round 0): Fedcom {steady('Fedcom'):.3f} s, "
+          f"FedAvg {steady('FedAvg'):.3f} s")
+    return runs["Fedcom"][1]
+
+
 def reference_check(torch) -> None:
-    """The same small federation on the card (kernels) and on the CPU (plain)."""
+    """The same small federations on the card (kernels) and on the CPU (plain)."""
     from repro_torch.data import make_federated_classification
     from repro_torch.fl import FLrce, run_federated
+    from repro_torch.fl.baselines import Fedcom
     from repro_torch.models import MLPClassifier
 
     ds = make_federated_classification(num_clients=8, alpha=0.1, num_samples=600, num_eval=200,
@@ -325,23 +462,28 @@ def reference_check(torch) -> None:
     model = MLPClassifier(10, 4, (16,))
     init = model.init(0, "cpu")
     dim = sum(p.numel() for p in init.values())
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        strat = FLrce(8, 3, 2, dim=dim, es_threshold=10.0, explore_decay=0.5, seed=0)
-        runs[dev] = run_federated(model, ds, strat, max_rounds=6, learning_rate=0.1, batch_size=16,
-                                  seed=0, init_params=init, torch_device=dev)
-    a, b = runs["cuda"], runs["cpu"]
+    for label, make in (
+        ("FLrce", lambda: FLrce(8, 3, 2, dim=dim, es_threshold=10.0, explore_decay=0.5, seed=0)),
+        ("Fedcom", lambda: Fedcom(8, 3, 2, seed=0, keep_frac=0.1)),
+    ):
+        runs = {dev: run_federated(model, ds, make(), max_rounds=6, learning_rate=0.1, batch_size=16,
+                                   seed=0, init_params=init, torch_device=dev)
+                for dev in ("cuda", "cpu")}
+        compare_runs(label, runs["cuda"], runs["cpu"])
+
+
+def compare_runs(label, a, b) -> None:
     if a.rounds_run != b.rounds_run or a.stopped_early != b.stopped_early:
-        fail("GPU and CPU runs differ in length or stop")
+        fail(f"{label}: GPU and CPU runs differ in length or stop")
     for ra, rb in zip(a.records, b.records):
         same = (ra.selected == rb.selected and ra.exploited == rb.exploited
                 and ra.stopped == rb.stopped and ra.energy_kj == rb.energy_kj
                 and ra.bytes_gb == rb.bytes_gb)
         if not same:
-            fail(f"round {ra.t}: GPU/CPU discrete results differ: {ra} vs {rb}")
+            fail(f"{label} round {ra.t}: GPU/CPU discrete results differ: {ra} vs {rb}")
         if abs(ra.accuracy - rb.accuracy) > 2e-3 or abs(ra.mean_client_loss - rb.mean_client_loss) > 1e-4:
-            fail(f"round {ra.t}: GPU/CPU accuracy or loss differ: {ra} vs {rb}")
-    print(f"  small federation GPU == CPU over {a.rounds_run} rounds: selections "
+            fail(f"{label} round {ra.t}: GPU/CPU accuracy or loss differ: {ra} vs {rb}")
+    print(f"  small {label} federation GPU == CPU over {a.rounds_run} rounds: selections "
           f"{[r.selected for r in a.records]}, exploited {[r.exploited for r in a.records]}")
 
 
@@ -388,16 +530,21 @@ def main() -> int:
     launches, (ds, model, params, round_wall_s) = main_path(torch)
     print("profile: the main path's device time by kernel")
     profile_phase(torch, ds, model, params, round_wall_s)
+
+    print("phase 2b: the §4.1 baselines at full width, M=100, P=10")
+    topk_launches = baselines_phase(torch, ds, model, params)
+    launches["topk_mask_rows"] = topk_launches["topk_mask_rows"]
     del ds, model, params
 
-    print("phase 3: small federation, GPU against CPU")
+    print("phase 3: small federations, GPU against CPU")
     reference_check(torch)
 
     kernels = []
-    for name in ("cross_gram", "gram", "weighted_aggregate"):
+    for name in ("cross_gram", "gram", "weighted_aggregate", "topk_mask_rows"):
         r = rows[name]
         kernels.append({
             "name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
+            # topk_mask_rows: its path is the Fedcom run; the others: FLrce's
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

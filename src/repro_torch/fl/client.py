@@ -7,6 +7,15 @@ axis.  A Python loop over the padded step axis takes the place of the
 reference's ``lax.scan``.  The returned update is ``w_local − w_global``
 after all local epochs, flattened in the reference's leaf order.
 
+Variants cover the baselines' local tweaks, as in the reference:
+
+* ``prox_mu``     — Fedprox proximal term µ/2·‖q − w_global‖² on the masked
+  params q;
+* ``mask``        — Dropout sub-model training (masked params, grads and
+  update);
+* ``freeze_frac`` — TimelyFL layer freezing (the first
+  ``int(freeze_frac · n_leaves)`` leaves in leaf order get no update).
+
 The batch schedule (:func:`build_cohort_plan`) is host NumPy, bitwise the
 reference's: ragged clients are padded within a batch (zero sample weight)
 and along the step axis (zero step validity), and a padded step changes no
@@ -15,7 +24,7 @@ parameter.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -125,15 +134,48 @@ def cohort_stats(losses: np.ndarray, plan: CohortPlan) -> List[Dict[str, float]]
     return out
 
 
+def freeze_flags(n_leaves: int, freeze_frac: float) -> np.ndarray:
+    """1.0 for trainable leaves, 0.0 for the frozen prefix (layer freezing):
+    the first ``int(freeze_frac · n_leaves)`` leaves in leaf order."""
+    n_frozen = int(freeze_frac * n_leaves)
+    return np.array([0.0 if i < n_frozen else 1.0 for i in range(n_leaves)], np.float32)
+
+
+def stack_freeze_flags(n_leaves: int, freeze_fracs: Sequence[float]) -> np.ndarray:
+    """(n_leaves, P) per-leaf trainability flags of a cohort."""
+    return np.stack([freeze_flags(n_leaves, float(f)) for f in freeze_fracs], axis=1)
+
+
+def stack_variant_trees(masks: Sequence[Optional[Params]], template: Params) -> Optional[Params]:
+    """Stack per-client mask dicts along a new leading axis, leaf by leaf.
+
+    A client without a mask gets all ones (multiplying by 1.0 is exact in
+    fp32, so it is untouched).  ``None`` when no client has a mask: the step
+    then skips masking entirely.
+    """
+    if all(m is None for m in masks):
+        return None
+    return {
+        k: torch.stack([
+            torch.ones_like(v) if m is None else m[k].to(device=v.device, dtype=v.dtype)
+            for m in masks
+        ])
+        for k, v in template.items()
+    }
+
+
 class BatchedCohortTrainer:
     """Runs all P selected clients' local epochs as one batched computation.
 
     Each step: ``vmap(grad_and_value(loss))`` over the client axis, where a
     client's loss is its per-example losses × sample weights, summed and
-    divided by ``max(Σw, 1)``; the gradient is gated by the step's validity
-    before the SGD update, so a padded step leaves the parameters bitwise
-    unchanged.  Steps past the last valid step of every client are such
-    no-ops for the whole cohort and are not run.
+    divided by ``max(Σw, 1)``, plus the prox term when some client has
+    µ > 0, on the params times the client's mask when some client has one.
+    The gradient is multiplied by the mask, then by the leaf's freeze flag ×
+    the step's validity before the SGD update, so a padded step leaves the
+    parameters bitwise unchanged.  Steps past the last valid step of every
+    client are such no-ops for the whole cohort and are not run.  Without
+    prox and masks (FedAvg) the step is the plain weighted loss.
     """
 
     def __init__(self, model, learning_rate: float, batch_size: int, device: DeviceLike = "cuda"):
@@ -141,33 +183,70 @@ class BatchedCohortTrainer:
         self.lr = float(learning_rate)
         self.batch_size = batch_size
         self.device = resolve_device(device)
+        self._steps: Dict[Tuple[bool, bool], object] = {}
 
-        def client_loss(params: Params, x, y, w):
-            per = model.per_example_loss(params, x, y)
-            return torch.sum(per * w) / torch.clamp(torch.sum(w), min=1.0)
+    def _step(self, use_prox: bool, has_mask: bool):
+        """The vmapped step for one (use_prox, has_mask) variant, built once."""
+        key = (use_prox, has_mask)
+        if key not in self._steps:
+            model = self.model
 
-        self._step = vmap(grad_and_value(client_loss))
+            def client_loss(params: Params, x, y, w, mask, anchor, mu):
+                q = {k: params[k] * mask[k] for k in params} if has_mask else params
+                per = model.per_example_loss(q, x, y)
+                base = torch.sum(per * w) / torch.clamp(torch.sum(w), min=1.0)
+                if use_prox:
+                    # on the masked params, over all leaves in leaf order
+                    sq = sum(torch.sum(torch.square(q[k] - anchor[k])) for k in q)
+                    base = base + 0.5 * mu * sq
+                return base
 
-    def train_cohort(self, global_params: Params, plan: CohortPlan) -> Tuple[torch.Tensor, List[Dict[str, float]]]:
+            self._steps[key] = vmap(
+                grad_and_value(client_loss),
+                in_dims=(0, 0, 0, 0, 0 if has_mask else None, None, 0),
+            )
+        return self._steps[key]
+
+    def train_cohort(
+        self,
+        global_params: Params,
+        plan: CohortPlan,
+        *,
+        prox_mus: Sequence[float],
+        masks: Sequence[Optional[Params]],
+        freeze_fracs: Sequence[float],
+    ) -> Tuple[torch.Tensor, List[Dict[str, float]]]:
         """Returns (flat (P, D) fp32 update matrix in leaf order, per-client stats)."""
         dev = self.device
         p, s_pad = plan.step_valid.shape
+        mask = stack_variant_trees(masks, global_params)
+        has_mask = mask is not None
+        use_prox = bool(np.any(np.asarray(prox_mus) > 0.0))
+        step = self._step(use_prox, has_mask)
+        mu = torch.from_numpy(np.asarray(prox_mus, np.float32)).to(dev)
         xs = torch.from_numpy(plan.x).to(dev)
         ys = torch.from_numpy(plan.y).to(dev).long()
         ws = torch.from_numpy(plan.sample_w).to(dev)
         valid = torch.from_numpy(plan.step_valid).to(dev)
+        # per-leaf (P, S) gates: the freeze flag times the step's validity,
+        # the reference's f · v for every step at once
+        flags = torch.from_numpy(stack_freeze_flags(len(global_params), freeze_fracs)).to(dev)
+        gates = {k: flags[i][:, None] * valid for i, k in enumerate(global_params)}
         params = {k: v.unsqueeze(0).expand(p, *v.shape).clone() for k, v in global_params.items()}
         losses = torch.zeros((p, s_pad), dtype=torch.float32, device=dev)
         any_valid = np.flatnonzero(plan.step_valid.max(axis=0) > 0)
         n_steps = int(any_valid[-1]) + 1 if any_valid.size else 0
         with torch.no_grad():
             for s in range(n_steps):
-                grads, loss = self._step(params, xs[:, s], ys[:, s], ws[:, s])
-                v = valid[:, s]
+                grads, loss = step(params, xs[:, s], ys[:, s], ws[:, s], mask, global_params, mu)
                 for k in params:
-                    gate = v.view(-1, *([1] * (params[k].dim() - 1)))
-                    params[k] = params[k] - self.lr * (grads[k] * gate)
+                    g = grads[k] * mask[k] if has_mask else grads[k]
+                    gate = gates[k][:, s].view(-1, *([1] * (params[k].dim() - 1)))
+                    params[k] = params[k] - self.lr * (g * gate)
                 losses[:, s] = loss
-            flat = flatten_rows({k: params[k] - global_params[k] for k in params})
+            update = {k: params[k] - global_params[k] for k in params}
+            if has_mask:
+                update = {k: update[k] * mask[k] for k in update}
+            flat = flatten_rows(update)
         stats = cohort_stats(losses.cpu().numpy(), plan)
         return flat, stats

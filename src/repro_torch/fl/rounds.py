@@ -1,9 +1,11 @@
 """The federated round loop (paper Algorithm 4's outer loop).
 
-Runs T rounds of: select → local training of the whole cohort (batched) →
-Eq. 4 aggregation through the ``weighted_aggregate`` kernel → strategy
-bookkeeping (FLrce's relationship ingest and Alg. 3 early stopping) →
-evaluation, with exact resource accounting through a :class:`ResourceLedger`.
+Runs T rounds of: select → local training of the whole cohort (batched, with
+the strategy's prox/mask/freeze variants) → the strategy's update transform
+on the device (Fedcom's top-k mask, QuantizedFL's int8 rounding) → Eq. 4
+aggregation through the ``weighted_aggregate`` kernel → strategy bookkeeping
+(FLrce's relationship ingest and Alg. 3 early stopping) → evaluation, with
+exact resource accounting through a :class:`ResourceLedger`.
 
 The port has one engine (``"batched"``) and one driver (``"loop"``): one
 Python iteration and one host sync per round.  The round's flat (D,) model
@@ -115,14 +117,6 @@ def finalize_result(
     )
 
 
-def _check_config(strategy: TorchStrategy, t: int, cid: int, cfg) -> None:
-    if cfg.prox_mu != 0.0 or cfg.mask is not None or cfg.freeze_frac != 0.0:
-        raise ValueError(
-            f"{strategy.name} asks for prox/mask/freeze local training (round {t}, "
-            f"client {cid}); the port trains plain local SGD only"
-        )
-
-
 def run_federated(
     model,
     dataset: FederatedDataset,
@@ -152,6 +146,8 @@ def run_federated(
         params = {k: v.to(dev, torch.float32) for k, v in init_params.items()}
     n_params = param_count(params)
     strategy.bind_device(dev)
+    # the strategy's update post-processing stage, built once per job
+    transform = strategy.update_transform(params)
     trainer = BatchedCohortTrainer(model, learning_rate, batch_size, dev)
     ledger = ResourceLedger(device=device)
     eval_x = torch.from_numpy(dataset.eval_x).to(dev)
@@ -167,8 +163,6 @@ def run_federated(
         # relationship modeling and early stopping
         w_before, unflatten = flatten_params(params)
         cfgs = [strategy.client_config(t, int(cid), params) for cid in ids]
-        for cid, cfg in zip(ids, cfgs):
-            _check_config(strategy, t, int(cid), cfg)
         rngs = [client_batch_rng(seed, t, int(cid)) for cid in ids]
         plan = build_cohort_plan(
             [dataset.client_data(int(cid)) for cid in ids],
@@ -176,7 +170,15 @@ def run_federated(
             batch_size,
             rngs,
         )
-        update_matrix, stats = trainer.train_cohort(params, plan)
+        update_matrix, stats = trainer.train_cohort(
+            params,
+            plan,
+            prox_mus=[cfg.prox_mu for cfg in cfgs],
+            masks=[cfg.mask for cfg in cfgs],
+            freeze_fracs=[cfg.freeze_frac for cfg in cfgs],
+        )
+        if transform is not None:
+            update_matrix = transform(t, np.asarray(ids), update_matrix)
 
         # resource accounting: host float64 arithmetic, as in the reference
         for cid, cfg in zip(ids, cfgs):

@@ -1,14 +1,15 @@
 """Strategy interface: what varies between FLrce and the baselines.
 
 A strategy controls client selection, the per-client local-training config,
-per-round bookkeeping with the stop decision, and the ledger's cost
-fractions.  The port runs the per-round loop driver only; the reference's
-compiled-driver and mesh hooks have no counterpart here.
+an update transform on the device (compression), per-round bookkeeping with
+the stop decision, and the ledger's cost fractions.  The port runs the
+per-round loop driver only; the reference's compiled-driver and mesh hooks
+have no counterpart here.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -53,12 +54,34 @@ class TorchStrategy:
         """Per-(round, client) local-training metadata + ledger fractions."""
         return LocalConfig(epochs=self.epochs)
 
+    def update_transform(self, template) -> Optional[Callable]:
+        """The strategy's update post-processing stage, run on the device.
+
+        ``None`` (identity) or ``apply(t, ids, u) -> u'``: ``t`` is the round
+        index, ``ids`` the selected client ids (host ints) and ``u`` the flat
+        (P, D) fp32 update matrix in leaf order on the run's device; the
+        result has u's shape and device.  ``apply`` must be deterministic
+        given ``(t, ids, u)``: randomness comes from keys folded from the
+        strategy seed and ``(t, cid)``, never from host RNG state.
+        ``template`` is the global parameter dict; static leaf sizes and
+        offsets are read from it here, once per job.  Upload byte fractions
+        are reported through :meth:`client_config`.
+        """
+        return None
+
+    @property
+    def transforms_updates(self) -> bool:
+        """True when :meth:`update_transform` is overridden (derived, so a new
+        compression strategy cannot skip its own stage)."""
+        return type(self).update_transform is not TorchStrategy.update_transform
+
     def post_round(
         self,
         t: int,
         w_before: torch.Tensor,       # (D,) flat global model sent this round
         client_ids: np.ndarray,
-        update_matrix: torch.Tensor,  # (P, D) flat client updates
+        update_matrix: torch.Tensor,  # (P, D) flat client updates, after
+        #                               the update transform
         stats: list,
     ) -> bool:
         """Per-round bookkeeping with the round's flat device buffers; returns

@@ -12,8 +12,9 @@ import torch
 
 from repro_torch.kernels import aggregate as _aggregate
 from repro_torch.kernels import gram as _gram
+from repro_torch.kernels import topk_mask as _topk_mask
 
-KERNELS = ("cross_gram", "gram", "weighted_aggregate")
+KERNELS = ("cross_gram", "gram", "weighted_aggregate", "topk_mask_rows")
 
 
 def _device_type(name: str, *tensors: torch.Tensor) -> str:
@@ -47,12 +48,30 @@ def weighted_aggregate(w: torch.Tensor, u: torch.Tensor, p: torch.Tensor) -> tor
     return _aggregate.weighted_aggregate_plain(w, u, p)
 
 
+def topk_mask_rows(
+    u: torch.Tensor, *, keep_frac: float = 0.1, block_d: int = _topk_mask.DEFAULT_BLOCK_D
+) -> torch.Tensor:
+    """Row-wise block-local magnitude top-k mask of (P, D); dtype kept."""
+    if _device_type("topk_mask_rows", u) == "cuda":
+        return _topk_mask.topk_mask_rows_cuda(u, keep_frac=keep_frac, block_d=block_d)
+    return _topk_mask.topk_mask_rows_plain(u, keep_frac=keep_frac, block_d=block_d)
+
+
+def topk_mask(
+    u: torch.Tensor, *, keep_frac: float = 0.1, block_d: int = _topk_mask.DEFAULT_BLOCK_D
+) -> torch.Tensor:
+    """Block-local top ``ceil(keep_frac·block_d)`` magnitudes of (D,): row 0
+    of the row form."""
+    return topk_mask_rows(u[None, :], keep_frac=keep_frac, block_d=block_d)[0]
+
+
 def launch_counts() -> Dict[str, int]:
     """How many times each kernel's wrapper launched it since the last reset."""
     return {
         "cross_gram": _gram.CROSS_GRAM_LAUNCHES,
         "gram": _gram.GRAM_LAUNCHES,
         "weighted_aggregate": _aggregate.AGGREGATE_LAUNCHES,
+        "topk_mask_rows": _topk_mask.TOPK_MASK_LAUNCHES,
     }
 
 
@@ -60,3 +79,4 @@ def reset_launch_counts() -> None:
     _gram.CROSS_GRAM_LAUNCHES = 0
     _gram.GRAM_LAUNCHES = 0
     _aggregate.AGGREGATE_LAUNCHES = 0
+    _topk_mask.TOPK_MASK_LAUNCHES = 0

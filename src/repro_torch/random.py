@@ -1,12 +1,14 @@
 """Threefry-2x32 keys in NumPy, bitwise equal to ``jax.random``.
 
 Alg. 2 (client selection) consumes a key chain, a float32 Bernoulli flip and
-a permutation; the port must draw exactly the reference's clients, so the
+a permutation, and QuantizedFL's stochastic rounding consumes uniforms keyed
+by ``fold_in``; the port must draw exactly the reference's numbers, so the
 generator is re-implemented here rather than replaced by ``torch.Generator``.
-Only the pieces the selection path consumes exist:
+Only the pieces those paths consume exist:
 
-* :func:`PRNGKey`, :func:`split` (the partitionable "fold-like" split);
-* :func:`uniform` — a float32 scalar in [0, 1);
+* :func:`PRNGKey`, :func:`split` (the partitionable "fold-like" split),
+  :func:`fold_in`;
+* :func:`uniform` — float32 in [0, 1), a scalar or any shape;
 * :func:`permutation` / :func:`choice` (``replace=False``) — the sort-based
   shuffle: ``ceil(3·ln n / ln(2³²−1))`` rounds of a stable sort by fresh
   32-bit keys.
@@ -17,6 +19,9 @@ These follow ``jax._src.prng`` (``threefry_2x32``, ``_threefry_split_foldlike``,
 default of jax 0.9.  A key is a ``(2,)`` uint32 array.
 """
 from __future__ import annotations
+
+import math
+from typing import Tuple
 
 import numpy as np
 
@@ -64,6 +69,17 @@ def split(key: np.ndarray, num: int = 2) -> np.ndarray:
     return np.stack([b0[:num], b1[:num]], axis=1)
 
 
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)``: hash the uint32 ``data`` into a key.
+
+    The reference seeds a key ``[0, data]`` from the 32-bit value and hashes
+    it as one count pair under ``key``.
+    """
+    d = np.uint32(int(data) & _U32_MAX)
+    b0, b1 = threefry_2x32(key, np.array([0], np.uint32), np.array([d], np.uint32))
+    return np.array([b0[0], b1[0]], np.uint32)
+
+
 def random_bits(key: np.ndarray, n: int) -> np.ndarray:
     """n uint32 words, as ``_random_bits(key, 32, (n,))`` draws them."""
     hi, lo = _counts(n)
@@ -71,11 +87,18 @@ def random_bits(key: np.ndarray, n: int) -> np.ndarray:
     return (b0 ^ b1)[:n]
 
 
-def uniform(key: np.ndarray) -> np.float32:
-    """``jax.random.uniform(key)``: a float32 scalar in [0, 1)."""
-    bits = random_bits(key, 1)[0]
+def uniform(key: np.ndarray, shape: Tuple[int, ...] = ()):
+    """``jax.random.uniform(key, shape)``: float32 in [0, 1).
+
+    A scalar (``np.float32``) for ``shape=()``, else an array of ``shape``
+    whose element i (row-major) comes from count i, as the reference's
+    partitionable bits lay them out.
+    """
+    n = math.prod(shape)
+    bits = random_bits(key, n) if n else np.zeros(0, np.uint32)
     mant = (bits >> np.uint32(9)) | np.uint32(0x3F800000)
-    return np.float32(np.array(mant, np.uint32).view(np.float32) - np.float32(1.0))
+    floats = mant.view(np.float32) - np.float32(1.0)
+    return floats[0] if shape == () else floats.reshape(shape)
 
 
 def permutation(key: np.ndarray, n: int) -> np.ndarray:
@@ -98,4 +121,4 @@ def choice(key: np.ndarray, n: int, size: int, replace: bool = False) -> np.ndar
     return permutation(key, n)[:size]
 
 
-__all__ = ["PRNGKey", "split", "uniform", "permutation", "choice", "threefry_2x32"]
+__all__ = ["PRNGKey", "split", "fold_in", "uniform", "permutation", "choice", "threefry_2x32"]

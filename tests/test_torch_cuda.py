@@ -49,7 +49,8 @@ def test_gram_kernel_matches_plain(cuda, p, d):
     u = torch.randn(p, d, generator=torch.Generator(device=cuda).manual_seed(p), device=cuda)
     got = ops.gram(u)
     assert torch.all((got - gram.gram_plain(u)).abs() <= 1e-4 * _scale(u, u))
-    assert ops.launch_counts() == {"cross_gram": 0, "gram": 1, "weighted_aggregate": 0}
+    assert ops.launch_counts() == {"cross_gram": 0, "gram": 1, "weighted_aggregate": 0,
+                                   "topk_mask_rows": 0}
 
 
 @pytest.mark.parametrize("p,d", [(10, 1), (10, 2049), (1, 595914), (10, 4096), (3, 7)])
@@ -77,7 +78,56 @@ def test_wrappers_reject_bad_operands(cuda):
         ops.cross_gram(u, torch.randn(4, 8))
     with pytest.raises(ValueError):
         ops.weighted_aggregate(torch.randn(7, device=cuda), u, torch.rand(4, device=cuda))
-    assert ops.launch_counts() == {"cross_gram": 0, "gram": 0, "weighted_aggregate": 0}
+    with pytest.raises(ValueError):
+        ops.topk_mask_rows(u.double())
+    with pytest.raises(ValueError):
+        ops.topk_mask_rows(u.t())
+    with pytest.raises(ValueError):
+        ops.topk_mask_rows(u, block_d=8192)
+    assert ops.launch_counts() == {"cross_gram": 0, "gram": 0, "weighted_aggregate": 0,
+                                   "topk_mask_rows": 0}
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("p,d", [(10, 1), (10, 2047), (10, 2049), (1, 595914), (17, 5000)])
+@pytest.mark.parametrize("keep_frac", [0.001, 0.1, 0.5, 1.0])
+def test_topk_mask_rows_kernel_matches_plain_bitwise(cuda, p, d, keep_frac):
+    from repro_torch.kernels import ops, topk_mask
+
+    u = torch.randn(p, d, generator=torch.Generator(device=cuda).manual_seed(d), device=cuda)
+    got = ops.topk_mask_rows(u, keep_frac=keep_frac)
+    want = topk_mask.topk_mask_rows_plain(u, keep_frac=keep_frac)
+    assert torch.equal(_bits(got), _bits(want))
+    assert ops.launch_counts()["topk_mask_rows"] == 1
+
+
+@pytest.mark.parametrize("block_d", [8, 512, 2048, 4096])
+def test_topk_mask_rows_kernel_ties_and_non_finite(cuda, block_d):
+    """Ties from a small integer set, and NaN, ±inf and -0.0, bitwise."""
+    from repro_torch.kernels import ops, topk_mask
+
+    g = torch.Generator(device=cuda).manual_seed(block_d)
+    ties = torch.randint(-3, 4, (5, 3 * block_d + 5), generator=g, device=cuda).float()
+    special = torch.randn(6, 2 * block_d + 3, generator=g, device=cuda)
+    pick = torch.randint(0, 8, special.shape, generator=g, device=cuda)
+    for code, value in ((0, float("nan")), (1, float("inf")), (2, float("-inf")), (3, -0.0)):
+        special = torch.where(pick == code, torch.full_like(special, value), special)
+    special[0] = float("nan")                        # a NaN threshold zeroes the tile
+    special[1, :block_d] = -0.0
+    for u in (ties, special):
+        for keep_frac in (0.001, 0.1, 0.5, 1.0):
+            got = ops.topk_mask_rows(u, keep_frac=keep_frac, block_d=block_d)
+            want = topk_mask.topk_mask_rows_plain(u, keep_frac=keep_frac, block_d=block_d)
+            assert torch.equal(_bits(got), _bits(want)), (keep_frac, block_d)
+            assert torch.equal(_bits(got), _bits(ops.topk_mask_rows(u, keep_frac=keep_frac,
+                                                                    block_d=block_d)))
+    tile = torch.tensor([1.0, float("nan"), 3.0, float("-inf"), 0.5, -0.0, 2.0, 2.0], device=cuda)
+    for k_frac, kept in ((2 / 8, [3]), (3 / 8, [2, 3])):
+        out = ops.topk_mask(tile, keep_frac=k_frac, block_d=8)
+        assert torch.nonzero(out).flatten().tolist() == kept
 
 
 def test_small_federation_gpu_matches_cpu(cuda):
@@ -106,6 +156,36 @@ def test_small_federation_gpu_matches_cpu(cuda):
     assert [r.selected for r in a.records] == [r.selected for r in b.records]
     assert [r.exploited for r in a.records] == [r.exploited for r in b.records]
     for ra, rb in zip(a.records, b.records):
+        assert ra.energy_kj == rb.energy_kj and ra.bytes_gb == rb.bytes_gb
+        assert abs(ra.accuracy - rb.accuracy) <= 2e-3
+        assert abs(ra.mean_client_loss - rb.mean_client_loss) <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["Fedcom", "Dropout", "TimelyFL", "Fedprox", "QuantizedFL"])
+def test_small_baseline_federation_gpu_matches_cpu(cuda, name):
+    from repro_torch.data import make_federated_classification
+    from repro_torch.fl import baselines, run_federated
+    from repro_torch.kernels import ops
+    from repro_torch.models import MLPClassifier
+
+    ds = make_federated_classification(num_clients=8, num_samples=600, num_eval=200,
+                                       feature_dim=10, num_classes=4, seed=3)
+    model = MLPClassifier(10, 4, (16,))
+    init = model.init(0, "cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        ops.reset_launch_counts()
+        strat = getattr(baselines, name)(8, 3, 2, seed=0)
+        runs[dev] = run_federated(model, ds, strat, max_rounds=4, learning_rate=0.1,
+                                  batch_size=16, init_params=init, torch_device=dev)
+        if dev == "cuda":
+            counts = ops.launch_counts()
+    a, b = runs["cuda"], runs["cpu"]
+    assert counts["weighted_aggregate"] == a.rounds_run == 4
+    assert counts["topk_mask_rows"] == (a.rounds_run if name == "Fedcom" else 0)
+    assert counts["cross_gram"] == counts["gram"] == 0
+    for ra, rb in zip(a.records, b.records):
+        assert ra.selected == rb.selected
         assert ra.energy_kj == rb.energy_kj and ra.bytes_gb == rb.bytes_gb
         assert abs(ra.accuracy - rb.accuracy) <= 2e-3
         assert abs(ra.mean_client_loss - rb.mean_client_loss) <= 1e-4

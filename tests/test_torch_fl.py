@@ -137,8 +137,9 @@ def test_unsupported_options_raise():
                dict(max_rounds=0)):
         with pytest.raises(ValueError):
             trun(model, ds, Strategy(4, 2, 1), torch_device="cpu", **kw)
-    with pytest.raises(ValueError, match="prox"):
-        trun(model, ds, _ProxStrategy(4, 2, 1), max_rounds=1, torch_device="cpu")
+    # prox local training runs
+    res = trun(model, ds, _ProxStrategy(4, 2, 1), max_rounds=1, torch_device="cpu")
+    assert res.rounds_run == 1 and np.isfinite(res.records[0].mean_client_loss)
     res = trun(model, ds, Strategy(4, 2, 1, seed=1), max_rounds=2, torch_device="cpu")
     assert res.rounds_run == 2 and not any(r.exploited for r in res.records)
     strat = TFLrce(4, 2, 1, dim=26)

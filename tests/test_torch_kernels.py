@@ -26,7 +26,8 @@ def _scale(u, v):
 def _fresh_counts():
     tops.reset_launch_counts()
     yield
-    assert tops.launch_counts() == {"cross_gram": 0, "gram": 0, "weighted_aggregate": 0}
+    assert tops.launch_counts() == {"cross_gram": 0, "gram": 0, "weighted_aggregate": 0,
+                                    "topk_mask_rows": 0}
 
 
 @pytest.mark.parametrize("d", DIMS)
