@@ -3,30 +3,44 @@
 
     python3 chip_smoke.py
 
-1. Builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-   ``nvcc`` for ``sm_90a`` and prints the build time.
-2. Kernel phase: holds each kernel against its plain PyTorch version on the
-   card, at the main paths' shapes (K = P = 10, Q = M = 100, D = 595,914)
-   and at edge shapes, and times the kernel, the plain version and one
+1. Builds the five CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+   ``nvcc`` for ``sm_90a`` (one process per source, started together) and
+   prints the build time and each kernel's registers and spills.
+   Kernel phase: holds each kernel against its plain PyTorch version on the
+   card, at the main paths' shapes (K = P = 10, Q = M = 100, D = 595,914;
+   gemma3-4b's decode attention at the serve run's last step and at a 32k
+   cache) and at edge shapes, and times the kernel, the plain version and one
    PyTorch library call computing the same function (CUDA events, L2
    flushed before every launch), beside the least time the card could take.
    ``topk_mask_rows`` must equal its plain version bitwise, ties, NaN, ±inf
-   and -0.0 included.
-3. Main path: the paper's CIFAR-10 model (§4.1 2conv+3fc, D = 595,914) in a
+   and -0.0 included; ``decode_attention`` within 1e-5·max|V| in fp32 and
+   one ulp in bf16.
+2. Main path: the paper's CIFAR-10 model (§4.1 2conv+3fc, D = 595,914) in a
    100-client federation, 6 FLrce rounds through ``run_federated`` on the
    card.  Every kernel's launch count is reset just before the run and read
    just after; each kernel of the path must have run on it.
    Then 3 more rounds run under ``torch.profiler``: the device time by
    kernel and the device's busy share of the wall time are printed.
-4. Baselines (§4.1) on the same federation at full width: 4 Fedcom rounds
+   2b. Baselines (§4.1) on the same federation at full width: 4 Fedcom rounds
    (``topk_mask_rows`` once per round), 4 FedAvg rounds and 2 rounds each
    of Fedprox, Dropout, TimelyFL, PyramidFL and QuantizedFL, each with the
    launch counts reset just before and read just after, and the time of
    QuantizedFL's host-drawn rounding uniforms.
-5. Reference check: small federations (FLrce, Fedcom) run on the card and on
+3. Reference check: small federations (FLrce, Fedcom) run on the card and on
    the CPU (the kernels' plain versions) must make the same selections,
    exploit flags, stop decision and ledger charges, with accuracies and
    losses within fp32 tolerance.
+4. Serving: gemma3-4b at full width (3.88 B parameters, bf16, 34 layers,
+   random weights from seed 0) through ``repro_torch.launch.serve.generate``:
+   8 requests × (1536 prompt + 64 generated) tokens, cache_len 1600, so the
+   29 local layers' 1024-slot rings wrap.  ``decode_attention`` must launch
+   34 times per decode step (34 × 1599), with the counts reset just before
+   and read just after.  Prints prefill and generation wall time, tokens/s,
+   per-step wall time and peak memory; then 8 decode steps under
+   ``torch.profiler``: device time by kernel and the busy share.
+5. A small gemma3-family model (8 layers, window 8, fp32) teacher-forced over
+   20 positions on the card and on the CPU: logits within 1e-4 of
+   max|logit|, greedy tokens equal.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the exit code is
@@ -69,6 +83,44 @@ def gpu_identity() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip()
+
+
+def short_kernel_name(mangled: str) -> str:
+    """``ns::name<args>`` of a mangled kernel name as ``name`` and its mangled
+    template arguments (``_ZN<n><namespace><m><name>I...EE...``)."""
+    import re
+
+    rest = mangled
+    m = re.match(r"_ZN(\d+)", rest)
+    if m:                                   # skip the (anonymous) namespace
+        rest = rest[m.end() + int(m.group(1)):]
+    m = re.match(r"(?:_Z)?(\d+)", rest)
+    if not m:
+        return mangled[:60]
+    name, tail = rest[m.end():m.end() + int(m.group(1))], rest[m.end() + int(m.group(1)):]
+    args = tail[1:tail.index("EE")] if tail.startswith("I") and "EE" in tail else ""
+    return f"{name}<{args}>" if args else name
+
+
+def ptxas_summary(log: str) -> list:
+    """One line per compiled kernel from ``-Xptxas -v``: registers and spill
+    bytes."""
+    import re
+
+    out, name, spills = [], None, "spills not reported"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = m.group(1), "spills not reported"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = f"spill stores/loads {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{short_kernel_name(name)}: {m.group(1)} registers, {spills}")
+            name = None
+    return out
 
 
 def memory_bandwidth(torch) -> tuple:
@@ -319,8 +371,9 @@ def main_path(torch) -> dict:
         fail(f"weighted_aggregate launched {launches['weighted_aggregate']} times in {rounds} rounds")
     if launches["gram"] != exploit_rounds or exploit_rounds == 0:
         fail(f"gram launched {launches['gram']} times over {exploit_rounds} exploit rounds (want > 0)")
-    if launches["topk_mask_rows"] != 0:
-        fail(f"topk_mask_rows launched {launches['topk_mask_rows']} times on the FLrce path")
+    for name in ("topk_mask_rows", "decode_attention"):
+        if launches[name] != 0:
+            fail(f"{name} launched {launches[name]} times on the FLrce path")
     for r in res.records:
         if not (math.isfinite(r.accuracy) and math.isfinite(r.mean_client_loss)):
             fail(f"round {r.t}: non-finite accuracy/loss")
@@ -397,7 +450,7 @@ def run_baseline(torch, name, rounds, ds, model, params, **kw):
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     want = {"cross_gram": 0, "gram": 0, "weighted_aggregate": rounds,
-            "topk_mask_rows": rounds if name == "Fedcom" else 0}
+            "topk_mask_rows": rounds if name == "Fedcom" else 0, "decode_attention": 0}
     if launches != want:
         fail(f"{name}: launches {launches}, want {want}")
     if res.rounds_run != rounds:
@@ -487,6 +540,321 @@ def compare_runs(label, a, b) -> None:
           f"{[r.selected for r in a.records]}, exploited {[r.exploited for r in a.records]}")
 
 
+# ---------------------------------------------------------------------------
+# decode attention and the serving path (gemma3-4b)
+# ---------------------------------------------------------------------------
+# gemma3-4b at serving: 4 KV heads, groups of 2 query heads, head_dim 256
+SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 1536, 64
+SERVE_CACHE = SERVE_PROMPT + SERVE_GEN           # 1600
+SERVE_STEPS = SERVE_PROMPT + SERVE_GEN - 1       # 1599 decode steps
+GEMMA3_LAYERS, GEMMA3_PARAMS = 34, 3_879_907_840
+DECODE_FP32_RTOL = 1e-5    # |Δ| ≤ 1e-5·max|V|: fp32 sums reordered across splits
+                           # (+ half a bf16 ulp for a bf16 output's rounding)
+SERVE_LOGIT_RTOL = 1e-4    # GPU vs CPU logits, |Δ| / max|logit|, fp32 end to end
+
+# (label, B, S, K, G, hd, dtype, lengths, window, ring): edge cases
+DECODE_EDGES = [
+    ("length 1", 3, 700, 4, 2, 256, "bf16", [1, 1, 1], 0, False),
+    ("length 0", 3, 333, 2, 2, 256, "fp32", [0, 333, 17], 0, False),
+    ("length 0 ring", 2, 100, 2, 2, 256, "bf16", [0, 7], 16, True),
+    ("ragged", 4, 1600, 4, 2, 256, "bf16", [1600, 1, 800, 1599], 0, False),
+    ("S=1601 not a split multiple", 2, 1601, 4, 2, 256, "bf16", [1601, 1583], 0, False),
+    ("non-ring window", 2, 3000, 4, 2, 256, "bf16", [3000, 1500], 1024, False),
+    ("fp32", 2, 1600, 4, 2, 256, "fp32", [1600, 999], 0, False),
+    ("hd64 G1", 2, 257, 2, 1, 64, "fp32", [257, 100], 0, False),
+    ("hd64 G3", 2, 257, 2, 3, 64, "bf16", [257, 3], 0, False),
+    ("hd128 G1", 2, 515, 3, 1, 128, "bf16", [515, 514], 0, False),
+    ("hd128 G3", 2, 515, 1, 3, 128, "fp32", [515, 1], 0, False),
+    ("hd256 G8", 1, 2048, 1, 8, 256, "bf16", [2048], 0, False),
+]
+
+
+def decode_inputs(torch, gen, b, s, kv, g, hd, dtype, lengths):
+    dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
+    q = torch.randn(b, kv * g, hd, generator=gen, device="cuda").to(dt)
+    k = torch.empty(b, s, kv, hd, device="cuda", dtype=dt)
+    v = torch.empty(b, s, kv, hd, device="cuda", dtype=dt)
+    for t in (k, v):   # in slices, so the fp32 draw of a 32k cache stays small
+        for i in range(b):
+            t[i] = torch.randn(s, kv, hd, generator=gen, device="cuda").to(dt)
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+def check_decode(name, got, want32, v, torch) -> float:
+    """Hold the kernel's output against the plain version's fp32 result before
+    any rounding (``want32``, the plain version on fp32 copies of the same
+    inputs): |Δ| ≤ 1e-5·max|V| for the fp32 sums taken in another order,
+    plus, for a bf16 output, half a bf16 ulp for its rounding.  (Within one
+    ulp of the plain version's own bf16 output does not hold near 0, where
+    cancellation leaves the fp32 reorder error larger than the ulp.)
+    Returns max |Δ|."""
+    torch.cuda.synchronize()
+    if got.shape != want32.shape or want32.dtype != torch.float32:
+        fail(f"{name}: {tuple(got.shape)} != {tuple(want32.shape)} or reference not fp32")
+    g = got.float()
+    if not torch.isfinite(g).all():
+        fail(f"{name}: non-finite output")
+    err = (g - want32).abs()
+    limit = torch.full_like(g, DECODE_FP32_RTOL * float(v.float().abs().max()))
+    if got.dtype == torch.bfloat16:
+        mag = torch.maximum(g.abs(), want32.abs()).clamp_min(1e-30)
+        limit = limit + 0.5 * torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    if not bool((err <= limit).all()):
+        i = int((err - limit).argmax())
+        fail(f"{name}: {int((err > limit).sum())} outputs beyond tolerance; worst got "
+             f"{float(g.flatten()[i])!r} want {float(want32.flatten()[i])!r}")
+    return float(err.max())
+
+
+def sdpa_call(torch, q, k, v):
+    """One PyTorch call computing decode attention over the whole cache
+    (lengths = S): scaled_dot_product_attention with enable_gqa, or over K/V
+    repeated across the group where the installed torch lacks it."""
+    F = torch.nn.functional
+    qh = q[:, :, None, :]                               # (B, H, 1, hd)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)      # (B, K, S, hd) views
+    try:
+        F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True)
+        return (lambda: F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True)), \
+            "scaled_dot_product_attention(enable_gqa=True)"
+    except TypeError:
+        group = q.shape[1] // k.shape[2]
+        kr = kh.repeat_interleave(group, dim=1)
+        vr = vh.repeat_interleave(group, dim=1)
+        return (lambda: F.scaled_dot_product_attention(qh, kr, vr)), \
+            "scaled_dot_product_attention over K/V repeated across the group"
+
+
+def decode_kernel_phase(torch, timer, bandwidth) -> dict:
+    """decode_attention against its plain version at the serve run's shapes,
+    a 32k cache and edge cases; times at the three main shapes."""
+    from repro_torch.kernels import decode_attention as kdec
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for label, b, s, kv, g, hd, dtype, lengths, window, ring in DECODE_EDGES:
+        q, k, v, length = decode_inputs(torch, gen, b, s, kv, g, hd, dtype, lengths)
+        err = check_decode(f"decode_attention {label}",
+                           kdec.decode_attention_cuda(q, k, v, length, window=window, ring=ring),
+                           kdec.decode_attention_plain(q.float(), k.float(), v.float(), length,
+                                                       window=window, ring=ring), v, torch)
+        print(f"  decode_attention edge {label:<28} B={b} S={s:5d} K={kv} G={g} hd={hd} {dtype}: "
+              f"max |Δ| {err:.2e}")
+    rows = {}
+    # (label, B, S, lengths, window, ring): the global layer at the serve run's
+    # last step, a local ring layer there, and decode_32k's cache (B cut to 16)
+    for label, b, s, length, window, ring in (
+            ("global", SERVE_B, SERVE_CACHE, SERVE_CACHE, 0, False),
+            ("ring", SERVE_B, 1024, SERVE_CACHE, 1024, True),
+            ("32k", 16, 32_768, 32_768, 0, False)):
+        q, k, v, lens = decode_inputs(torch, gen, b, s, 4, 2, 256, "bf16", [length] * b)
+        kern = lambda: kdec.decode_attention_cuda(q, k, v, lens, window=window, ring=ring)  # noqa: E731
+        plain = lambda: kdec.decode_attention_plain(q, k, v, lens, window=window, ring=ring)  # noqa: E731
+        err = check_decode(f"decode_attention {label}", kern(),
+                           kdec.decode_attention_plain(q.float(), k.float(), v.float(), lens,
+                                                       window=window, ring=ring), v, torch)
+        valid = min(length, s)
+        nbytes = 2 * b * valid * 4 * 256 * 2 + 2 * q.numel() * 2   # valid K/V + q + out
+        flops = 4 * b * 8 * valid * 256                             # QKᵀ and PV
+        t_bytes, t_ops = nbytes / bandwidth, flops / FP32_PEAK_FLOPS
+        lib_fn, lib_name = sdpa_call(torch, q, k, v)
+        rows[label] = dict(
+            name="decode_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention.py:86", max_abs_err=err,
+            ms=timer(kern), plain_ms=timer(plain),
+            bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=timer(lib_fn), library_name=lib_name,
+            shape=f"{label} B={b} S={s} valid={valid} K=4 G=2 hd=256 bf16",
+        )
+        r = rows[label]
+        print(f"  decode_attention {r['shape']:<44} max|Δ| {err:.3e}  kernel {r['ms']:.4f} ms  "
+              f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms ({lib_name})  "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes / 1e6:.1f} MB) "
+              f"-> {100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+        del q, k, v, lens
+        torch.cuda.empty_cache()
+    return rows
+
+
+def serve_phase(torch) -> tuple:
+    """gemma3-4b at full width through repro_torch.launch.serve.generate:
+    8 requests × (1536 prompt + 64 generated) tokens, every step timed."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import TransformerLM
+
+    cfg = get_arch("gemma3-4b")
+    model = TransformerLM(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, "cuda")
+    torch.cuda.synchronize()
+    n_params = params["embed"].numel() + params["final_norm"]["scale"].numel() + sum(
+        t.numel() for layer in params["layers"] for part in layer.values() for t in part.values())
+    if cfg.param_count() != GEMMA3_PARAMS or n_params != GEMMA3_PARAMS:
+        fail(f"gemma3-4b has {n_params} parameters (config {cfg.param_count()}), want {GEMMA3_PARAMS}")
+    if len(params["layers"]) != GEMMA3_LAYERS or params["embed"].dtype != torch.bfloat16:
+        fail("gemma3-4b: wrong depth or dtype")
+    print(f"  {cfg.name}: {n_params} parameters ({n_params * 2 / 1e9:.2f} GB bf16), "
+          f"{GEMMA3_LAYERS} layers ({cfg.layer_kinds().count('attn_local')} local ring of "
+          f"{cfg.window}, {cfg.layer_kinds().count('attn_global')} global), init on the card "
+          f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT), generator=gen, device="cuda")
+    stamps = []
+
+    def on_step(pos):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    seq = generate(model, params, prompt, SERVE_GEN, SERVE_CACHE, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    want = {"cross_gram": 0, "gram": 0, "weighted_aggregate": 0, "topk_mask_rows": 0,
+            "decode_attention": GEMMA3_LAYERS * SERVE_STEPS}
+    if launches != want:
+        fail(f"serve: launches {launches}, want {want}")
+    if tuple(seq.shape) != (SERVE_B, SERVE_CACHE) or not torch.equal(seq[:, :SERVE_PROMPT], prompt):
+        fail(f"serve: output {tuple(seq.shape)} does not extend the prompt")
+    if int(seq.min()) < 0 or int(seq.max()) >= cfg.vocab_size or len(stamps) != SERVE_STEPS:
+        fail("serve: tokens out of the vocabulary or steps missing")
+    steps = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    prefill_s = stamps[SERVE_PROMPT - 1] - t0             # the prompt's 1536 steps → 1st token
+    gen_s = stamps[-1] - stamps[SERVE_PROMPT - 1]          # the other 63 generated tokens
+    step_med = sorted(steps)[len(steps) // 2]
+    print(f"  {SERVE_STEPS} decode steps in {wall:.2f} s, each step synchronised: prefill "
+          f"({SERVE_PROMPT} steps, to the first generated token) {prefill_s:.2f} s, generation "
+          f"({SERVE_GEN - 1} steps) {gen_s:.3f} s")
+    print(f"  tokens/s: {SERVE_B * SERVE_STEPS / wall:.1f} through the decode step, "
+          f"{SERVE_B * (SERVE_GEN - 1) / gen_s:.1f} generated; per-step wall median "
+          f"{1e3 * step_med:.2f} ms (min {1e3 * min(steps):.2f}, max {1e3 * max(steps):.2f}; "
+          f"prefill median {1e3 * sorted(steps[:SERVE_PROMPT])[SERVE_PROMPT // 2]:.2f}, generation "
+          f"median {1e3 * sorted(steps[SERVE_PROMPT:])[(SERVE_GEN - 1) // 2]:.2f})")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{launches}")
+    print(f"  request 0, first generated tokens: {seq[0, SERVE_PROMPT:SERVE_PROMPT + 16].tolist()}")
+    return model, params, launches, step_med
+
+
+def serve_profile(torch, model, params, step_wall_s: float, steps: int = 8) -> None:
+    """Device time by kernel over ``steps`` decode steps at the serve run's
+    last positions (1592-1599 tokens in the caches), through the same serve
+    step on a fresh cache: the same work and bytes as the run's last steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.steps import build_serve_step
+
+    serve = build_serve_step(model)
+    cache = model.init_cache(SERVE_B, SERVE_CACHE, "cuda")
+    tok = torch.zeros(SERVE_B, 1, dtype=torch.long, device="cuda")
+    first = SERVE_STEPS - steps
+    for pos in range(first - 2, first):                  # warm-up, not profiled
+        tok, logits, cache = serve(params, tok, cache, pos)
+        tok = tok[:, None]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        for pos in range(first, SERVE_STEPS):
+            tok, logits, cache = serve(params, tok, cache, pos)
+            tok = tok[:, None]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if not torch.isfinite(logits.float()).all() or tuple(logits.shape) != (SERVE_B, 1, 262_144):
+        fail("serve profile: logits not finite or of the wrong shape")
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        fail("the profiler saw no device activity")
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_us, last_end = 0.0, float("-inf")
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        busy_us += max(0.0, e.time_range.end - max(e.time_range.start, last_end))
+        last_end = max(last_end, e.time_range.end)
+    total_us = sum(by_name.values())
+    busy_step = busy_us / 1e6 / steps
+    print(f"  {steps} steps under the profiler: wall {wall:.3f} s, device busy {busy_us / 1e6:.4f} s "
+          f"(summed {total_us / 1e6:.4f} s); busy per step {1e3 * busy_step:.3f} ms = "
+          f"{100 * busy_step / step_wall_s:.1f}% of the unprofiled median step "
+          f"({1e3 * step_wall_s:.2f} ms)")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:14]:
+        print(f"  {us / 1e3 / steps:8.3f} ms/step  {100 * us / total_us:5.1f}%  {name[:110]}")
+    # the products by their operands' shapes (aten::mm's device time), the
+    # rest by kernel name
+    products = {"unembed product (vocab 262,144)": 0.0, "MLP products (d_ff 10,240)": 0.0,
+                "q/k/v/o projections": 0.0}
+    for evt in prof.key_averages(group_by_input_shape=True):
+        if evt.key != "aten::mm":
+            continue
+        us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
+        dims = {d for shape in evt.input_shapes for d in shape}
+        label = ("unembed product (vocab 262,144)" if 262_144 in dims else
+                 "MLP products (d_ff 10,240)" if 10_240 in dims else "q/k/v/o projections")
+        products[label] += us
+    categories = dict(products)
+    categories["decode attention (this port)"] = sum(
+        us for n, us in by_name.items() if "decode_split_kernel" in n or "decode_combine_kernel" in n)
+    categories["elementwise and reductions (norms, RoPE, casts, residuals)"] = sum(
+        us for n, us in by_name.items() if "elementwise_kernel" in n or "reduce_kernel" in n)
+    categories["other"] = total_us - sum(categories.values())
+    for label, us in categories.items():
+        print(f"  {us / 1e3 / steps:8.3f} ms/step  {100 * us / total_us:5.1f}%  {label}")
+
+
+def serve_reference_check(torch) -> None:
+    """A small gemma3-family model (8 layers, window 8, fp32) teacher-forced
+    over 20 positions with cache_len 20 on the card and on the CPU: the local
+    rings wrap; logits and greedy tokens must agree."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch, reduce_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import TransformerLM
+
+    cfg = dataclasses.replace(reduce_config(get_arch("gemma3-4b")), num_layers=8, window=8,
+                              dtype="float32")
+    model = TransformerLM(cfg)
+    params = model.init(0, "cpu")
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, dev) for v in tree]
+        return tree.to(dev)
+
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 20)))
+    runs = {}
+    ops.reset_launch_counts()
+    for dev in ("cuda", "cpu"):
+        serve = build_serve_step(model)
+        p, cache = to(params, dev), model.init_cache(4, 20, dev)
+        out = []
+        for pos in range(20):
+            nxt, logits, cache = serve(p, tokens[:, pos:pos + 1].to(dev), cache, pos)
+            out.append((nxt.cpu(), logits.float().cpu()))
+        runs[dev] = out
+    if ops.launch_counts()["decode_attention"] != 8 * 20:
+        fail(f"small serve: {ops.launch_counts()['decode_attention']} kernel launches, want 160")
+    worst = 0.0
+    for pos, ((ta, la), (tb, lb)) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        rel = float((la - lb).abs().max() / lb.abs().max())
+        worst = max(worst, rel)
+        if rel > SERVE_LOGIT_RTOL or not torch.equal(ta, tb):
+            fail(f"small serve position {pos}: GPU/CPU logits |Δ|/max {rel:.2e} or tokens differ")
+    print(f"  small gemma3-family model ({cfg.num_layers} layers, window {cfg.window}, fp32) GPU == "
+          f"CPU over 20 positions: logits |Δ|/max|logit| ≤ {worst:.2e}, greedy tokens equal")
+
+
 def main() -> int:
     try:
         import torch
@@ -513,9 +881,8 @@ def main() -> int:
     info = build.BUILD_INFO
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({'compiled' if info.get('built') else 'cached'}) -> {info['path']}")
-    for line in str(info.get("log", "")).splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    for line in ptxas_summary(str(info.get("log", ""))):
+        print(f"  ptxas: {line}")
     bandwidth, bw_src = memory_bandwidth(torch)
     print(f"memory bandwidth {bandwidth / 1e12:.3f} TB/s ({bw_src}); "
           f"fp32 peak {FP32_PEAK_FLOPS / 1e12:.0f} TFLOP/s")
@@ -523,6 +890,8 @@ def main() -> int:
     print("phase 1: kernels against their plain versions")
     timer = Timer(torch)
     rows = kernel_phase(torch, timer, bandwidth)
+    decode_rows = decode_kernel_phase(torch, timer, bandwidth)
+    rows["decode_attention"] = decode_rows["global"]
     del timer
     torch.cuda.empty_cache()
 
@@ -538,13 +907,27 @@ def main() -> int:
 
     print("phase 3: small federations, GPU against CPU")
     reference_check(torch)
+    torch.cuda.empty_cache()
+
+    print(f"phase 4: serve gemma3-4b at full width, {SERVE_B} requests x ({SERVE_PROMPT} prompt + "
+          f"{SERVE_GEN} generated) tokens")
+    model, params, serve_launches, step_wall_s = serve_phase(torch)
+    launches["decode_attention"] = serve_launches["decode_attention"]
+    print("profile: device time by kernel of the serve step")
+    serve_profile(torch, model, params, step_wall_s)
+    del model, params
+    torch.cuda.empty_cache()
+
+    print("phase 5: a small gemma3-family model served on the GPU and on the CPU")
+    serve_reference_check(torch)
 
     kernels = []
-    for name in ("cross_gram", "gram", "weighted_aggregate", "topk_mask_rows"):
+    for name in ("cross_gram", "gram", "weighted_aggregate", "topk_mask_rows", "decode_attention"):
         r = rows[name]
         kernels.append({
             "name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
-            # topk_mask_rows: its path is the Fedcom run; the others: FLrce's
+            # topk_mask_rows: its path is the Fedcom run; decode_attention: the
+            # gemma3-4b serve run; the others: FLrce's
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

@@ -5,7 +5,10 @@ lists of arrays, as ``jax.device_get`` or ``np.asarray`` leave them) and
 returns the port's parameter dict for ``model``; ``params_to_jax`` is the
 inverse.  Names follow the pytree paths (``{"fc": [{"w": ...}]}`` is
 ``"fc.0.w"``); shapes and layouts are identical, so the exchange copies
-values bit for bit.  Nothing here imports JAX: callers pass NumPy arrays.
+values bit for bit.  ``lm_params_from_jax`` / ``lm_params_to_jax`` do the same
+for the language model, whose layers the reference stacks by pattern position
+and the port keeps as a list in run order.  Nothing here imports JAX: callers
+pass NumPy arrays.
 """
 from __future__ import annotations
 
@@ -77,3 +80,91 @@ def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         else:
             node[last] = leaf
     return root
+
+
+# ---------------------------------------------------------------------------
+# language models (``models.transformer.TransformerLM``)
+# ---------------------------------------------------------------------------
+_LM_KEYS = {"embed", "decoder", "final_norm", "unembed"}
+
+
+def _tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
+    """A tensor with ``arr``'s values and dtype; bfloat16 (ml_dtypes) is moved
+    as its bit pattern, so nothing is rounded.  The tensor owns a copy."""
+    arr = np.array(arr, copy=True, order="C")
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _numpy_from_tensor(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # the numpy bfloat16 of the reference's arrays
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
+    return t.numpy().copy()
+
+
+def _map(tree: Any, fn) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack(trees: List[Any]) -> Any:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def lm_params_from_jax(cfg, tree: Dict[str, Any], device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """The port's ``TransformerLM`` parameters from the reference's pytree.
+
+    The reference stacks the layers of each pattern position over the NC
+    scanned cycles, ``decoder.cycles[pos]`` with leaves (NC, ...), and keeps
+    the ``num_layers % len(pattern)`` layers after them in ``decoder.rest``.
+    Flat layer ``i < NC·len(pattern)`` is cycle ``i // len(pattern)`` of
+    position ``i % len(pattern)``, the order the reference runs them in."""
+    dev = resolve_device(device)
+    extra = set(tree) - _LM_KEYS
+    if extra:
+        raise ValueError(f"pytree keys {sorted(extra)} are not a decoder-only LM's")
+
+    def conv(a):
+        return _tensor_from_numpy(np.asarray(a)).to(dev)
+
+    plen = len(cfg.pattern)
+    nc, rest = divmod(cfg.num_layers, plen)
+    dec = tree["decoder"]
+    if len(dec["rest"]) != rest or len(dec["cycles"]) != plen:
+        raise ValueError(f"decoder has {len(dec['cycles'])} cycle positions and "
+                         f"{len(dec['rest'])} rest layers; {cfg.name} needs {plen} and {rest}")
+    layers = [_map(dec["cycles"][i % plen], lambda a, c=i // plen: conv(np.asarray(a)[c]))
+              for i in range(nc * plen)]
+    layers += [_map(dec["rest"][r], conv) for r in range(rest)]
+    out: Dict[str, Any] = {"embed": conv(tree["embed"]), "layers": layers,
+                           "final_norm": _map(tree["final_norm"], conv)}
+    if "unembed" in tree:
+        out["unembed"] = conv(tree["unembed"])
+    return out
+
+
+def lm_params_to_jax(cfg, params: Dict[str, Any]) -> Dict[str, Any]:
+    """The reference's pytree (NumPy leaves) from the port's LM parameters."""
+    plen = len(cfg.pattern)
+    nc, rest = divmod(cfg.num_layers, plen)
+    layers = params["layers"]
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"{len(layers)} layers, {cfg.name} has {cfg.num_layers}")
+    np_layers = [_map(layer, _numpy_from_tensor) for layer in layers]
+    cycles = [_stack([np_layers[c * plen + pos] for c in range(nc)]) if nc else None
+              for pos in range(plen)]
+    out: Dict[str, Any] = {
+        "embed": _numpy_from_tensor(params["embed"]),
+        "decoder": {"cycles": cycles, "rest": np_layers[nc * plen:]},
+        "final_norm": _map(params["final_norm"], _numpy_from_tensor),
+    }
+    if "unembed" in params:
+        out["unembed"] = _numpy_from_tensor(params["unembed"])
+    return out

@@ -22,7 +22,7 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("gram.cu", "aggregate.cu", "topk_mask.cu")
+SOURCES = ("gram.cu", "aggregate.cu", "topk_mask.cu", "decode_attention.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libflrce_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -116,6 +116,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flrce_weighted_aggregate.restype = i32
     lib.flrce_topk_mask_rows.argtypes = [p, p, i64, i64, i64, i64, p]
     lib.flrce_topk_mask_rows.restype = i32
+    lib.flrce_decode_attention.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64,
+                                           i32, i32, ctypes.c_float, p]
+    lib.flrce_decode_attention.restype = i32
     lib.flrce_xgram_plan.argtypes = [i64, i64, i64, i32, ctypes.POINTER(i64), ctypes.POINTER(i64)]
     lib.flrce_xgram_plan.restype = i32
     lib.flrce_error_string.argtypes = [i32]

@@ -1,0 +1,146 @@
+"""``decode_attention`` (one-query GQA attention over a KV cache): CUDA kernel
+and plain version.
+
+Replaces the reference's Pallas kernel ``src/repro/kernels/decode_attention.py``
+``decode_attention`` (``_decode_attn_kernel``) and covers the ``window`` /
+``ring`` masks of ``decode_attention_jnp`` (``src/repro/models/attention.py``),
+the function the reference's serving path calls.  q (B, H, hd), caches
+(B, S, K, hd), length (B,) int32 with the current token already written:
+
+* ``ring=True``: slot < min(length, S) is valid (a ring-buffer cache);
+* otherwise slot < length, and with ``window > 0`` also slot ≥ length − window;
+* logits are (q·1/√hd) · K in fp32, masked to -1e30, softmax over S; the
+  output is Σ p·V in fp32, cast to q's dtype.
+
+Length 0 (no valid slot): every logit is -1e30, so the softmax is uniform and
+the output is the mean of V over all S slots.  That is what
+``decode_attention_jnp`` gives; the reference's oracle ``decode_attention_ref``
+gives NaN there and its Pallas kernel the mean over the zero-padded S.  The
+port follows the function the serving path calls.
+
+Decoding is memory-bound (about 2 FLOP per byte of cache), so the kernel
+(``csrc/decode_attention.cu``) is split-S flash-decoding: one block per
+(split of the valid range, KV head, sequence), every K/V row read once for
+the G query heads of its group, the splits combined by a second small pass in
+a fixed order (bitwise repeatable, no atomics).  Slots outside the valid range
+are never read; masked logits contribute exactly 0 in the reference, so this
+changes nothing.
+
+``decode_attention_plain`` is the same function in plain PyTorch: the CPU
+path, and the yardstick the kernel is held against on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+#: launches of the kernel by its wrapper (nothing else touches it)
+DECODE_ATTENTION_LAUNCHES = 0
+
+HEAD_DIMS = (64, 128, 256)
+MAX_GROUP = 8
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_NEG_INF = -1e30
+_MIN_ROWS = 32          # csrc/decode_attention.cu kMinRows
+_BLOCKS_PER_SM = 4      # splits aim at about this many 128-thread blocks per SM
+
+
+def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           length: torch.Tensor, *, window: int = 0,
+                           ring: bool = False) -> torch.Tensor:
+    """``decode_attention_jnp`` in PyTorch: (B, H, hd) in q's dtype."""
+    b, h, hd = q.shape
+    s, kvh = k_cache.shape[1], k_cache.shape[2]
+    group = h // kvh
+    scale = 1.0 / math.sqrt(hd)
+    qg = (q.float() * scale).reshape(b, kvh, group, hd)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float())
+    slot = torch.arange(s, device=q.device)[None, :]
+    length = length.to(device=q.device, dtype=torch.int64)
+    if ring:
+        valid = slot < torch.clamp(length, max=s)[:, None]
+    else:
+        valid = slot < length[:, None]
+        if window > 0:
+            valid = valid & (slot >= length[:, None] - window)
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.tensor(_NEG_INF, dtype=torch.float32, device=q.device))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return out.reshape(b, h, hd).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_count(b: int, k: int, rows: int, sms: int) -> int:
+    """Splits of the valid range per (sequence, KV head): enough blocks for
+    ``_BLOCKS_PER_SM`` per SM, but no split shorter than ``_MIN_ROWS`` of the
+    ``rows`` slots a range can hold."""
+    want = -(-_BLOCKS_PER_SM * sms // (b * k))
+    return max(1, min(want, -(-rows // _MIN_ROWS)))
+
+
+def _check_operand(name: str, t: torch.Tensor, ndim: int, dtype: torch.dtype) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"decode_attention {name}: expected a CUDA tensor, got device {t.device}")
+    if t.device.index is not None and t.device.index != torch.cuda.current_device():
+        raise ValueError(f"decode_attention {name}: tensor on {t.device} but the current device "
+                         f"is cuda:{torch.cuda.current_device()}")
+    if t.dtype != dtype:
+        raise ValueError(f"decode_attention {name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"decode_attention {name}: expected rank {ndim}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"decode_attention {name}: expected a contiguous tensor")
+    if t.data_ptr() % 16:
+        raise ValueError(f"decode_attention {name}: data pointer not 16-byte aligned")
+
+
+def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                          length: torch.Tensor, *, window: int = 0,
+                          ring: bool = False) -> torch.Tensor:
+    """(B, H, hd) on the card; bf16 or fp32, hd ∈ {64, 128, 256}, H/K ≤ 8."""
+    global DECODE_ATTENTION_LAUNCHES
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"decode_attention: dtype {q.dtype} not in {list(_DTYPES)}")
+    _check_operand("q", q, 3, q.dtype)
+    _check_operand("k_cache", k_cache, 4, q.dtype)
+    _check_operand("v_cache", v_cache, 4, q.dtype)
+    _check_operand("length", length, 1, torch.int32)
+    b, h, hd = q.shape
+    bs, s, kvh, hdk = k_cache.shape
+    if tuple(v_cache.shape) != tuple(k_cache.shape) or bs != b or hdk != hd or length.shape[0] != b:
+        raise ValueError(f"decode_attention: shapes q {tuple(q.shape)}, k {tuple(k_cache.shape)}, "
+                         f"v {tuple(v_cache.shape)}, length {tuple(length.shape)} do not agree")
+    if not (q.device == k_cache.device == v_cache.device == length.device):
+        raise ValueError("decode_attention: operands on different devices")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if kvh < 1 or h % kvh or not 1 <= h // kvh <= MAX_GROUP:
+        raise ValueError(f"decode_attention: H={h} over K={kvh} is not a group of 1..{MAX_GROUP}")
+    if b < 1 or s < 1 or window < 0:
+        raise ValueError(f"decode_attention: B={b}, S={s}, window={window}")
+    group = h // kvh
+    rows = min(s, window) if (window > 0 and not ring) else s
+    n_splits = split_count(b, kvh, rows, _sm_count(q.device.index or 0))
+    part_acc = torch.empty((b, kvh, n_splits, group, hd), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((b, kvh, n_splits, group, 2), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    lib = build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.flrce_decode_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), length.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), b, s, kvh, group, hd, n_splits,
+        int(window), int(bool(ring)), _DTYPES[q.dtype], ctypes.c_float(1.0 / math.sqrt(hd)),
+        stream)
+    build.check(rc, "decode_attention")
+    DECODE_ATTENTION_LAUNCHES += 1
+    return out

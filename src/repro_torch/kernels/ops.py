@@ -11,10 +11,11 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import aggregate as _aggregate
+from repro_torch.kernels import decode_attention as _decode_attention
 from repro_torch.kernels import gram as _gram
 from repro_torch.kernels import topk_mask as _topk_mask
 
-KERNELS = ("cross_gram", "gram", "weighted_aggregate", "topk_mask_rows")
+KERNELS = ("cross_gram", "gram", "weighted_aggregate", "topk_mask_rows", "decode_attention")
 
 
 def _device_type(name: str, *tensors: torch.Tensor) -> str:
@@ -65,6 +66,19 @@ def topk_mask(
     return topk_mask_rows(u[None, :], keep_frac=keep_frac, block_d=block_d)[0]
 
 
+def decode_attention(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, length: torch.Tensor,
+    *, window: int = 0, ring: bool = False,
+) -> torch.Tensor:
+    """One-query GQA attention of q (B, H, hd) over caches (B, S, K, hd) with
+    ``length`` (B,) valid tokens: (B, H, hd) in q's dtype."""
+    if _device_type("decode_attention", q, k_cache, v_cache, length) == "cuda":
+        return _decode_attention.decode_attention_cuda(q, k_cache, v_cache, length,
+                                                       window=window, ring=ring)
+    return _decode_attention.decode_attention_plain(q, k_cache, v_cache, length,
+                                                    window=window, ring=ring)
+
+
 def launch_counts() -> Dict[str, int]:
     """How many times each kernel's wrapper launched it since the last reset."""
     return {
@@ -72,6 +86,7 @@ def launch_counts() -> Dict[str, int]:
         "gram": _gram.GRAM_LAUNCHES,
         "weighted_aggregate": _aggregate.AGGREGATE_LAUNCHES,
         "topk_mask_rows": _topk_mask.TOPK_MASK_LAUNCHES,
+        "decode_attention": _decode_attention.DECODE_ATTENTION_LAUNCHES,
     }
 
 
@@ -80,3 +95,4 @@ def reset_launch_counts() -> None:
     _gram.GRAM_LAUNCHES = 0
     _aggregate.AGGREGATE_LAUNCHES = 0
     _topk_mask.TOPK_MASK_LAUNCHES = 0
+    _decode_attention.DECODE_ATTENTION_LAUNCHES = 0

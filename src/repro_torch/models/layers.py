@@ -1,0 +1,113 @@
+"""Shared layers of the port's language models, from the reference's
+``src/repro/models/layers.py``.
+
+Parameters are nested dicts of tensors, as in the reference; every ``init_*``
+takes an explicit ``torch.Generator`` (its device is where the tensors are
+made) and every ``apply`` is a plain function.  Activations run in the config
+dtype; norms and RoPE compute in fp32 and cast back to the input's dtype.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, fan_in: int, fan_out: int, dtype: torch.dtype,
+               scale: Optional[float] = None) -> torch.Tensor:
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    w = torch.randn((fan_in, fan_out), generator=gen, dtype=torch.float32, device=gen.device)
+    return (scale * w).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=gen, dtype=torch.float32, device=gen.device)
+    return (0.02 * w).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+def init_norm(kind: str, d: int, dtype: torch.dtype, device: torch.device) -> Params:
+    if kind == "rmsnorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device),
+                "bias": torch.zeros((d,), dtype=dtype, device=device)}
+    raise ValueError(f"unknown norm {kind}")
+
+
+def apply_norm(kind: str, params: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The reference's plain ``x·rsqrt(var + eps)·scale`` in fp32, cast back."""
+    xf = x.float()
+    if kind == "rmsnorm":
+        var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * params["scale"].float()
+    elif kind == "layernorm":
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + eps)
+        out = out * params["scale"].float() + params["bias"].float()
+    else:
+        raise ValueError(f"unknown norm {kind}")
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+def activation(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "silu":
+        return F.silu(x)
+    if name == "gelu":  # jax.nn.gelu(approximate=True)
+        return F.gelu(x, approximate="tanh")
+    if name == "relu2":  # nemotron squared-ReLU
+        r = F.relu(x)
+        return r * r
+    raise ValueError(f"unknown activation {name}")
+
+
+# ---------------------------------------------------------------------------
+# MLP (gated / plain)
+# ---------------------------------------------------------------------------
+def init_mlp(gen: torch.Generator, d: int, f: int, gated: bool, dtype: torch.dtype) -> Params:
+    params = {"wi": dense_init(gen, d, f, dtype), "wo": dense_init(gen, f, d, dtype)}
+    if gated:
+        params["wg"] = dense_init(gen, d, f, dtype)
+    return params
+
+
+def apply_mlp(params: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+    h = x @ params["wi"]
+    if "wg" in params:
+        h = activation(act, x @ params["wg"]) * h
+    else:
+        h = activation(act, h)
+    return h @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# RoPE (half-split, not interleaved)
+# ---------------------------------------------------------------------------
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)                  # (hd/2,)
+    angles = positions[..., None].to(torch.float32) * freqs        # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]                          # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

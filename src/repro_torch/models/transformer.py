@@ -1,0 +1,155 @@
+"""Decoder-only LM for cached decoding, the decode half of the reference's
+``src/repro/models/transformer.py``, for the dense attention-only
+architectures (global and sliding-window attention, dense MLP).
+
+Parameters are a dict::
+
+    embed        (V, D)
+    layers       list over the num_layers layers, in the order they run
+    final_norm
+    unembed      (D, V) unless cfg.tie_embeddings
+
+The reference stacks layers by pattern position into scanned cycles and runs
+cycle c's positions 0…len(pattern)−1 before cycle c+1, then the ``rest``
+layers; flat layer i is therefore pattern position ``i % len(pattern)`` of
+cycle ``i // len(pattern)``, and its kind is ``cfg.block_kind(i)``
+(``convert.lm_params_from_jax`` maps the stacked pytree onto this list).
+Caches are a matching list of ``{"k", "v"}``; a local layer's cache is
+``min(cache_len, window)`` long, a ring buffer.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ArchConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import apply_mlp, apply_norm, embed_init, init_mlp, init_norm
+
+_ATTN_KINDS = (ATTN_GLOBAL, ATTN_LOCAL)
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+Params = Dict[str, object]
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for what this slice of the port lacks."""
+    later = []
+    kinds = sorted(set(cfg.layer_kinds()) - set(_ATTN_KINDS))
+    if kinds:
+        later.append(f"block kinds {kinds}")
+    if cfg.moe is not None:
+        later.append("mixture-of-experts MLPs")
+    if cfg.is_encdec:
+        later.append("the encoder and cross-attention")
+    if cfg.image_tokens:
+        later.append("image tokens")
+    if later:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(later)} wait for a later slice of the port; this one runs "
+            f"the dense attention-only architectures"
+        )
+
+
+# ===========================================================================
+# blocks
+# ===========================================================================
+def _is_local(kind: str) -> bool:
+    """Whether an attention block is local; raises for the other block kinds."""
+    if kind not in _ATTN_KINDS:
+        raise NotImplementedError(f"block kind {kind!r} waits for a later slice of the port")
+    return kind == ATTN_LOCAL
+
+
+def init_block(gen: torch.Generator, kind: str, cfg: ArchConfig, dtype: torch.dtype) -> Dict:
+    _is_local(kind)
+    dev = gen.device
+    p: Dict = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, dev),
+               "mixer": attn.init_attention(gen, cfg, dtype)}
+    if cfg.d_ff > 0:
+        p["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, dev)
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype)
+    return p
+
+
+def init_block_cache(kind: str, cfg: ArchConfig, batch: int, cache_len: int, dtype: torch.dtype,
+                     device: torch.device) -> Dict:
+    length = min(cache_len, cfg.window) if (_is_local(kind) and cfg.window) else cache_len
+    return attn.init_kv_cache(cfg, batch, length, dtype, device)
+
+
+def apply_block_decode(params: Dict, kind: str, x_t: torch.Tensor, cache: Dict, position: int,
+                       cfg: ArchConfig, *,
+                       length: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+    """Pre-norm residual block for one token; ``cache`` is updated in place."""
+    h = apply_norm(cfg.norm, params["norm1"], x_t)
+    mix, cache = attn.attention_decode_step(params["mixer"], h, cache, position, cfg,
+                                            local=_is_local(kind), length=length)
+    x_t = x_t + mix
+    if "mlp" in params:
+        h2 = apply_norm(cfg.norm, params["norm2"], x_t)
+        x_t = x_t + apply_mlp(params["mlp"], h2, cfg.act)
+    return x_t, cache
+
+
+# ===========================================================================
+# the model
+# ===========================================================================
+class TransformerLM(nn.Module):
+    """The port's decoder LM.  Stateless like the reference's: parameters and
+    caches are passed in, so one module serves any number of parameter sets."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _DTYPES[self.cfg.dtype]
+
+    # -- params -------------------------------------------------------------
+    def init(self, seed: int = 0, device: DeviceLike = "cuda") -> Params:
+        """Random parameters drawn on ``device`` from ``seed`` (not the
+        reference's ``jax.random`` values: tests that compare with the
+        reference carry its parameters across with ``convert``)."""
+        cfg, dtype = self.cfg, self.dtype
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        params: Params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)}
+        params["layers"] = [init_block(gen, kind, cfg, dtype) for kind in cfg.layer_kinds()]
+        params["final_norm"] = init_norm(cfg.norm, cfg.d_model, dtype, dev)
+        if not cfg.tie_embeddings:
+            params["unembed"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype).T.contiguous()
+        return params
+
+    def unembed(self, params: Params, h: torch.Tensor) -> torch.Tensor:
+        if self.cfg.tie_embeddings:
+            return h @ params["embed"].T
+        return h @ params["unembed"]
+
+    # -- decode ---------------------------------------------------------------
+    def init_cache(self, batch: int, cache_len: int, device: DeviceLike = "cuda") -> List[Dict]:
+        dev = resolve_device(device)
+        return [init_block_cache(kind, self.cfg, batch, cache_len, self.dtype, dev)
+                for kind in self.cfg.layer_kinds()]
+
+    def decode_step(self, params: Params, tokens: torch.Tensor, cache: List[Dict],
+                    position: int) -> Tuple[torch.Tensor, List[Dict]]:
+        """tokens (B, 1) at ``position`` (a host int) → logits (B, 1, V).
+
+        The caches are updated in place and returned.  The step makes its
+        (B,) lengths on the device from ``position`` and never waits on the
+        device itself."""
+        cfg = self.cfg
+        x = params["embed"][tokens].to(self.dtype)
+        length = torch.full((tokens.shape[0],), position + 1, dtype=torch.int32,
+                            device=tokens.device)
+        for i, (kind, layer) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
+            x, cache[i] = apply_block_decode(layer, kind, x, cache[i], position, cfg,
+                                             length=length)
+        x = apply_norm(cfg.norm, params["final_norm"], x)
+        return self.unembed(params, x), cache

@@ -50,7 +50,7 @@ def test_gram_kernel_matches_plain(cuda, p, d):
     got = ops.gram(u)
     assert torch.all((got - gram.gram_plain(u)).abs() <= 1e-4 * _scale(u, u))
     assert ops.launch_counts() == {"cross_gram": 0, "gram": 1, "weighted_aggregate": 0,
-                                   "topk_mask_rows": 0}
+                                   "topk_mask_rows": 0, "decode_attention": 0}
 
 
 @pytest.mark.parametrize("p,d", [(10, 1), (10, 2049), (1, 595914), (10, 4096), (3, 7)])
@@ -85,7 +85,7 @@ def test_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError):
         ops.topk_mask_rows(u, block_d=8192)
     assert ops.launch_counts() == {"cross_gram": 0, "gram": 0, "weighted_aggregate": 0,
-                                   "topk_mask_rows": 0}
+                                   "topk_mask_rows": 0, "decode_attention": 0}
 
 
 def _bits(t):
@@ -189,3 +189,99 @@ def test_small_baseline_federation_gpu_matches_cpu(cuda, name):
         assert ra.energy_kj == rb.energy_kj and ra.bytes_gb == rb.bytes_gb
         assert abs(ra.accuracy - rb.accuracy) <= 2e-3
         assert abs(ra.mean_client_loss - rb.mean_client_loss) <= 1e-4
+
+
+# --- decode_attention and the serving path ------------------------------------
+def _decode_case(dev, seed, b, s, kv, g, hd, dtype, lengths):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, kv * g, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, s, kv, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, s, kv, hd, generator=gen, device=dev).to(dtype)
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def _assert_decode_close(got, want32, v):
+    """Against the plain version's fp32 result before rounding: |Δ| ≤
+    1e-5·max|V| (fp32 sums reordered across splits), plus half a bf16 ulp
+    for a bf16 output's rounding."""
+    assert want32.dtype == torch.float32 and got.shape == want32.shape
+    g = got.float()
+    limit = torch.full_like(g, 1e-5 * float(v.float().abs().max()))
+    if got.dtype == torch.bfloat16:
+        mag = torch.maximum(g.abs(), want32.abs()).clamp_min(1e-30)
+        limit = limit + 0.5 * torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert bool(((g - want32).abs() <= limit).all())
+
+
+@pytest.mark.parametrize("b,s,kv,g,hd,dtype,lengths,window,ring", [
+    (8, 1600, 4, 2, 256, torch.bfloat16, [1600] * 8, 0, False),          # gemma3 global
+    (8, 1024, 4, 2, 256, torch.bfloat16, [1537] * 8, 1024, True),        # gemma3 ring, wrapped
+    (3, 700, 4, 2, 256, torch.bfloat16, [1, 699, 350], 0, False),        # ragged, length 1
+    (3, 333, 2, 2, 256, torch.float32, [0, 333, 17], 0, False),          # length 0, fp32
+    (2, 100, 2, 2, 256, torch.bfloat16, [0, 7], 16, True),               # length 0 in a ring
+    (2, 300, 2, 2, 256, torch.float32, [300, 40], 64, False),            # non-ring window
+    (2, 257, 2, 1, 64, torch.float32, [257, 100], 0, False),
+    (2, 257, 2, 3, 64, torch.bfloat16, [257, 3], 0, False),
+    (2, 515, 3, 1, 128, torch.bfloat16, [515, 514], 0, False),
+    (2, 515, 1, 3, 128, torch.float32, [515, 1], 0, False),
+    (1, 64, 1, 8, 256, torch.float32, [64], 0, False),
+])
+def test_decode_attention_kernel_matches_plain(cuda, b, s, kv, g, hd, dtype, lengths, window,
+                                               ring):
+    from repro_torch.kernels import decode_attention, ops
+
+    q, k, v, length = _decode_case(cuda, s + hd + g, b, s, kv, g, hd, dtype, lengths)
+    got = ops.decode_attention(q, k, v, length, window=window, ring=ring)
+    assert got.dtype == dtype
+    want32 = decode_attention.decode_attention_plain(q.float(), k.float(), v.float(), length,
+                                                     window=window, ring=ring)
+    _assert_decode_close(got, want32, v)
+    again = ops.decode_attention(q, k, v, length, window=window, ring=ring)
+    assert torch.equal(got, again)                            # no atomics: bitwise repeatable
+    assert ops.launch_counts()["decode_attention"] == 2
+
+
+def test_decode_attention_rejects_bad_operands(cuda):
+    from repro_torch.kernels import ops
+
+    q, k, v, length = _decode_case(cuda, 0, 2, 64, 2, 2, 256, torch.bfloat16, [64, 64])
+    with pytest.raises(ValueError):
+        ops.decode_attention(q.float(), k, v, length)                 # mixed dtypes
+    with pytest.raises(ValueError):
+        ops.decode_attention(q[..., :96].contiguous(), k[..., :96].contiguous(),
+                             v[..., :96].contiguous(), length)         # head_dim 96
+    with pytest.raises(ValueError):
+        ops.decode_attention(q, k, v, length.long())
+    with pytest.raises(ValueError):
+        ops.decode_attention(q.repeat(1, 5, 1), k, v, length)          # group 10
+    with pytest.raises(ValueError):
+        ops.decode_attention(q, k.transpose(1, 2), v, length)
+    assert ops.launch_counts()["decode_attention"] == 0
+
+
+def test_generate_on_the_card_launches_the_kernel_and_matches_cpu(cuda):
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduce_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import TransformerLM
+
+    cfg = dataclasses.replace(reduce_config(get_arch("gemma3-4b")), num_layers=8, window=8,
+                              dtype="float32")
+    model = TransformerLM(cfg)
+    params = model.init(0, "cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 12), generator=torch.Generator().manual_seed(0))
+    want = generate(model, params, prompt, 8, 20)
+    ops.reset_launch_counts()
+    got = generate(model, {k: _to(v, cuda) for k, v in params.items()}, prompt.to(cuda), 8, 20)
+    assert ops.launch_counts()["decode_attention"] == 8 * 19
+    assert torch.equal(got.cpu(), want)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)

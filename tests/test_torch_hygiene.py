@@ -101,3 +101,28 @@ def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
                               text=True, timeout=300)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_serving_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the no-CUDA contract cannot be observed")
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import lm_params_from_jax
+    from repro_torch.models import TransformerLM
+
+    model = TransformerLM(get_arch("gemma3-4b", reduced=True))
+    with pytest.raises(RuntimeError, match="cuda"):
+        model.init(0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        model.init_cache(1, 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm_params_from_jax(model.cfg, {})
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--batch", "2", "--prompt-len", "3",
+           "--gen", "2"]
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and "torch.cuda.is_available() is False" in proc.stderr
+    proc = subprocess.run(cmd + ["--device", "cpu"], env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "[serve] gemma3-4b-reduced on cpu: generated 4 tokens" in proc.stdout

@@ -27,7 +27,7 @@ def _fresh_counts():
     tops.reset_launch_counts()
     yield
     assert tops.launch_counts() == {"cross_gram": 0, "gram": 0, "weighted_aggregate": 0,
-                                    "topk_mask_rows": 0}
+                                    "topk_mask_rows": 0, "decode_attention": 0}
 
 
 @pytest.mark.parametrize("d", DIMS)
@@ -99,3 +99,102 @@ def test_build_is_keyed_by_source_hash(monkeypatch):
     monkeypatch.setattr(build.os.path, "isfile", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.find_nvcc()
+
+
+# --- decode_attention ---------------------------------------------------------
+from repro.kernels import ref as jref  # noqa: E402
+from repro.models.attention import decode_attention_jnp  # noqa: E402
+from repro_torch.kernels import decode_attention as tdec  # noqa: E402
+
+DECODE_TOL = 1e-6        # decode_attention_jnp: the same fp32 einsum/softmax steps
+DECODE_BLOCKED_TOL = 1e-5  # Pallas / oracle: online softmax over 512-slot blocks, sums reordered
+
+
+def _decode_inputs(seed, b, h, kv, hd, s, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, h, hd)).astype(dtype)
+    k = rng.normal(size=(b, s, kv, hd)).astype(dtype)
+    v = rng.normal(size=(b, s, kv, hd)).astype(dtype)
+    return q, k, v
+
+
+def _plain(q, k, v, length, **kw):
+    return tops.decode_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                 torch.from_numpy(np.asarray(length, np.int32)), **kw).numpy()
+
+
+@pytest.mark.parametrize("case,s,lengths,window,ring", [
+    ("global", 40, [40, 40, 40], 0, False),
+    ("ragged", 40, [1, 17, 40], 0, False),
+    ("ring", 8, [3, 8, 20], 8, True),
+    ("window", 32, [5, 20, 32], 8, False),
+    ("window-past-cache", 16, [30, 9, 16], 4, False),
+    ("length0-global", 24, [0, 5, 0], 0, False),
+    ("length0-ring", 8, [0, 12, 1], 8, True),
+    ("length0-window", 24, [0, 24, 3], 6, False),
+])
+def test_decode_attention_plain_matches_jnp(case, s, lengths, window, ring):
+    """Every mask of the serving path's decode_attention_jnp, length 0 (the
+    uniform mean of V over all S slots) included."""
+    q, k, v = _decode_inputs(s + len(case), 3, 6, 2, 16, s)
+    want = np.asarray(decode_attention_jnp(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                           jnp.asarray(lengths, jnp.int32), window=window,
+                                           ring=ring))
+    got = _plain(q, k, v, lengths, window=window, ring=ring)
+    assert got.shape == want.shape == (3, 6, 16) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=DECODE_TOL, rtol=DECODE_TOL)
+    if case.startswith("length0"):
+        empty = np.asarray(lengths) == 0
+        mean_v = np.repeat(v.mean(axis=1), 3, axis=1)          # (B, H, hd), G = 3
+        np.testing.assert_allclose(got[empty], mean_v[empty], atol=DECODE_TOL, rtol=DECODE_TOL)
+
+
+@pytest.mark.parametrize("b,h,kv,hd,s", [
+    (2, 8, 2, 64, 512),
+    (2, 8, 4, 128, 1024),
+    (1, 4, 4, 64, 300),      # MHA, S not a multiple of 512
+    (3, 6, 2, 64, 700),
+])
+def test_decode_attention_plain_matches_pallas_and_oracle(b, h, kv, hd, s):
+    """The Pallas kernel in interpret mode and the reference's oracle, at
+    length >= 1 (where the two agree)."""
+    q, k, v = _decode_inputs(b * s, b, h, kv, hd, s)
+    length = np.random.default_rng(s).integers(1, s + 1, size=b).astype(np.int32)
+    length[0] = s
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(length))
+    got = _plain(q, k, v, length)
+    for want in (jops.decode_attention(*args), jref.decode_attention_ref(*args)):
+        np.testing.assert_allclose(got, np.asarray(want), atol=DECODE_BLOCKED_TOL,
+                                   rtol=DECODE_BLOCKED_TOL)
+
+
+def test_decode_attention_plain_bf16_keeps_dtype():
+    """bf16 in, bf16 out, fp32 inside: within one bf16 ulp of decode_attention_jnp."""
+    import ml_dtypes
+
+    q, k, v = _decode_inputs(5, 2, 8, 4, 64, 96, ml_dtypes.bfloat16)
+    length = np.asarray([96, 31], np.int32)
+    want = np.asarray(decode_attention_jnp(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                           jnp.asarray(length))).astype(np.float32)
+    qt, kt, vt = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) for a in (q, k, v))
+    got = tops.decode_attention(qt, kt, vt, torch.from_numpy(length))
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    assert np.all(np.abs(got - want) <= ulp)
+
+
+def test_decode_attention_cuda_wrapper_refuses_cpu_tensors():
+    q, k = torch.zeros(1, 2, 64), torch.zeros(1, 4, 1, 64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tdec.decode_attention_cuda(q, k, k, torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        tops.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32, device="meta"))
+
+
+@pytest.mark.parametrize("b,k,rows,sms,want", [
+    (8, 4, 1600, 132, 17), (8, 4, 1024, 132, 17), (16, 4, 32768, 132, 9),
+    (1, 1, 10, 132, 1), (1, 1, 100, 132, 4), (128, 8, 4096, 132, 1),
+])
+def test_decode_attention_split_count(b, k, rows, sms, want):
+    assert tdec.split_count(b, k, rows, sms) == want

@@ -1,0 +1,260 @@
+"""The port's serving path (configs, layers, decode attention, TransformerLM,
+generate) against the JAX package on the CPU, on the same numpy inputs and on
+the reference's parameters carried across with ``lm_params_from_jax``."""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import ml_dtypes  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.launch import serve as jserve  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
+from repro.models.transformer import TransformerLM as JaxLM  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.convert import lm_params_from_jax, lm_params_to_jax  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
+from repro_torch.models.transformer import TransformerLM  # noqa: E402
+
+LAYER_RTOL = 1e-6       # one fp32 op chain in the same order
+LOGIT_RTOL = 1e-5       # |Δ| / max|logit|: fp32 matmuls and softmax sums reordered
+BF16_LOGIT_RTOL = 3e-2  # bf16 rounds at other places in the two frameworks
+DENSE_ARCHS = ["gemma3-4b", "qwen1.5-4b", "minitron-4b", "deepseek-7b"]
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _gemma_family(dtype="float32"):
+    """reduce_config(gemma3-4b) with 8 layers (5 local + 1 global, then 2
+    local) and window 8, in both packages."""
+    kw = dict(num_layers=8, window=8, dtype=dtype)
+    return (dataclasses.replace(jconfigs.reduce_config(jconfigs.get_arch("gemma3-4b")), **kw),
+            dataclasses.replace(tconfigs.reduce_config(tconfigs.get_arch("gemma3-4b")), **kw))
+
+
+def _models(jcfg, tcfg, seed=0):
+    jm = JaxLM(jcfg, remat=False)
+    jp = jm.init(jax.random.PRNGKey(seed))
+    tm = TransformerLM(tcfg)
+    return jm, jp, tm, lm_params_from_jax(tcfg, _np_tree(jp), "cpu")
+
+
+def _teacher_forced(jm, jp, tm, tp, tokens, cache_len):
+    """Logits of both packages, step by step, on the same tokens; returns the
+    worst |Δ| / max|logit| and the per-step greedy tokens of each."""
+    b, n = tokens.shape
+    jc, tc = jm.init_cache(b, cache_len), tm.init_cache(b, cache_len, "cpu")
+    step = jax.jit(jm.decode_step)
+    worst, jtok, ttok = 0.0, [], []
+    for pos in range(n):
+        lj, jc = step(jp, jnp.asarray(tokens[:, pos:pos + 1], jnp.int32), jc, jnp.int32(pos))
+        lt, tc = tm.decode_step(tp, torch.from_numpy(tokens[:, pos:pos + 1]), tc, pos)
+        lj = np.asarray(lj, np.float32)
+        lt = lt.float().numpy()
+        worst = max(worst, float(np.abs(lj - lt).max() / np.abs(lj).max()))
+        jtok.append(lj[:, -1].argmax(-1))
+        ttok.append(lt[:, -1].argmax(-1))
+    return worst, np.stack(jtok, 1), np.stack(ttok, 1)
+
+
+# --- layers ------------------------------------------------------------------
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+def test_apply_norm_matches(kind):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 3, 32)).astype(np.float32)
+    params = {"scale": rng.normal(size=(32,)).astype(np.float32)}
+    if kind == "layernorm":
+        params["bias"] = rng.normal(size=(32,)).astype(np.float32)
+    want = np.asarray(jlayers.apply_norm(kind, {k: jnp.asarray(v) for k, v in params.items()},
+                                         jnp.asarray(x)))
+    got = tlayers.apply_norm(kind, {k: torch.from_numpy(v) for k, v in params.items()},
+                             torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=LAYER_RTOL, atol=LAYER_RTOL)
+
+
+@pytest.mark.parametrize("name", ["silu", "gelu", "relu2"])
+def test_activation_matches(name):
+    x = np.random.default_rng(2).normal(size=(4, 64)).astype(np.float32) * 3
+    want = np.asarray(jlayers.activation(name, jnp.asarray(x)))
+    got = tlayers.activation(name, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=LAYER_RTOL, atol=LAYER_RTOL)
+
+
+@pytest.mark.parametrize("gated,act", [(True, "gelu"), (True, "silu"), (False, "relu2")])
+def test_apply_mlp_matches(gated, act):
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(2, 1, 32)).astype(np.float32)
+    params = {"wi": rng.normal(size=(32, 48)), "wo": rng.normal(size=(48, 32)) / 7}
+    if gated:
+        params["wg"] = rng.normal(size=(32, 48))
+    params = {k: (v / np.sqrt(32)).astype(np.float32) for k, v in params.items()}
+    want = np.asarray(jlayers.apply_mlp({k: jnp.asarray(v) for k, v in params.items()},
+                                        jnp.asarray(x), act))
+    got = tlayers.apply_mlp({k: torch.from_numpy(v) for k, v in params.items()},
+                            torch.from_numpy(x), act).numpy()
+    np.testing.assert_allclose(got, want, rtol=LAYER_RTOL, atol=LAYER_RTOL * np.abs(want).max())
+
+
+@pytest.mark.parametrize("theta", [10_000.0, 1_000_000.0])
+def test_apply_rope_matches(theta):
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, 5, 3, 16)).astype(np.float32)
+    pos = np.asarray([[0, 1, 2, 3, 4], [7, 100, 1023, 4095, 19]], np.int32)
+    want = np.asarray(jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta))
+    got = tlayers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta).numpy()
+    # the same fp32 angles; the two libraries' cos/sin differ by an ulp
+    np.testing.assert_allclose(got, want, rtol=LAYER_RTOL, atol=2e-6 * np.abs(x).max())
+
+
+# --- attention ---------------------------------------------------------------
+@pytest.mark.parametrize("local,cache_len", [(False, 12), (True, 8), (True, 12)])
+def test_attention_decode_step_matches(local, cache_len):
+    """A global layer, a local ring buffer (cache_len = window = 8) and a local
+    full-length cache masked by the window (cache_len 12 > window 8), over 12
+    positions."""
+    jcfg, tcfg = _gemma_family()
+    jp = jattn.init_attention(jax.random.PRNGKey(5), jcfg, jnp.float32)
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    jc = jattn.init_kv_cache(jcfg, 2, cache_len, jnp.float32)
+    tc = tattn.init_kv_cache(tcfg, 2, cache_len, torch.float32, torch.device("cpu"))
+    xs = np.random.default_rng(6).normal(size=(12, 2, 1, jcfg.d_model)).astype(np.float32)
+    for pos in range(12):
+        want, jc = jattn.attention_decode_step(jp, jnp.asarray(xs[pos]), jc, jnp.int32(pos), jcfg,
+                                               local=local)
+        got, tc = tattn.attention_decode_step(tp, torch.from_numpy(xs[pos]), tc, pos, tcfg,
+                                              local=local)
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+        # V is the same product; K has been through RoPE, whose cos/sin differ by an ulp
+        np.testing.assert_array_equal(tc["v"].numpy(), np.asarray(jc["v"]))
+        np.testing.assert_allclose(tc["k"].numpy(), np.asarray(jc["k"]), rtol=LAYER_RTOL,
+                                   atol=LAYER_RTOL)
+
+
+# --- the model ----------------------------------------------------------------
+def test_decode_step_teacher_forced_matches_reference():
+    """20 positions through 8 layers with rings of 8 wrapping twice."""
+    jcfg, tcfg = _gemma_family()
+    jm, jp, tm, tp = _models(jcfg, tcfg)
+    tokens = np.random.default_rng(7).integers(0, tcfg.vocab_size, (2, 20))
+    ops.reset_launch_counts()
+    worst, jtok, ttok = _teacher_forced(jm, jp, tm, tp, tokens, cache_len=20)
+    assert worst <= LOGIT_RTOL, worst
+    np.testing.assert_array_equal(ttok, jtok)
+    assert ops.launch_counts()["decode_attention"] == 0      # CPU tensors: the plain version
+
+
+def test_generate_matches_reference_tokens():
+    jcfg, tcfg = _gemma_family()
+    jm, jp, tm, tp = _models(jcfg, tcfg, seed=1)
+    prompt = np.random.default_rng(8).integers(0, tcfg.vocab_size, (3, 12))
+    want = np.asarray(jserve.generate(jm, jp, jnp.asarray(prompt, jnp.int32), 8, 20))
+    got = tserve.generate(tm, tp, torch.from_numpy(prompt), 8, 20)
+    assert got.shape == (3, 20)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got[:, :12].numpy(), prompt)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "minitron-4b", "deepseek-7b"])
+def test_reduced_configs_decode_match_reference(arch):
+    """qkv bias (qwen), a plain squared-ReLU MLP (minitron), MHA (deepseek)."""
+    jcfg = dataclasses.replace(jconfigs.get_arch(arch, reduced=True), dtype="float32")
+    tcfg = dataclasses.replace(tconfigs.get_arch(arch, reduced=True), dtype="float32")
+    jm, jp, tm, tp = _models(jcfg, tcfg, seed=2)
+    if jcfg.qkv_bias:   # the reference inits biases to 0; give them values to check
+        rng = np.random.default_rng(9)
+        for layer in tp["layers"]:
+            for name in ("bq", "bk", "bv"):
+                layer["mixer"][name] = torch.from_numpy(
+                    rng.normal(size=layer["mixer"][name].shape).astype(np.float32) * 0.1)
+        jp = lm_params_to_jax(jcfg, tp)
+    tokens = np.random.default_rng(10).integers(0, tcfg.vocab_size, (2, 10))
+    worst, jtok, ttok = _teacher_forced(jm, jp, tm, tp, tokens, cache_len=10)
+    assert worst <= LOGIT_RTOL, worst
+    np.testing.assert_array_equal(ttok, jtok)
+
+
+def test_bf16_decode_matches_reference():
+    """The dtype plumbing: bf16 params, caches and activations in both."""
+    jcfg, tcfg = _gemma_family("bfloat16")
+    jm, jp, tm, tp = _models(jcfg, tcfg, seed=3)
+    assert tp["embed"].dtype == torch.bfloat16
+    assert tm.init_cache(1, 4, "cpu")[0]["k"].dtype == torch.bfloat16
+    tokens = np.random.default_rng(11).integers(0, tcfg.vocab_size, (2, 12))
+    worst, _, _ = _teacher_forced(jm, jp, tm, tp, tokens, cache_len=12)
+    assert worst <= BF16_LOGIT_RTOL, worst
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_params_round_trip_is_bitwise(dtype):
+    jcfg, tcfg = _gemma_family(dtype)
+    jcfg = dataclasses.replace(jcfg, tie_embeddings=False)
+    tcfg = dataclasses.replace(tcfg, tie_embeddings=False)
+    tree = _np_tree(JaxLM(jcfg).init(jax.random.PRNGKey(4)))
+    back = lm_params_to_jax(tcfg, lm_params_from_jax(tcfg, tree, "cpu"))
+    want_leaves, want_def = jax.tree_util.tree_flatten(tree)
+    got_leaves, got_def = jax.tree_util.tree_flatten(back)
+    assert got_def == want_def
+    for g, w in zip(got_leaves, want_leaves):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert g.tobytes() == w.tobytes()
+    if dtype == "bfloat16":
+        assert want_leaves[0].dtype == ml_dtypes.bfloat16
+
+
+def test_port_layer_order_is_the_references():
+    """Flat layer i is cycle i // len(pattern) of pattern position i % len(pattern)."""
+    jcfg, tcfg = _gemma_family()
+    tree = _np_tree(JaxLM(jcfg).init(jax.random.PRNGKey(5)))
+    tp = lm_params_from_jax(tcfg, tree, "cpu")
+    plen = len(tcfg.pattern)
+    assert len(tp["layers"]) == 8 and plen == 6
+    for i, layer in enumerate(tp["layers"]):
+        want = (tree["decoder"]["cycles"][i % plen]["mixer"]["wq"][i // plen] if i < plen
+                else tree["decoder"]["rest"][i - plen]["mixer"]["wq"])
+        np.testing.assert_array_equal(layer["mixer"]["wq"].numpy(), want)
+
+
+# --- configs -----------------------------------------------------------------
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_configs_equal_reference(arch):
+    for reduced in (False, True):
+        want = dataclasses.asdict(jconfigs.get_arch(arch, reduced=reduced))
+        got = dataclasses.asdict(tconfigs.get_arch(arch, reduced=reduced))
+        assert got == want
+    full = tconfigs.get_arch(arch)
+    assert full.param_count() == jconfigs.get_arch(arch).param_count()
+    assert full.active_param_count() == full.param_count()
+
+
+def test_gemma3_4b_is_3_88b_parameters():
+    assert tconfigs.get_arch("gemma3-4b").param_count() == 3_879_907_840
+    assert tconfigs.SHAPES["decode_32k"] == dataclasses.replace(tconfigs.get_shape("decode_32k"))
+    assert dataclasses.asdict(tconfigs.get_shape("decode_32k")) == dataclasses.asdict(
+        jconfigs.get_shape("decode_32k"))
+
+
+def test_unported_archs_raise():
+    assert tconfigs.list_archs() == sorted(DENSE_ARCHS)
+    with pytest.raises(KeyError, match="later slice"):
+        tconfigs.get_arch("mixtral-8x22b")
+    with pytest.raises(KeyError, match="unknown"):
+        tconfigs.get_arch("no-such-model")
+    moe = dataclasses.replace(tconfigs.get_arch("gemma3-4b", reduced=True),
+                              moe=tconfigs.MoEConfig(num_experts=4, top_k=2))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        TransformerLM(moe)
+    rglru = dataclasses.replace(tconfigs.get_arch("gemma3-4b", reduced=True), pattern=("rglru",))
+    with pytest.raises(NotImplementedError, match="rglru"):
+        TransformerLM(rglru)
