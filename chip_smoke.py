@@ -5,7 +5,8 @@
 
 1. Builds the five CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    ``nvcc`` for ``sm_90a`` (one process per source, started together) and
-   prints the build time and each kernel's registers and spills.
+   prints the build time and each kernel's registers and spills; all 48
+   ``decode_attention`` instances must compile without a spill.
    Kernel phase: holds each kernel against its plain PyTorch version on the
    card, at the main paths' shapes (K = P = 10, Q = M = 100, D = 595,914;
    gemma3-4b's decode attention at the serve run's last step and at a 32k
@@ -14,7 +15,8 @@
    flushed before every launch), beside the least time the card could take.
    ``topk_mask_rows`` must equal its plain version bitwise, ties, NaN, ±inf
    and -0.0 included; ``decode_attention`` within 1e-5·max|V| in fp32 and
-   one ulp in bf16.
+   one ulp in bf16, in one kernel launch per call, with its planned grid,
+   resident blocks per SM and shared memory printed at each timed shape.
 2. Main path: the paper's CIFAR-10 model (§4.1 2conv+3fc, D = 595,914) in a
    100-client federation, 6 FLrce rounds through ``run_federated`` on the
    card.  Every kernel's launch count is reset just before the run and read
@@ -37,10 +39,15 @@
    34 times per decode step (34 × 1599), with the counts reset just before
    and read just after.  Prints prefill and generation wall time, tokens/s,
    per-step wall time and peak memory; then 8 decode steps under
-   ``torch.profiler``: device time by kernel and the busy share.
+   ``torch.profiler``: device time by kernel and the busy share, with
+   exactly one ``decode_attention_kernel`` launch per layer per step.
 5. A small gemma3-family model (8 layers, window 8, fp32) teacher-forced over
    20 positions on the card and on the CPU: logits within 1e-4 of
    max|logit|, greedy tokens equal.
+
+``python3 chip_smoke.py --decode-variants`` builds and times variants of the
+``decode_attention`` kernel instead (other ring shapes, the split pass alone,
+an empty kernel on the same grid; ``DECODE_VARIANTS``), and prints no result.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the exit code is
@@ -551,6 +558,8 @@ GEMMA3_LAYERS, GEMMA3_PARAMS = 34, 3_879_907_840
 DECODE_FP32_RTOL = 1e-5    # |Δ| ≤ 1e-5·max|V|: fp32 sums reordered across splits
                            # (+ half a bf16 ulp for a bf16 output's rounding)
 SERVE_LOGIT_RTOL = 1e-4    # GPU vs CPU logits, |Δ| / max|logit|, fp32 end to end
+DECODE_KERNEL = "decode_attention_kernel"   # the one kernel a decode_attention call launches
+DECODE_INSTANCES = 2 * 3 * 8                # fp32/bf16 x hd 64/128/256 x G 1..8
 
 # (label, B, S, K, G, hd, dtype, lengths, window, ring): edge cases
 DECODE_EDGES = [
@@ -629,6 +638,7 @@ def decode_kernel_phase(torch, timer, bandwidth) -> dict:
     """decode_attention against its plain version at the serve run's shapes,
     a 32k cache and edge cases; times at the three main shapes."""
     from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import ops
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     for label, b, s, kv, g, hd, dtype, lengths, window, ring in DECODE_EDGES:
@@ -667,6 +677,16 @@ def decode_kernel_phase(torch, timer, bandwidth) -> dict:
             shape=f"{label} B={b} S={s} valid={valid} K=4 G=2 hd=256 bf16",
         )
         r = rows[label]
+        plan = kdec.launch_plan(q, k, window=window, ring=ring)
+        ops.reset_launch_counts()
+        kern()
+        per_call = ops.launch_counts()["decode_attention"]
+        if per_call != 1:
+            fail(f"decode_attention {label}: {per_call} launches for one call")
+        print(f"  decode_attention {label}: grid {plan.grid} = {math.prod(plan.grid)} blocks of 128 "
+              f"threads on {plan.sms} SMs x {plan.blocks_per_sm} resident blocks (occupancy "
+              f"query), {plan.smem_bytes} B dynamic shared memory a block, {per_call} kernel "
+              f"launch per call")
         print(f"  decode_attention {r['shape']:<44} max|Δ| {err:.3e}  kernel {r['ms']:.4f} ms  "
               f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms ({lib_name})  "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes / 1e6:.1f} MB) "
@@ -799,7 +819,13 @@ def serve_profile(torch, model, params, step_wall_s: float, steps: int = 8) -> N
         products[label] += us
     categories = dict(products)
     categories["decode attention (this port)"] = sum(
-        us for n, us in by_name.items() if "decode_split_kernel" in n or "decode_combine_kernel" in n)
+        us for n, us in by_name.items() if DECODE_KERNEL in n)
+    decode_launches = sum(DECODE_KERNEL in e.name for e in events)
+    print(f"  {decode_launches} {DECODE_KERNEL} launches in {steps} steps "
+          f"({decode_launches / steps:.0f} per step)")
+    if decode_launches != GEMMA3_LAYERS * steps:
+        fail(f"serve profile: {decode_launches} decode attention kernel launches in {steps} steps, "
+             f"want one per layer per step ({GEMMA3_LAYERS * steps})")
     categories["elementwise and reductions (norms, RoPE, casts, residuals)"] = sum(
         us for n, us in by_name.items() if "elementwise_kernel" in n or "reduce_kernel" in n)
     categories["other"] = total_us - sum(categories.values())
@@ -855,6 +881,111 @@ def serve_reference_check(torch) -> None:
           f"CPU over 20 positions: logits |Δ|/max|logit| ≤ {worst:.2e}, greedy tokens equal")
 
 
+# ``--decode-variants``: csrc/decode_attention.cu with these substitutions,
+# each built into its own library and timed at the decode shapes.  Slots x
+# slot bytes per warp; "split only" skips the last block's combine (its
+# outputs are wrong); "empty" returns at once on the same grid.
+_RING = ("constexpr int kStages = 2;", "constexpr int kWarpRingBytes = 8 * 1024;")
+
+
+def _ring(stages: int, kib: int) -> list:
+    return [(_RING[0], f"constexpr int kStages = {stages};"),
+            (_RING[1], f"constexpr int kWarpRingBytes = {kib} * 1024;")]
+
+
+DECODE_VARIANTS = {
+    "2 x 4 KB (as built)": [],
+    "3 x 4 KB": _ring(3, 12),
+    "4 x 4 KB": _ring(4, 16),
+    "8 x 4 KB": _ring(8, 32),
+    "4 x 2 KB": _ring(4, 8),
+    "2 x 4 KB, 32-row floor": [("constexpr int kMinRows = 64;", "constexpr int kMinRows = 32;")],
+    "2 x 4 KB, one thread fences": [(
+        "  __threadfence();\n  __syncthreads();\n  if (threadIdx.x == 0) *last_flag",
+        "  __syncthreads();\n  if (threadIdx.x == 0) __threadfence();\n  if (threadIdx.x == 0) *last_flag")],
+    "2 x 4 KB, __expf": [("const float alpha = expf(", "const float alpha = __expf("),
+                         ("const float p = expf(", "const float p = __expf(")],
+    "2 x 4 KB, split only": [("  if (!*last_flag) return;", "  return;")],
+    "2 x 4 KB, empty": [("  const int split = blockIdx.x, k = blockIdx.y, b = blockIdx.z;",
+                         "  if (S > 0) return;\n"
+                         "  const int split = blockIdx.x, k = blockIdx.y, b = blockIdx.z;")],
+}
+
+
+def decode_variants(torch, timer, bandwidth) -> None:
+    """Time each of DECODE_VARIANTS at the three decode shapes and an S sweep
+    (B = 8, K = 4, G = 2, hd = 256, bf16), beside SDPA; the variants that
+    compute the function are held against the plain version first."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as kdec
+
+    source = (build.CSRC / "decode_attention.cu").read_text()
+    work = build.BUILD_ROOT / f"variants-{build.source_hash()}"
+    work.mkdir(parents=True, exist_ok=True)
+    nvcc = build.find_nvcc()
+    cmds, objs = [], []
+    for src in build.SOURCES:
+        if src != "decode_attention.cu":
+            objs.append(work / (Path(src).stem + ".o"))
+            cmds.append([nvcc, *build.NVCC_FLAGS, f"-I{build.CSRC}", "-c", str(build.CSRC / src),
+                         "-o", str(objs[-1])])
+    for i, subs in enumerate(DECODE_VARIANTS.values()):
+        text = source
+        for old, new in subs:
+            if old not in text:
+                fail(f"decode variant {i}: {old!r} not in the source")
+            text = text.replace(old, new)
+        (work / f"decode_{i}.cu").write_text(text)
+        cmds.append([nvcc, *build.NVCC_FLAGS, f"-I{build.CSRC}", "-c", str(work / f"decode_{i}.cu"),
+                     "-o", str(work / f"decode_{i}.o")])
+    t0 = time.perf_counter()
+    build._run_all(cmds)
+    build._run_all([[nvcc, *build.ARCH_FLAGS, "-shared", "-o", str(work / f"lib_{i}.so"),
+                     str(work / f"decode_{i}.o"), *map(str, objs)]
+                    for i in range(len(DECODE_VARIANTS))])
+    print(f"  {len(DECODE_VARIANTS)} variants built in {time.perf_counter() - t0:.1f} s")
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shapes = [("global", SERVE_B, SERVE_CACHE, SERVE_CACHE, 0, False),
+              ("ring", SERVE_B, 1024, SERVE_CACHE, 1024, True),
+              ("32k", 16, 32_768, 32_768, 0, False)]
+    shapes += [(f"S={s}", SERVE_B, s, s, 0, False) for s in (64, 256, 512, 3200, 6400)]
+    inputs = {label: decode_inputs(torch, gen, b, s, 4, 2, 256, "bf16", [length] * b)
+              for label, b, s, length, _, _ in shapes}
+    sdpa = {label: timer(sdpa_call(torch, *inputs[label][:3])[0]) for label, *_ in shapes}
+    lib, min_rows = build.library(), kdec._MIN_ROWS
+    try:
+        for i, name in enumerate(DECODE_VARIANTS):
+            build._LIB = ctypes.CDLL(str(work / f"lib_{i}.so"))
+            build._declare(build._LIB)
+            kdec._occupancy.cache_clear()
+            kdec._plan.cache_clear()
+            kdec._MIN_ROWS = 32 if "32-row" in name else min_rows
+            for counters in kdec._ARRIVALS.values():
+                counters.zero_()
+            print(f"  variant {name}")
+            for label, b, s, length, window, ring in shapes:
+                q, k, v, lens = inputs[label]
+                fn = lambda: kdec.decode_attention_cuda(q, k, v, lens, window=window, ring=ring)  # noqa: E731
+                if "split only" not in name and "empty" not in name:
+                    check_decode(f"{name} {label}", fn(), kdec.decode_attention_plain(
+                        q.float(), k.float(), v.float(), lens, window=window, ring=ring), v, torch)
+                plan = kdec.launch_plan(q, k, window=window, ring=ring)
+                ms = timer(fn)
+                bound = (2 * b * min(length, s) * 4 * 256 * 2 + 2 * q.numel() * 2) / bandwidth * 1e3
+                print(f"    {label:<7} grid {plan.grid}, {plan.blocks_per_sm} blocks/SM, "
+                      f"{plan.smem_bytes} B: {ms:.4f} ms, bound {bound:.4f} ms "
+                      f"({100 * bound / ms:.1f}%), SDPA {sdpa[label]:.4f} ms")
+    finally:
+        build._LIB, kdec._MIN_ROWS = lib, min_rows
+        kdec._occupancy.cache_clear()
+        kdec._plan.cache_clear()
+        for counters in kdec._ARRIVALS.values():
+            counters.zero_()
+
+
 def main() -> int:
     try:
         import torch
@@ -881,11 +1012,24 @@ def main() -> int:
     info = build.BUILD_INFO
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({'compiled' if info.get('built') else 'cached'}) -> {info['path']}")
-    for line in ptxas_summary(str(info.get("log", ""))):
+    ptxas = ptxas_summary(str(info.get("log", "")))
+    for line in ptxas:
         print(f"  ptxas: {line}")
+    decode = [line for line in ptxas if line.startswith(DECODE_KERNEL)]
+    spilling = [line for line in decode if "spill stores/loads 0/0 B" not in line]
+    regs = sorted(int(line.split(": ")[1].split()[0]) for line in decode)
+    print(f"  ptxas: {len(decode)} {DECODE_KERNEL} instances, {regs[0] if regs else '-'}-"
+          f"{regs[-1] if regs else '-'} registers, {len(spilling)} with spills")
+    if len(decode) != DECODE_INSTANCES or spilling:
+        fail(f"{DECODE_KERNEL}: {len(decode)} instances compiled (want {DECODE_INSTANCES}), "
+             f"spilling: {spilling}")
     bandwidth, bw_src = memory_bandwidth(torch)
     print(f"memory bandwidth {bandwidth / 1e12:.3f} TB/s ({bw_src}); "
           f"fp32 peak {FP32_PEAK_FLOPS / 1e12:.0f} TFLOP/s")
+    if sys.argv[1:] == ["--decode-variants"]:
+        print("decode_attention variants")
+        decode_variants(torch, Timer(torch), bandwidth)
+        return 0
 
     print("phase 1: kernels against their plain versions")
     timer = Timer(torch)

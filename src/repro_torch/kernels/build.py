@@ -75,8 +75,10 @@ def build() -> Path:
     """Compile the sources if the hashed library is missing; return its path."""
     target_dir = BUILD_ROOT / source_hash()
     lib_path = target_dir / LIB_NAME
+    log_path = target_dir / "build.log"
     if lib_path.exists():
-        BUILD_INFO.update(path=str(lib_path), seconds=0.0, built=False)
+        BUILD_INFO.update(path=str(lib_path), seconds=0.0, built=False,
+                          log=log_path.read_text() if log_path.exists() else "")
         return lib_path
     nvcc = find_nvcc()
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
@@ -101,7 +103,7 @@ def build() -> Path:
         shutil.rmtree(work, ignore_errors=True)
     BUILD_INFO.update(
         path=str(lib_path), seconds=time.perf_counter() - t0, built=True,
-        log=(target_dir / "build.log").read_text() if (target_dir / "build.log").exists() else "",
+        log=log_path.read_text() if log_path.exists() else "",
     )
     return lib_path
 
@@ -116,9 +118,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flrce_weighted_aggregate.restype = i32
     lib.flrce_topk_mask_rows.argtypes = [p, p, i64, i64, i64, i64, p]
     lib.flrce_topk_mask_rows.restype = i32
-    lib.flrce_decode_attention.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64,
-                                           i32, i32, ctypes.c_float, p]
+    lib.flrce_decode_attention.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64,
+                                           i64, i32, i32, ctypes.c_float, p]
     lib.flrce_decode_attention.restype = i32
+    lib.flrce_decode_attention_occupancy.argtypes = [i32, i64, i64, ctypes.POINTER(i32),
+                                                     ctypes.POINTER(i32)]
+    lib.flrce_decode_attention_occupancy.restype = i32
     lib.flrce_xgram_plan.argtypes = [i64, i64, i64, i32, ctypes.POINTER(i64), ctypes.POINTER(i64)]
     lib.flrce_xgram_plan.restype = i32
     lib.flrce_error_string.argtypes = [i32]

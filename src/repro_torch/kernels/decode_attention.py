@@ -18,13 +18,21 @@ the output is the mean of V over all S slots.  That is what
 gives NaN there and its Pallas kernel the mean over the zero-padded S.  The
 port follows the function the serving path calls.
 
-Decoding is memory-bound (about 2 FLOP per byte of cache), so the kernel
-(``csrc/decode_attention.cu``) is split-S flash-decoding: one block per
-(split of the valid range, KV head, sequence), every K/V row read once for
-the G query heads of its group, the splits combined by a second small pass in
-a fixed order (bitwise repeatable, no atomics).  Slots outside the valid range
-are never read; masked logits contribute exactly 0 in the reference, so this
-changes nothing.
+Decoding is memory-bound (about 2 FLOP per byte of cache).  The kernel
+(``csrc/decode_attention.cu``, whose source note gives the design) is split-S
+flash-decoding written for Hopper, in one launch: one block per (split of the
+valid range, KV head, sequence), every K/V row read once for the G query
+heads of its group, the rows streamed by bulk copies into a shared-memory
+ring per warp, and the last block of each (sequence, KV head) to finish
+combining the splits in a fixed order (bitwise repeatable).  Slots outside
+the valid range are never read; masked logits contribute exactly 0 in the
+reference, so this changes nothing.
+
+The wrapper plans the grid from the occupancy the kernel really gets
+(``plan_splits``): at most one wave of resident blocks, no split under
+``_MIN_ROWS`` rows.  The splits of a (sequence, KV head) meet on an int32
+arrival counter; the counters are kept per (device, stream), zero at rest
+(the kernel sets each back to 0), and grown when a batch needs more.
 
 ``decode_attention_plain`` is the same function in plain PyTorch: the CPU
 path, and the yardstick the kernel is held against on the card.
@@ -32,8 +40,10 @@ path, and the yardstick the kernel is held against on the card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
+from typing import Dict, Tuple
 
 import torch
 
@@ -46,8 +56,11 @@ HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
-_MIN_ROWS = 32          # csrc/decode_attention.cu kMinRows
-_BLOCKS_PER_SM = 4      # splits aim at about this many 128-thread blocks per SM
+_MIN_ROWS = 64          # csrc/decode_attention.cu kMinRows
+_MAX_SPLITS = 512       # csrc/decode_attention.cu kMaxSplits
+
+# (device index, stream handle) → int32 arrival counters, zero at rest
+_ARRIVALS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -80,12 +93,73 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_count(b: int, k: int, rows: int, sms: int) -> int:
-    """Splits of the valid range per (sequence, KV head): enough blocks for
-    ``_BLOCKS_PER_SM`` per SM, but no split shorter than ``_MIN_ROWS`` of the
-    ``rows`` slots a range can hold."""
-    want = -(-_BLOCKS_PER_SM * sms // (b * k))
-    return max(1, min(want, -(-rows // _MIN_ROWS)))
+@functools.lru_cache(maxsize=None)
+def _occupancy(index: int, dtype_code: int, hd: int, group: int) -> Tuple[int, int]:
+    """(blocks per SM, dynamic shared memory bytes) of the kernel instance on
+    device ``index``, as the CUDA occupancy query gives them."""
+    per_sm, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = build.library().flrce_decode_attention_occupancy(
+            dtype_code, hd, group, ctypes.byref(per_sm), ctypes.byref(smem))
+    build.check(rc, "decode_attention occupancy")
+    if per_sm.value < 1:
+        raise RuntimeError(f"decode_attention: the instance (dtype {dtype_code}, hd {hd}, "
+                           f"G {group}) fits no block on an SM")
+    return per_sm.value, smem.value
+
+
+def plan_splits(b: int, k: int, rows: int, sms: int, per_sm: int) -> int:
+    """Splits of the valid range per (sequence, KV head): as many as one wave
+    of the card's ``sms · per_sm`` resident blocks holds for the ``b · k``
+    pairs, so no block waits for a second wave, but none shorter than
+    ``_MIN_ROWS`` of the ``rows`` slots a range can hold."""
+    if min(b, k, sms, per_sm) < 1:
+        raise ValueError(f"plan_splits: B={b}, K={k}, SMs={sms}, blocks per SM={per_sm}")
+    return max(1, min((sms * per_sm) // (b * k), rows // _MIN_ROWS, _MAX_SPLITS))
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How a call is launched: one kernel, grid (n_splits, K, B) of 128-thread
+    blocks, ``blocks_per_sm`` of them resident on each of ``sms`` SMs."""
+    n_splits: int
+    grid: Tuple[int, int, int]
+    blocks_per_sm: int
+    sms: int
+    smem_bytes: int
+
+
+def launch_plan(q: torch.Tensor, k_cache: torch.Tensor, *, window: int = 0,
+                ring: bool = False) -> LaunchPlan:
+    """The grid the kernel gets for these operands (on the card)."""
+    b, h, hd = q.shape
+    s, kvh = k_cache.shape[1], k_cache.shape[2]
+    index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    rows = min(s, window) if (window > 0 and not ring) else s
+    return _plan(index, _DTYPES[q.dtype], b, kvh, h // kvh, hd, rows)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(index: int, dtype_code: int, b: int, kvh: int, group: int, hd: int,
+          rows: int) -> LaunchPlan:
+    per_sm, smem = _occupancy(index, dtype_code, hd, group)
+    sms = _sm_count(index)
+    n = plan_splits(b, kvh, rows, sms, per_sm)
+    return LaunchPlan(n_splits=n, grid=(n, kvh, b), blocks_per_sm=per_sm, sms=sms,
+                      smem_bytes=smem)
+
+
+def arrival_counters(device: torch.device, stream: torch.cuda.Stream, n: int) -> torch.Tensor:
+    """The (device, stream)'s int32 arrival counters, at least ``n`` of them,
+    all zero between launches."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, stream.cuda_stream)
+    buf = _ARRIVALS.get(key)
+    if buf is None or buf.numel() < n:
+        size = max(n, 2 * buf.numel() if buf is not None else 256)
+        buf = torch.zeros(size, dtype=torch.int32, device=torch.device("cuda", index))
+        _ARRIVALS[key] = buf
+    return buf
 
 
 def _check_operand(name: str, t: torch.Tensor, ndim: int, dtype: torch.dtype) -> None:
@@ -129,18 +203,21 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
     if b < 1 or s < 1 or window < 0:
         raise ValueError(f"decode_attention: B={b}, S={s}, window={window}")
     group = h // kvh
-    rows = min(s, window) if (window > 0 and not ring) else s
-    n_splits = split_count(b, kvh, rows, _sm_count(q.device.index or 0))
-    part_acc = torch.empty((b, kvh, n_splits, group, hd), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, kvh, n_splits, group, 2), dtype=torch.float32, device=q.device)
+    plan = launch_plan(q, k_cache, window=window, ring=ring)
+    n = plan.n_splits
     out = torch.empty_like(q)
-    lib = build.library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.flrce_decode_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), length.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), b, s, kvh, group, hd, n_splits,
-        int(window), int(bool(ring)), _DTYPES[q.dtype], ctypes.c_float(1.0 / math.sqrt(hd)),
-        stream)
+    stream = torch.cuda.current_stream(q.device)
+    if n > 1:
+        part_acc = torch.empty((b, kvh, n, group, hd), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((b, kvh, n, group, 2), dtype=torch.float32, device=q.device)
+        ptrs = (part_acc.data_ptr(), part_ml.data_ptr(),
+                arrival_counters(q.device, stream, b * kvh).data_ptr())
+    else:
+        ptrs = (None, None, None)
+    rc = build.library().flrce_decode_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), length.data_ptr(), *ptrs,
+        out.data_ptr(), b, s, kvh, group, hd, n, int(window), int(bool(ring)), _DTYPES[q.dtype],
+        ctypes.c_float(1.0 / math.sqrt(hd)), stream.cuda_stream)
     build.check(rc, "decode_attention")
     DECODE_ATTENTION_LAUNCHES += 1
     return out

@@ -241,6 +241,66 @@ def test_decode_attention_kernel_matches_plain(cuda, b, s, kv, g, hd, dtype, len
     assert ops.launch_counts()["decode_attention"] == 2
 
 
+@pytest.mark.parametrize("b,s,kv,g,hd,dtype,lengths,want_splits", [
+    (2, 50, 2, 2, 256, torch.bfloat16, [50, 3], "one"),             # under the split floor
+    (1, 32768, 1, 2, 256, torch.bfloat16, [32768], "many"),         # more splits than 17
+    (1, 32768, 1, 2, 256, torch.float32, [0], "many"),              # many splits, length 0
+])
+def test_decode_attention_single_and_many_splits(cuda, b, s, kv, g, hd, dtype, lengths,
+                                                 want_splits):
+    from repro_torch.kernels import decode_attention, ops
+
+    q, k, v, length = _decode_case(cuda, s + g, b, s, kv, g, hd, dtype, lengths)
+    plan = decode_attention.launch_plan(q, k)
+    if want_splits == "one":
+        assert plan.n_splits == 1
+    else:
+        assert plan.n_splits > 17 and plan.grid[0] * kv * b <= plan.sms * plan.blocks_per_sm
+    got = ops.decode_attention(q, k, v, length)
+    want32 = decode_attention.decode_attention_plain(q.float(), k.float(), v.float(), length)
+    _assert_decode_close(got, want32, v)
+    assert torch.equal(got, ops.decode_attention(q, k, v, length))
+    assert ops.launch_counts()["decode_attention"] == 2
+
+
+def test_decode_attention_counters_back_to_zero_between_shapes(cuda):
+    """Calls of different shapes back to back on one stream: each leaves the
+    stream's arrival counters at 0, so a call after another equals a fresh one."""
+    from repro_torch.kernels import decode_attention, ops
+
+    first = _decode_case(cuda, 1, 8, 1600, 4, 2, 256, torch.bfloat16, [1600] * 8)
+    second = _decode_case(cuda, 2, 3, 700, 2, 2, 128, torch.float32, [700, 0, 350])
+    fresh = ops.decode_attention(*second)
+    torch.cuda.synchronize()
+    ops.decode_attention(*first)
+    after = ops.decode_attention(*second)
+    ops.decode_attention(*first)
+    torch.cuda.synchronize()
+    assert torch.equal(after, fresh)
+    counters = decode_attention.arrival_counters(torch.device(cuda),
+                                                 torch.cuda.current_stream(), 0)
+    assert int(counters.abs().sum()) == 0
+
+
+def test_decode_attention_two_streams_agree(cuda):
+    """The same call on two streams, each with its own counters."""
+    from repro_torch.kernels import decode_attention, ops
+
+    q, k, v, length = _decode_case(cuda, 3, 8, 1024, 4, 2, 256, torch.bfloat16, [1537] * 8)
+    outs, streams = [], [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    for st in streams:
+        with torch.cuda.stream(st):
+            outs.append(ops.decode_attention(q, k, v, length, window=1024, ring=True))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], ops.decode_attention(q, k, v, length, window=1024, ring=True))
+    bufs = [decode_attention.arrival_counters(torch.device(cuda), st, 0) for st in streams]
+    assert bufs[0].data_ptr() != bufs[1].data_ptr()
+    assert all(int(b.abs().sum()) == 0 for b in bufs)
+
+
 def test_decode_attention_rejects_bad_operands(cuda):
     from repro_torch.kernels import ops
 

@@ -192,9 +192,28 @@ def test_decode_attention_cuda_wrapper_refuses_cpu_tensors():
         tops.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32, device="meta"))
 
 
-@pytest.mark.parametrize("b,k,rows,sms,want", [
-    (8, 4, 1600, 132, 17), (8, 4, 1024, 132, 17), (16, 4, 32768, 132, 9),
-    (1, 1, 10, 132, 1), (1, 1, 100, 132, 4), (128, 8, 4096, 132, 1),
+@pytest.mark.parametrize("b,k,rows,sms,per_sm,want", [
+    (8, 4, 1600, 132, 5, 20),      # serve, global layer: 640 blocks on 660 slots, one wave
+    (8, 4, 1024, 132, 5, 16),      # serve, ring layer: held at the row floor
+    (8, 4, 1600, 132, 4, 16),      # 512 blocks on 528 slots
+    (8, 4, 1024, 132, 4, 16),
+    (8, 4, 1600, 132, 2, 8),       # 256 blocks on 264 slots
+    (8, 4, 1024, 132, 2, 8),
+    (16, 4, 32768, 132, 5, 10),    # 32k cache: 640 blocks on 660 slots
+    (16, 4, 32768, 132, 3, 6),
+    (1, 1, 50, 132, 3, 1),         # rows under the floor: one split
+    (2, 4, 127, 132, 3, 1),        # one floor's worth of rows
+    (1, 1, 32768, 132, 3, 396),    # one pair fills the card
+    (1, 1, 1 << 20, 132, 8, 512),  # capped at the splits the last block can combine
+    (128, 8, 4096, 132, 3, 1),     # a batch that fills the card with one split each
 ])
-def test_decode_attention_split_count(b, k, rows, sms, want):
-    assert tdec.split_count(b, k, rows, sms) == want
+def test_decode_attention_plan_splits(b, k, rows, sms, per_sm, want):
+    n = tdec.plan_splits(b, k, rows, sms, per_sm)
+    assert n == want
+    assert b * k * n <= max(sms * per_sm, b * k)               # at most one wave, or one split
+    assert n == 1 or -(-rows // n) >= tdec._MIN_ROWS            # no split under the floor
+
+
+def test_decode_attention_plan_splits_refuses_an_empty_card():
+    with pytest.raises(ValueError):
+        tdec.plan_splits(8, 4, 1600, 132, 0)
