@@ -5,16 +5,21 @@
 
 1. Builds the five CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    ``nvcc`` for ``sm_90a`` (one process per source, started together) and
-   prints the build time and each kernel's registers and spills; all 48
-   ``decode_attention`` instances must compile without a spill.
+   prints the build time and each kernel's registers, spills and stack
+   frames; the 48 ``decode_attention``, 4 ``gram_tri_kernel`` and 12
+   ``topk_mask_kernel`` instances must all compile without a spill, and the
+   last two without a stack frame.
    Kernel phase: holds each kernel against its plain PyTorch version on the
    card, at the main paths' shapes (K = P = 10, Q = M = 100, D = 595,914;
    gemma3-4b's decode attention at the serve run's last step and at a 32k
    cache) and at edge shapes, and times the kernel, the plain version and one
    PyTorch library call computing the same function (CUDA events, L2
    flushed before every launch), beside the least time the card could take.
-   ``topk_mask_rows`` must equal its plain version bitwise, ties, NaN, ±inf
-   and -0.0 included; ``decode_attention`` within 1e-5·max|V| in fp32 and
+   ``topk_mask_rows`` must equal its plain version bitwise, ties, NaN, ±inf,
+   -0.0, one-exponent tiles and P = 64 included; ``gram`` must be exactly
+   symmetric and repeatable, and one kernel launch at P = 10 under
+   ``torch.profiler``; both print their planned grid, resident blocks per SM
+   and registers; ``decode_attention`` within 1e-5·max|V| in fp32 and
    one ulp in bf16, in one kernel launch per call, with its planned grid,
    resident blocks per SM and shared memory printed at each timed shape.
 2. Main path: the paper's CIFAR-10 model (§4.1 2conv+3fc, D = 595,914) in a
@@ -45,9 +50,15 @@
    20 positions on the card and on the CPU: logits within 1e-4 of
    max|logit|, greedy tokens equal.
 
-``python3 chip_smoke.py --decode-variants`` builds and times variants of the
-``decode_attention`` kernel instead (other ring shapes, the split pass alone,
-an empty kernel on the same grid; ``DECODE_VARIANTS``), and prints no result.
+Measurement modes, which print no result line:
+``--decode-variants`` builds and times variants of the ``decode_attention``
+kernel (other ring shapes, the split pass alone, an empty kernel on the
+same grid; ``DECODE_VARIANTS``); ``--kernel-variants`` does the same for
+``topk_mask_rows`` and ``gram`` (the stream without the select, the split
+pass alone, empty kernels; ``KERNEL_VARIANTS``); ``--time-kernels [--src
+DIR]`` times ``gram`` and ``topk_mask_rows`` at the main shape from the
+port under DIR (default ``src``), so that two trees, such as a ``git
+archive`` of a parent commit, compare in one call.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the exit code is
@@ -70,11 +81,15 @@ SRC = REPO / "src"
 K_MAIN, Q_MAIN, D_MAIN = 10, 100, 595_914
 GRAM_RTOL = 1e-4           # |Δ| ≤ 1e-4·‖u_k‖‖v_j‖: fp32 sums over D reordered
 AGG_ATOL = AGG_RTOL = 1e-6
+GRAM_KERNEL = "gram_tri_kernel"         # the one kernel a gram call at P <= 16 launches
+TOPK_KERNEL = "topk_mask_kernel"
 FP32_PEAK_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores (data sheet)
 # read before every timed launch: far more than the 50 MB L2, and long
 # enough (about 0.3 ms) that the host has queued the timed call before the
 # card reaches it, on a slow host too
 L2_FLUSH_BYTES = 1 << 30
+# measurement modes: they print no result line
+MODES = ("--decode-variants", "--kernel-variants", "--time-kernels")
 # 0.05 diverges on this data: the JAX package's run of the same
 # configuration, like the port's, reaches a NaN loss in round 1.
 MAIN_LR = 0.01
@@ -120,9 +135,11 @@ def ptxas_summary(log: str) -> list:
         if m:
             name, spills = m.group(1), "spills not reported"
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
         if m and name:
-            spills = f"spill stores/loads {m.group(1)}/{m.group(2)} B"
+            spills = (f"spill stores/loads {m.group(2)}/{m.group(3)} B"
+                      + (f", stack frame {m.group(1)} B" if m.group(1) != "0" else ""))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out.append(f"{short_kernel_name(name)}: {m.group(1)} registers, {spills}")
@@ -149,20 +166,24 @@ class Timer:
     keeps the card busy while the host runs the next wrapper, so the events
     time the device's work and not the host's launch overhead.  The flush
     reads its buffer, so it leaves clean lines in L2 and the timed call pays
-    no write-back of the flush's own data.
+    no write-back of the flush's own data.  ``flush=False`` times with the
+    inputs warm in L2, a device-side sleep in place of the flush.
     """
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
 
-    def __call__(self, fn, iters: int = 15, warmup: int = 3) -> float:
+    def __call__(self, fn, iters: int = 15, warmup: int = 3, flush: bool = True) -> float:
         torch = self.torch
         for _ in range(warmup):
             fn()
         pairs = []
         for _ in range(iters):
-            self.flush.sum()
+            if flush:
+                self.flush.sum()
+            else:  # keep the card busy while the host queues the call, L2 untouched
+                torch.cuda._sleep(200_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -211,9 +232,12 @@ def check_bitwise(name, got, want, torch) -> None:
 
 def topk_inputs(torch, gen) -> list:
     """(label, u) pairs: normal values at the main and edge shapes, ties from
-    a small integer set, and NaN / ±inf / -0.0 mixed in."""
+    a small integer set, NaN / ±inf / -0.0 mixed in, tiles whose 2048
+    magnitudes share one exponent (every lane of a warp on one histogram
+    bin), all-NaN and all -0.0 tiles, and P = 64 (many tiles a block)."""
     out = [(f"P={p} D={d}", torch.randn(p, d, generator=gen, device="cuda"))
-           for p, d in [(10, 1), (10, 2047), (10, 2049), (1, D_MAIN), (17, 5000), (K_MAIN, D_MAIN)]]
+           for p, d in [(10, 1), (10, 2047), (10, 2049), (1, D_MAIN), (17, 5000), (K_MAIN, D_MAIN),
+                        (64, D_MAIN)]]
     ties = torch.randint(-3, 4, (K_MAIN, 8193), generator=gen, device="cuda").float()
     special = torch.randn(K_MAIN, 8195, generator=gen, device="cuda")
     pick = torch.randint(0, 8, special.shape, generator=gen, device="cuda")
@@ -221,7 +245,12 @@ def topk_inputs(torch, gen) -> list:
         special = torch.where(pick == code, torch.full_like(special, value), special)
     special[0] = float("nan")
     special[1, :2048] = -0.0
-    return out + [("ties P=10 D=8193", ties), ("nan/inf/-0 P=10 D=8195", special)]
+    sign = torch.where(torch.rand(K_MAIN, 4096, generator=gen, device="cuda") < 0.5, -1.0, 1.0)
+    one_exp = (1.0 + torch.rand(K_MAIN, 4096, generator=gen, device="cuda")) * sign
+    one_exp[1] = float("nan")
+    one_exp[2] = -0.0
+    return out + [("ties P=10 D=8193", ties), ("nan/inf/-0 P=10 D=8195", special),
+                  ("one exponent, all-NaN and all -0.0 rows P=10 D=4096", one_exp)]
 
 
 def kernel_phase(torch, timer, bandwidth) -> dict:
@@ -242,10 +271,14 @@ def kernel_phase(torch, timer, bandwidth) -> dict:
         _, rel = check_gram(f"cross_gram K={k} Q={q} D={d}",
                             kgram.cross_gram_cuda(u, v), kgram.cross_gram_plain(u, v), u, v, torch)
         print(f"  cross_gram edge K={k:3d} Q={q:3d} D={d:7d}: max |Δ|/(‖u‖‖v‖) {rel:.2e}")
-    for p, d in [(10, 1), (10, 2049), (1, D_MAIN), (17, 5000), (10, 4096)]:
+    for p, d in [(10, 1), (10, 2049), (1, D_MAIN), (17, 5000), (10, 4096), (4, D_MAIN),
+                 (5, D_MAIN), (12, D_MAIN), (16, D_MAIN), (17, D_MAIN)]:
         u = randn(p, d)
-        _, rel = check_gram(f"gram P={p} D={d}", kgram.gram_cuda(u), kgram.gram_plain(u), u, u, torch)
-        print(f"  gram edge P={p:3d} D={d:7d}: max |Δ|/(‖u‖‖u‖) {rel:.2e}")
+        got = kgram.gram_cuda(u)
+        _, rel = check_gram(f"gram P={p} D={d}", got, kgram.gram_plain(u), u, u, torch)
+        if not (torch.equal(got, got.T) and torch.equal(got, kgram.gram_cuda(u))):
+            fail(f"gram P={p} D={d}: not exactly symmetric or not repeatable")
+        print(f"  gram edge P={p:3d} D={d:7d}: max |Δ|/(‖u‖‖u‖) {rel:.2e}, symmetric, repeatable")
     for p, d in [(10, 1), (10, 2049), (1, D_MAIN), (10, 4096), (3, 7)]:
         w, u, pw = randn(d), randn(p, d), torch.rand(p, generator=gen, device="cuda")
         err = check_aggregate(f"weighted_aggregate P={p} D={d}", kagg.weighted_aggregate_cuda(w, u, pw),
@@ -273,7 +306,7 @@ def kernel_phase(torch, timer, bandwidth) -> dict:
     b_ms, b_by = bound(4 * (k * d + q * d + k * q), 2 * k * q * d)
     rows.append(dict(
         name="cross_gram", route="cuda", source="src/repro_torch/kernels/csrc/gram.cu",
-        replaces="src/repro/kernels/gram.py:98", max_abs_err=err, rel_err=rel,
+        replaces="src/repro/kernels/gram.py:99", max_abs_err=err, rel_err=rel,
         ms=timer(lambda: kgram.cross_gram_cuda(u, v)),
         plain_ms=timer(lambda: kgram.cross_gram_plain(u, v)),
         bound_ms=b_ms, bound_by=b_by,
@@ -309,14 +342,9 @@ def kernel_phase(torch, timer, bandwidth) -> dict:
                   ktopk.topk_mask_rows_plain(u, keep_frac=kf), torch)
     padded = torch.nn.functional.pad(u, (0, (-d) % bd)).reshape(-1, bd)
 
-    def library_route():
-        mag = padded.abs()
-        kth = torch.topk(mag, k_keep, dim=1).values[:, k_keep - 1:]
-        return torch.where(mag >= kth, padded, 0.0)
-
-    # the selection's data-dependent work is counted as one compare per
-    # element per pattern bit of the radix select (31 bits)
-    b_ms, b_by = bound(4 * (k * d + k * d), 31 * k * d)
+    # the operations any selection needs: each element compared with its
+    # tile's threshold once
+    b_ms, b_by = bound(4 * (k * d + k * d), k * d)
     rows.append(dict(
         name="topk_mask_rows", route="cuda", source="src/repro_torch/kernels/csrc/topk_mask.cu",
         replaces="src/repro/kernels/topk_mask.py:38", max_abs_err=0.0, rel_err=0.0,
@@ -325,9 +353,10 @@ def kernel_phase(torch, timer, bandwidth) -> dict:
         bound_ms=b_ms, bound_by=b_by,
         # no single PyTorch call computes it; the two-call route below is
         # printed and kept in PERF.md, not in the JSON line
-        library_ms=None, route_ms=timer(library_route),
+        library_ms=None, route_ms=timer(lambda: topk_route(torch, padded, k_keep)),
         shape=f"P={k} D={d} keep_frac={kf}",
     ))
+    launch_plans(torch, kgram, ktopk, u)
     for r in rows:
         lib = (f"library {r['library_ms']:.4f} ms" if r["library_ms"] is not None
                else f"torch.topk+torch.where (two calls) {r['route_ms']:.4f} ms")
@@ -338,6 +367,34 @@ def kernel_phase(torch, timer, bandwidth) -> dict:
     del u, v, w, padded
     torch.cuda.empty_cache()
     return {r["name"]: r for r in rows}
+
+
+def launch_plans(torch, kgram, ktopk, u) -> None:
+    """The planned grids of gram and topk_mask_rows at the main shape, and a
+    profiled gram call, which must be one kernel launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = kgram.gram_plan(u)
+    print(f"  gram plan P={u.shape[0]}: {g.n_splits} blocks of {kgram.TRI_THREADS} threads taking "
+          f"the {kgram.TRI_SLAB}-column slabs in turn, tile {g.tile} rows, on {g.sms} SMs "
+          f"x {g.blocks_per_sm} resident blocks (occupancy query), {g.registers} registers")
+    t = ktopk.launch_plan(u, torch.empty_like(u), ktopk.DEFAULT_BLOCK_D)
+    print(f"  topk_mask_rows plan P={u.shape[0]}: {t.grid} blocks of {ktopk.THREADS} threads "
+          f"walking {t.n_tiles} tiles ({t.n_tiles / t.grid:.2f} a block), {t.items} elements a "
+          f"thread, {t.vec} floats a load, on {t.sms} SMs x {t.blocks_per_sm} resident blocks "
+          f"(occupancy query), {t.registers} registers")
+    kgram.gram_cuda(u)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kgram.gram_cuda(u)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower()]
+    print(f"  one gram call at P={u.shape[0]} under the profiler: {len(kernels)} kernel launch "
+          f"({', '.join(n[:80] for n in kernels)})")
+    if len(kernels) != 1 or GRAM_KERNEL not in kernels[0]:
+        fail(f"gram at P={u.shape[0]}: kernels {kernels}, want one {GRAM_KERNEL}")
 
 
 def main_path(torch) -> dict:
@@ -439,7 +496,7 @@ def profile_phase(torch, ds, model, params, round_wall_s: float, rounds: int = 3
           f"median round ({round_wall_s:.3f} s)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {us / 1e3 / rounds:9.3f} ms/round  {100 * us / total_us:5.1f}%  {name[:110]}")
-    for name in ("xgram_partial_kernel", "sum_splits_kernel", "aggregate_kernel"):
+    for name in ("xgram_partial_kernel", "sum_splits_kernel", GRAM_KERNEL, "aggregate_kernel"):
         us = sum(t for n, t in by_name.items() if name in n)
         print(f"  {us / 1e3 / rounds:9.3f} ms/round  {100 * us / total_us:5.1f}%  {name} (this port)")
 
@@ -560,6 +617,9 @@ DECODE_FP32_RTOL = 1e-5    # |Δ| ≤ 1e-5·max|V|: fp32 sums reordered across s
 SERVE_LOGIT_RTOL = 1e-4    # GPU vs CPU logits, |Δ| / max|logit|, fp32 end to end
 DECODE_KERNEL = "decode_attention_kernel"   # the one kernel a decode_attention call launches
 DECODE_INSTANCES = 2 * 3 * 8                # fp32/bf16 x hd 64/128/256 x G 1..8
+GRAM_INSTANCES = 4                          # row tile 4/8/12/16
+TOPK_INSTANCES = 1 + 2 + 3 * 3              # (elements a thread, load width): 1 x 1, 2 x 1/2,
+                                            # 4/8/16 x 1/2/4
 
 # (label, B, S, K, G, hd, dtype, lengths, window, ring): edge cases
 DECODE_EDGES = [
@@ -912,40 +972,177 @@ DECODE_VARIANTS = {
 }
 
 
+def build_variants(variants: list, show: tuple = ()) -> list:
+    """Build one kernel library per variant, a (source name, [(old, new)])
+    pair: that source with the substitutions, linked with the other sources
+    as they are.  Every compile runs at once; the ``ptxas`` lines of the
+    kernel instances named in ``show`` are printed for each variant.
+    Returns the libraries' paths in variant order."""
+    from repro_torch.kernels import build
+
+    work = build.BUILD_ROOT / f"variants-{build.source_hash()}"
+    work.mkdir(parents=True, exist_ok=True)
+    nvcc = build.find_nvcc()
+
+    def compile_cmd(src, obj):
+        return [nvcc, *build.NVCC_FLAGS, f"-I{build.CSRC}", "-c", str(src), "-o", str(obj)]
+
+    originals = {src: work / (Path(src).stem + ".o") for src in build.SOURCES}
+    cmds = [compile_cmd(build.CSRC / src, obj) for src, obj in originals.items()]
+    for i, (name, subs) in enumerate(variants):
+        text = (build.CSRC / name).read_text()
+        for old, new in subs:
+            if old not in text:
+                fail(f"{name} variant {i}: {old!r} not in the source")
+            text = text.replace(old, new)
+        (work / f"variant_{i}.cu").write_text(text)
+        cmds.append(compile_cmd(work / f"variant_{i}.cu", work / f"variant_{i}.o"))
+    t0 = time.perf_counter()
+    logs = build._run_all(cmds)[len(originals):]
+    for i, log in enumerate(logs):
+        for line in ptxas_summary(log):
+            if line.startswith(show):
+                print(f"  variant {i} ptxas: {line}")
+    libs = [work / f"lib_{i}.so" for i in range(len(variants))]
+    build._run_all([[nvcc, *build.ARCH_FLAGS, "-shared", "-o", str(lib), str(work / f"variant_{i}.o"),
+                     *(str(obj) for src, obj in originals.items() if src != variants[i][0])]
+                    for i, lib in enumerate(libs)])
+    print(f"  {len(variants)} kernel variants built in {time.perf_counter() - t0:.1f} s")
+    return libs
+
+
+# ``--kernel-variants``: csrc/topk_mask.cu and csrc/gram.cu with these
+# substitutions, timed at the main shape.  "no select" keeps every finite
+# value (its outputs are wrong): the walk, loads and stores alone;
+# "warp-aggregated" adds one per distinct digit of a warp (__match_any_sync)
+# in place of one per element; "no gather" runs all four digit passes;
+# "split pass alone" skips the last block's sum of the splits; "stream
+# only" drops gram's FMAs; "empty" returns at once on the same grid.
+KERNEL_VARIANTS = [
+    ("topk_mask.cu", "as built", []),
+    ("topk_mask.cu", "no select", [("  for (int pass = 0; pass < 4; ++pass) {",
+                                    "  for (int pass = 0; pass < 0; ++pass) {")]),
+    ("topk_mask.cu", "warp-aggregated", [(
+        "      if ((mag[i] >> high) == (prefix >> high)) atomicAdd(&hist[(mag[i] >> shift) & mask], 1u);",
+        "      const bool match = (mag[i] >> high) == (prefix >> high);\n"
+        "      const uint32_t digit = (mag[i] >> shift) & mask;\n"
+        "      const unsigned peers = __match_any_sync(kFull, match ? digit : kAbsent);\n"
+        "      if (match && (threadIdx.x & 31) == __ffs(peers) - 1) "
+        "atomicAdd(&hist[digit], __popc(peers));")]),
+    ("topk_mask.cu", "no gather", [("    if ((pass == 1 || pass == 2) && count <= kGather) {",
+                                    "    if (false) {")]),
+    ("topk_mask.cu", "first pass only", [("  for (int pass = 0; pass < 4; ++pass) {",
+                                          "  for (int pass = 0; pass < 1; ++pass) {")]),
+    ("topk_mask.cu", "empty", [("  __shared__ __align__(16) uint32_t hist[kBins];",
+                                "  if (total > 0) return;\n"
+                                "  __shared__ __align__(16) uint32_t hist[kBins];")]),
+    ("gram.cu", "as built", []),
+    ("gram.cu", "split pass alone", [("  if (!last) return;", "  return;")]),
+    ("gram.cu", "stream only", [("    add_products<PT, N>(x, acc);",
+                                 "    if (x[0][0] == 12345.0f) acc[0] += x[PT - 1][1];")]),
+    ("gram.cu", "2 stages", [("constexpr int kStages = 4;", "constexpr int kStages = 2;")]),
+    ("gram.cu", "8 stages", [("constexpr int kStages = 4;", "constexpr int kStages = 8;")]),
+    ("gram.cu", "empty", [("  __shared__ float red[WARPS][N];",
+                           "  if (D > 0) return;\n  __shared__ float red[WARPS][N];")]),
+]
+
+
+def kernel_variants(torch, timer, bandwidth) -> None:
+    """Time each of KERNEL_VARIANTS at the main shape (P = 10, D = 595,914;
+    topk_mask_rows at keep_frac 0.1), beside the bound."""
+    import ctypes
+
+    from repro_torch.kernels import build, grid
+    from repro_torch.kernels import gram as kgram
+    from repro_torch.kernels import topk_mask as ktopk
+
+    libs = build_variants([(name, subs) for name, _, subs in KERNEL_VARIANTS],
+                          show=("topk_mask_kernel<Li8ELi2>", "gram_tri_kernel<Li12E"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    u = torch.randn(K_MAIN, D_MAIN, generator=gen, device="cuda")
+    # every magnitude in [1, 2): one exponent, so the first pass's lanes crowd
+    one_exp = (1.0 + torch.rand(K_MAIN, D_MAIN, generator=gen, device="cuda")) * torch.where(
+        torch.rand(K_MAIN, D_MAIN, generator=gen, device="cuda") < 0.5, -1.0, 1.0)
+    calls = {"topk_mask.cu": (lambda: ktopk.topk_mask_rows_cuda(u, keep_frac=0.1),
+                              8 * K_MAIN * D_MAIN, "topk_mask_rows"),
+             "gram.cu": (lambda: kgram.gram_cuda(u), 4 * (K_MAIN * D_MAIN + K_MAIN * K_MAIN), "gram")}
+
+    def reset():
+        ktopk._occupancy.cache_clear()
+        kgram._tri_occupancy.cache_clear()
+        kgram._gram_plan.cache_clear()
+        for counters in grid.ARRIVALS.values():
+            counters.zero_()
+
+    lib = build.library()
+    want = {name: fn() for name, (fn, _, _) in calls.items()}
+    try:
+        for path, (name, label, _) in zip(libs, KERNEL_VARIANTS):
+            build._LIB = ctypes.CDLL(str(path))
+            build._declare(build._LIB)
+            reset()
+            fn, nbytes, kernel = calls[name]
+            if label == "as built":
+                check_bitwise(f"{kernel} variant {label}", fn(), want[name], torch)
+            ms = timer(fn)
+            bound = nbytes / bandwidth * 1e3
+            crowded = ""
+            if name == "topk_mask.cu":
+                crowded = (f"; one-exponent input "
+                           f"{timer(lambda: ktopk.topk_mask_rows_cuda(one_exp, keep_frac=0.1)):.4f} ms")
+            print(f"  {kernel:<15} {label:<17} {ms:.4f} ms  bound {bound:.4f} ms "
+                  f"({100 * bound / ms:.1f}%){crowded}")
+    finally:
+        build._LIB = lib
+        reset()
+
+
+def time_kernels(torch, timer, bandwidth) -> None:
+    """gram and topk_mask_rows at the main shape, each held against its plain
+    version first, beside their library calls: the measurement that compares
+    two source trees (``--src``) in one call."""
+    from repro_torch.kernels import gram as kgram
+    from repro_torch.kernels import topk_mask as ktopk
+
+    u = torch.randn(K_MAIN, D_MAIN, generator=torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    padded = torch.nn.functional.pad(u, (0, (-D_MAIN) % 2048)).reshape(-1, 2048)
+    check_gram("gram", kgram.gram_cuda(u), kgram.gram_plain(u), u, u, torch)
+    check_bitwise("topk_mask_rows", ktopk.topk_mask_rows_cuda(u, keep_frac=0.1),
+                  ktopk.topk_mask_rows_plain(u, keep_frac=0.1), torch)
+    for name, fn, nbytes, lib_name, lib_fn in (
+            ("gram", lambda: kgram.gram_cuda(u), 4 * (K_MAIN * D_MAIN + K_MAIN * K_MAIN),
+             "torch.mm", lambda: torch.mm(u, u.t())),
+            ("topk_mask_rows", lambda: ktopk.topk_mask_rows_cuda(u, keep_frac=0.1),
+             8 * K_MAIN * D_MAIN, "torch.topk+torch.where", lambda: topk_route(torch, padded, 205))):
+        ms, lib_ms, warm_ms = timer(fn), timer(lib_fn), timer(fn, flush=False)
+        bound = nbytes / bandwidth * 1e3
+        print(f"  {name:<15} P={K_MAIN} D={D_MAIN}: kernel {ms:.4f} ms, bound {bound:.4f} ms "
+              f"({100 * bound / ms:.1f}%), {lib_name} {lib_ms:.4f} ms; with L2 warm "
+              f"{warm_ms:.4f} ms")
+    print(f"  reading u ({4 * K_MAIN * D_MAIN / 1e6:.1f} MB) once, torch.sum: "
+          f"{timer(lambda: u.sum()):.4f} ms")
+
+
+def topk_route(torch, padded, k: int):
+    """The top-k mask of the zero-padded (tiles, block_d) view by two PyTorch
+    calls (``torch.topk``, ``torch.where``): the library route it is timed
+    against (the padding is not timed)."""
+    mag = padded.abs()
+    kth = torch.topk(mag, k, dim=1).values[:, k - 1:]
+    return torch.where(mag >= kth, padded, 0.0)
+
+
 def decode_variants(torch, timer, bandwidth) -> None:
     """Time each of DECODE_VARIANTS at the three decode shapes and an S sweep
     (B = 8, K = 4, G = 2, hd = 256, bf16), beside SDPA; the variants that
     compute the function are held against the plain version first."""
     import ctypes
 
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, grid
     from repro_torch.kernels import decode_attention as kdec
 
-    source = (build.CSRC / "decode_attention.cu").read_text()
-    work = build.BUILD_ROOT / f"variants-{build.source_hash()}"
-    work.mkdir(parents=True, exist_ok=True)
-    nvcc = build.find_nvcc()
-    cmds, objs = [], []
-    for src in build.SOURCES:
-        if src != "decode_attention.cu":
-            objs.append(work / (Path(src).stem + ".o"))
-            cmds.append([nvcc, *build.NVCC_FLAGS, f"-I{build.CSRC}", "-c", str(build.CSRC / src),
-                         "-o", str(objs[-1])])
-    for i, subs in enumerate(DECODE_VARIANTS.values()):
-        text = source
-        for old, new in subs:
-            if old not in text:
-                fail(f"decode variant {i}: {old!r} not in the source")
-            text = text.replace(old, new)
-        (work / f"decode_{i}.cu").write_text(text)
-        cmds.append([nvcc, *build.NVCC_FLAGS, f"-I{build.CSRC}", "-c", str(work / f"decode_{i}.cu"),
-                     "-o", str(work / f"decode_{i}.o")])
-    t0 = time.perf_counter()
-    build._run_all(cmds)
-    build._run_all([[nvcc, *build.ARCH_FLAGS, "-shared", "-o", str(work / f"lib_{i}.so"),
-                     str(work / f"decode_{i}.o"), *map(str, objs)]
-                    for i in range(len(DECODE_VARIANTS))])
-    print(f"  {len(DECODE_VARIANTS)} variants built in {time.perf_counter() - t0:.1f} s")
+    libs = build_variants([("decode_attention.cu", subs) for subs in DECODE_VARIANTS.values()])
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     shapes = [("global", SERVE_B, SERVE_CACHE, SERVE_CACHE, 0, False),
@@ -958,12 +1155,12 @@ def decode_variants(torch, timer, bandwidth) -> None:
     lib, min_rows = build.library(), kdec._MIN_ROWS
     try:
         for i, name in enumerate(DECODE_VARIANTS):
-            build._LIB = ctypes.CDLL(str(work / f"lib_{i}.so"))
+            build._LIB = ctypes.CDLL(str(libs[i]))
             build._declare(build._LIB)
             kdec._occupancy.cache_clear()
             kdec._plan.cache_clear()
             kdec._MIN_ROWS = 32 if "32-row" in name else min_rows
-            for counters in kdec._ARRIVALS.values():
+            for counters in grid.ARRIVALS.values():
                 counters.zero_()
             print(f"  variant {name}")
             for label, b, s, length, window, ring in shapes:
@@ -982,7 +1179,7 @@ def decode_variants(torch, timer, bandwidth) -> None:
         build._LIB, kdec._MIN_ROWS = lib, min_rows
         kdec._occupancy.cache_clear()
         kdec._plan.cache_clear()
-        for counters in kdec._ARRIVALS.values():
+        for counters in grid.ARRIVALS.values():
             counters.zero_()
 
 
@@ -996,10 +1193,19 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test needs a GPU",
               file=sys.stderr)
         return 1
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        print(f"chip_smoke: the port's sources are not under {SRC}", file=sys.stderr)
+    args = sys.argv[1:]
+    mode = args[0] if args and args[0] in MODES else None
+    src = SRC
+    if mode == "--time-kernels" and args[1:2] == ["--src"] and len(args) == 3:
+        src = Path(args[2]).resolve()
+    elif args != ([mode] if mode else []):
+        print(f"usage: chip_smoke.py [{' | '.join(MODES)}]; --time-kernels takes --src DIR",
+              file=sys.stderr)
+        return 2
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: the port's sources are not under {src}", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     from repro_torch import resolve_device
     from repro_torch.kernels import build
 
@@ -1012,23 +1218,35 @@ def main() -> int:
     info = build.BUILD_INFO
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({'compiled' if info.get('built') else 'cached'}) -> {info['path']}")
+    bandwidth, bw_src = memory_bandwidth(torch)
+    if mode == "--time-kernels":
+        print(f"gram and topk_mask_rows from {src}")
+        time_kernels(torch, Timer(torch), bandwidth)
+        return 0
     ptxas = ptxas_summary(str(info.get("log", "")))
     for line in ptxas:
         print(f"  ptxas: {line}")
-    decode = [line for line in ptxas if line.startswith(DECODE_KERNEL)]
-    spilling = [line for line in decode if "spill stores/loads 0/0 B" not in line]
-    regs = sorted(int(line.split(": ")[1].split()[0]) for line in decode)
-    print(f"  ptxas: {len(decode)} {DECODE_KERNEL} instances, {regs[0] if regs else '-'}-"
-          f"{regs[-1] if regs else '-'} registers, {len(spilling)} with spills")
-    if len(decode) != DECODE_INSTANCES or spilling:
-        fail(f"{DECODE_KERNEL}: {len(decode)} instances compiled (want {DECODE_INSTANCES}), "
-             f"spilling: {spilling}")
-    bandwidth, bw_src = memory_bandwidth(torch)
+    for kernel, instances in ((DECODE_KERNEL, DECODE_INSTANCES), (GRAM_KERNEL, GRAM_INSTANCES),
+                              (TOPK_KERNEL, TOPK_INSTANCES)):
+        lines = [line for line in ptxas if line.startswith(kernel)]
+        # a stack frame is local memory too: held against the new kernels
+        spilling = [line for line in lines if "spill stores/loads 0/0 B" not in line
+                    or (kernel != DECODE_KERNEL and "stack frame" in line)]
+        regs = sorted(int(line.split(": ")[1].split()[0]) for line in lines)
+        print(f"  ptxas: {len(lines)} {kernel} instances, {regs[0] if regs else '-'}-"
+              f"{regs[-1] if regs else '-'} registers, {len(spilling)} with spills")
+        if (len(lines) != instances or spilling) and mode is None:
+            fail(f"{kernel}: {len(lines)} instances compiled (want {instances}), "
+                 f"spilling: {spilling}")
     print(f"memory bandwidth {bandwidth / 1e12:.3f} TB/s ({bw_src}); "
           f"fp32 peak {FP32_PEAK_FLOPS / 1e12:.0f} TFLOP/s")
-    if sys.argv[1:] == ["--decode-variants"]:
+    if mode == "--decode-variants":
         print("decode_attention variants")
         decode_variants(torch, Timer(torch), bandwidth)
+        return 0
+    if mode == "--kernel-variants":
+        print("topk_mask_rows and gram variants")
+        kernel_variants(torch, Timer(torch), bandwidth)
         return 0
 
     print("phase 1: kernels against their plain versions")

@@ -112,12 +112,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.flrce_cross_gram.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i32, p]
     lib.flrce_cross_gram.restype = i32
-    lib.flrce_gram.argtypes = [p, p, p, i64, i64, i64, i64, i32, p]
+    lib.flrce_gram.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, p]
     lib.flrce_gram.restype = i32
     lib.flrce_weighted_aggregate.argtypes = [p, p, p, p, i64, i64, i64, i32, p]
     lib.flrce_weighted_aggregate.restype = i32
-    lib.flrce_topk_mask_rows.argtypes = [p, p, i64, i64, i64, i64, p]
+    lib.flrce_topk_mask_rows.argtypes = [p, p, i64, i64, i64, i64, i32, i64, p]
     lib.flrce_topk_mask_rows.restype = i32
+    lib.flrce_gram_occupancy.argtypes = [i64, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+    lib.flrce_gram_occupancy.restype = i32
+    lib.flrce_topk_mask_occupancy.argtypes = [i64, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+    lib.flrce_topk_mask_occupancy.restype = i32
     lib.flrce_decode_attention.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64,
                                            i64, i32, i32, ctypes.c_float, p]
     lib.flrce_decode_attention.restype = i32

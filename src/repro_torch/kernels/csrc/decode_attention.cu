@@ -108,53 +108,6 @@ struct Shape {
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 __device__ __forceinline__ int64_t max64(int64_t a, int64_t b) { return a > b ? a : b; }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :
-               : "r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// bytes (a multiple of 16, both addresses 16-byte aligned) global -> shared,
-// counted on bar
-__device__ __forceinline__ void bulk_to_shared(void* dst, const void* src, uint32_t bytes,
-                                               uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :
-      : "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
 __device__ __forceinline__ void bf16x2(uint32_t u, float& a, float& b) {
   a = __uint_as_float(u << 16);  // the first element is the low half
   b = __uint_as_float(u & 0xFFFF0000u);
@@ -272,8 +225,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc, const
 
   if (lane == 0) {
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) mbar_init(bar + s, 1);
-    mbar_fence_init();
+    for (int s = 0; s < kStages; ++s) flrce::mbar_init(bar + s, 1);
+    flrce::mbar_fence_init();
   }
   __syncwarp();
 
@@ -286,12 +239,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc, const
     int64_t row0;
     const int n = group_rows(j, row0);
     uint64_t* slot_bar = bar + j % kStages;
-    if (lane == 0) mbar_arrive_expect_tx(slot_bar, (uint32_t)(2 * n * Sh::kRowBytes));
+    if (lane == 0) flrce::mbar_arrive_expect_tx(slot_bar, (uint32_t)(2 * n * Sh::kRowBytes));
     __syncwarp();
     if (lane < n) {
       T* dst = wring + ((int64_t)(j % kStages) * 2 * R + lane) * HD;
-      bulk_to_shared(dst, kb + (row0 + lane) * row_stride, Sh::kRowBytes, slot_bar);
-      bulk_to_shared(dst + R * HD, vb + (row0 + lane) * row_stride, Sh::kRowBytes, slot_bar);
+      flrce::bulk_to_shared(dst, kb + (row0 + lane) * row_stride, Sh::kRowBytes, slot_bar);
+      flrce::bulk_to_shared(dst + R * HD, vb + (row0 + lane) * row_stride, Sh::kRowBytes, slot_bar);
     }
   };
   for (int j = 0; j < kStages && j < mine; ++j) issue(j);
@@ -318,7 +271,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc, const
   for (int j = 0; j < mine; ++j) {
     int64_t row0;
     const int n = group_rows(j, row0);
-    mbar_wait(bar + j % kStages, (uint32_t)((j / kStages) & 1));
+    flrce::mbar_wait(bar + j % kStages, (uint32_t)((j / kStages) & 1));
     const T* ks = wring + (int64_t)(j % kStages) * 2 * R * HD;
     const T* vs = ks + R * HD;
 #pragma unroll

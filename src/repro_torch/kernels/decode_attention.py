@@ -31,8 +31,8 @@ reference, so this changes nothing.
 The wrapper plans the grid from the occupancy the kernel really gets
 (``plan_splits``): at most one wave of resident blocks, no split under
 ``_MIN_ROWS`` rows.  The splits of a (sequence, KV head) meet on an int32
-arrival counter; the counters are kept per (device, stream), zero at rest
-(the kernel sets each back to 0), and grown when a batch needs more.
+arrival counter (``kernels/grid.py``: per (device, stream), zero at
+rest, grown when a batch needs more).
 
 ``decode_attention_plain`` is the same function in plain PyTorch: the CPU
 path, and the yardstick the kernel is held against on the card.
@@ -43,11 +43,12 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.grid import arrival_counters, device_index, sm_count
 
 #: launches of the kernel by its wrapper (nothing else touches it)
 DECODE_ATTENTION_LAUNCHES = 0
@@ -58,10 +59,6 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
 _MIN_ROWS = 64          # csrc/decode_attention.cu kMinRows
 _MAX_SPLITS = 512       # csrc/decode_attention.cu kMaxSplits
-
-# (device index, stream handle) → int32 arrival counters, zero at rest
-_ARRIVALS: Dict[Tuple[int, int], torch.Tensor] = {}
-
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                            length: torch.Tensor, *, window: int = 0,
@@ -86,11 +83,6 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
     return out.reshape(b, h, hd).to(q.dtype)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -134,7 +126,7 @@ def launch_plan(q: torch.Tensor, k_cache: torch.Tensor, *, window: int = 0,
     """The grid the kernel gets for these operands (on the card)."""
     b, h, hd = q.shape
     s, kvh = k_cache.shape[1], k_cache.shape[2]
-    index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    index = device_index(q.device)
     rows = min(s, window) if (window > 0 and not ring) else s
     return _plan(index, _DTYPES[q.dtype], b, kvh, h // kvh, hd, rows)
 
@@ -143,23 +135,10 @@ def launch_plan(q: torch.Tensor, k_cache: torch.Tensor, *, window: int = 0,
 def _plan(index: int, dtype_code: int, b: int, kvh: int, group: int, hd: int,
           rows: int) -> LaunchPlan:
     per_sm, smem = _occupancy(index, dtype_code, hd, group)
-    sms = _sm_count(index)
+    sms = sm_count(index)
     n = plan_splits(b, kvh, rows, sms, per_sm)
     return LaunchPlan(n_splits=n, grid=(n, kvh, b), blocks_per_sm=per_sm, sms=sms,
                       smem_bytes=smem)
-
-
-def arrival_counters(device: torch.device, stream: torch.cuda.Stream, n: int) -> torch.Tensor:
-    """The (device, stream)'s int32 arrival counters, at least ``n`` of them,
-    all zero between launches."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    key = (index, stream.cuda_stream)
-    buf = _ARRIVALS.get(key)
-    if buf is None or buf.numel() < n:
-        size = max(n, 2 * buf.numel() if buf is not None else 256)
-        buf = torch.zeros(size, dtype=torch.int32, device=torch.device("cuda", index))
-        _ARRIVALS[key] = buf
-    return buf
 
 
 def _check_operand(name: str, t: torch.Tensor, ndim: int, dtype: torch.dtype) -> None:

@@ -53,6 +53,76 @@ def test_gram_kernel_matches_plain(cuda, p, d):
                                    "topk_mask_rows": 0, "decode_attention": 0}
 
 
+@pytest.mark.parametrize("d", [1, 2047, 2049, 595914])
+@pytest.mark.parametrize("p", [1, 4, 5, 10, 12, 16, 17])
+def test_gram_kernel_symmetric_and_repeatable(cuda, p, d):
+    """Within 1e-4·‖u_i‖‖u_j‖ of the plain version, exactly symmetric, and
+    bitwise equal on a second call and on a second stream; one wrapper
+    launch per call (one kernel for P ≤ 16, the cross kernel's two above)."""
+    from repro_torch.kernels import gram, ops
+
+    u = torch.randn(p, d, generator=torch.Generator(device=cuda).manual_seed(p * d), device=cuda)
+    got = ops.gram(u)
+    assert ops.launch_counts()["gram"] == 1
+    assert torch.all((got - gram.gram_plain(u)).abs() <= 1e-4 * _scale(u, u))
+    assert torch.equal(got, got.T)
+    assert torch.equal(got, ops.gram(u))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = ops.gram(u)
+    torch.cuda.synchronize()
+    assert torch.equal(got, other)
+    assert ops.launch_counts()["gram"] == 3
+
+
+@pytest.mark.parametrize("p,d", [(10, 595914), (3, 2049)])
+def test_gram_kernel_on_unaligned_data(cuda, p, d):
+    """Data 4 bytes past a 16-byte boundary takes the cross kernel; data 16
+    bytes past one the one-launch kernel, whose copies start at 16-byte
+    floors: both within tolerance and exactly symmetric."""
+    from repro_torch.kernels import gram, ops
+
+    flat = torch.randn(p * d + 4, generator=torch.Generator(device=cuda).manual_seed(d),
+                       device=cuda)
+    for shift, one in ((1, False), (4, True)):
+        u = flat[shift:shift + p * d].view(p, d)
+        assert gram.one_launch(u) == one
+        got = ops.gram(u)
+        assert torch.all((got - gram.gram_plain(u)).abs() <= 1e-4 * _scale(u, u))
+        assert torch.equal(got, got.T)
+
+
+def test_gram_counters_back_to_zero_between_shapes(cuda):
+    """Calls of different shapes back to back on one stream, gram and decode
+    attention sharing the stream's counters: each leaves them at 0, so a
+    call after another equals a fresh one."""
+    from repro_torch.kernels import grid, ops
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    big, small = (torch.randn(10, 595914, generator=gen, device=cuda),
+                  torch.randn(5, 20001, generator=gen, device=cuda))
+    fresh = ops.gram(small)
+    torch.cuda.synchronize()
+    ops.gram(big)
+    ops.decode_attention(*_decode_case(cuda, 1, 8, 1600, 4, 2, 256, torch.bfloat16, [1600] * 8))
+    after = ops.gram(small)
+    ops.gram(big)
+    torch.cuda.synchronize()
+    assert torch.equal(after, fresh)
+    counters = grid.arrival_counters(torch.device(cuda), torch.cuda.current_stream(), 0)
+    assert int(counters.abs().sum()) == 0
+
+
+def test_gram_plan_is_one_wave(cuda):
+    from repro_torch.kernels import gram
+
+    u = torch.zeros(10, 595914, device=cuda)
+    plan = gram.gram_plan(u)
+    assert plan.tile == 12
+    assert 1 <= plan.n_splits <= min(plan.sms * plan.blocks_per_sm, -(-595914 // gram.TRI_SLAB))
+
+
 @pytest.mark.parametrize("p,d", [(10, 1), (10, 2049), (1, 595914), (10, 4096), (3, 7)])
 def test_weighted_aggregate_kernel_matches_plain(cuda, p, d):
     from repro_torch.kernels import aggregate, ops
@@ -128,6 +198,46 @@ def test_topk_mask_rows_kernel_ties_and_non_finite(cuda, block_d):
     for k_frac, kept in ((2 / 8, [3]), (3 / 8, [2, 3])):
         out = ops.topk_mask(tile, keep_frac=k_frac, block_d=8)
         assert torch.nonzero(out).flatten().tolist() == kept
+
+
+def _topk_special_rows(cuda, d):
+    """Rows of one tile each: 2048 magnitudes of one exponent (every lane of
+    a warp on one histogram bin), all NaN, all -0.0, and one exponent with
+    ties."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    one_exp = (1.0 + torch.rand(d, generator=g, device=cuda)) * torch.where(
+        torch.rand(d, generator=g, device=cuda) < 0.5, -1.0, 1.0)
+    ties = torch.full((d,), 1.5, device=cuda)
+    ties[::3] = -1.75
+    return torch.stack([one_exp, torch.full((d,), float("nan"), device=cuda),
+                        torch.full((d,), -0.0, device=cuda), ties])
+
+
+@pytest.mark.parametrize("keep_frac", [0.001, 0.1, 0.5, 1.0])
+def test_topk_mask_rows_kernel_contention_nan_and_negative_zero_tiles(cuda, keep_frac):
+    from repro_torch.kernels import ops, topk_mask
+
+    for d in (2048, 2 * 2048 + 7):
+        u = _topk_special_rows(cuda, d)
+        got = ops.topk_mask_rows(u, keep_frac=keep_frac)
+        want = topk_mask.topk_mask_rows_plain(u, keep_frac=keep_frac)
+        assert torch.equal(_bits(got), _bits(want)), d
+        assert torch.equal(_bits(got), _bits(ops.topk_mask_rows(u, keep_frac=keep_frac)))
+    assert ops.launch_counts()["topk_mask_rows"] == 4
+
+
+@pytest.mark.parametrize("keep_frac", [0.001, 0.1, 1.0])
+def test_topk_mask_rows_kernel_blocks_walk_many_tiles(cuda, keep_frac):
+    """P = 64 at D = 595,914: 18,624 tiles, many times one wave of blocks."""
+    from repro_torch.kernels import ops, topk_mask
+
+    u = torch.randn(64, 595914, generator=torch.Generator(device=cuda).manual_seed(64),
+                    device=cuda)
+    plan = topk_mask.launch_plan(u, torch.empty_like(u), topk_mask.DEFAULT_BLOCK_D)
+    assert plan.grid == plan.sms * plan.blocks_per_sm < plan.n_tiles == 64 * 291
+    got = ops.topk_mask_rows(u, keep_frac=keep_frac)
+    assert torch.equal(_bits(got), _bits(topk_mask.topk_mask_rows_plain(u, keep_frac=keep_frac)))
+    assert ops.launch_counts()["topk_mask_rows"] == 1
 
 
 def test_small_federation_gpu_matches_cpu(cuda):

@@ -217,3 +217,88 @@ def test_decode_attention_plan_splits(b, k, rows, sms, per_sm, want):
 def test_decode_attention_plan_splits_refuses_an_empty_card():
     with pytest.raises(ValueError):
         tdec.plan_splits(8, 4, 1600, 132, 0)
+
+
+# --- launch planning of topk_mask_rows and gram -------------------------------
+from repro_torch.kernels import topk_mask as ttopk  # noqa: E402
+
+
+@pytest.mark.parametrize("block_d,items", [(1, 1), (8, 1), (256, 1), (257, 2), (512, 2),
+                                           (1000, 4), (2048, 8), (2049, 16), (4096, 16)])
+def test_topk_items_per_thread(block_d, items):
+    assert ttopk.items_per_thread(block_d) == items
+
+
+@pytest.mark.parametrize("block_d", [0, 4097])
+def test_topk_items_per_thread_refuses_block_d(block_d):
+    with pytest.raises(ValueError):
+        ttopk.items_per_thread(block_d)
+
+
+@pytest.mark.parametrize("block_d,widest,want", [
+    (2048, 2, 2),      # Fedcom at D = 595,914: rows 8-byte aligned only
+    (2048, 4, 4),
+    (2048, 1, 1),
+    (8, 4, 1),         # one element a thread
+    (512, 4, 2),       # two elements a thread
+    (2046, 4, 2),      # block_d not a multiple of 4
+    (2047, 4, 1),
+])
+def test_topk_tile_vec(block_d, widest, want):
+    assert ttopk.tile_vec(block_d, widest) == want
+
+
+@pytest.mark.parametrize("n_tiles,sms,per_sm,want", [
+    (2910, 132, 8, 1056),     # Fedcom's P = 10: one wave, each block walks 2-3 tiles
+    (2910, 132, 5, 660),
+    (18624, 132, 8, 1056),    # P = 64: 17-18 tiles a block
+    (3, 132, 8, 3),           # fewer tiles than slots: one block a tile
+    (1, 1, 1, 1),
+])
+def test_topk_plan_grid_is_one_wave(n_tiles, sms, per_sm, want):
+    grid = ttopk.plan_grid(n_tiles, sms, per_sm)
+    assert grid == want and grid <= min(n_tiles, sms * per_sm)
+
+
+def test_topk_plan_grid_refuses_an_empty_card():
+    with pytest.raises(ValueError):
+        ttopk.plan_grid(2910, 132, 0)
+
+
+def test_topk_cuda_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ttopk.topk_mask_rows_cuda(torch.zeros(2, 3))
+
+
+@pytest.mark.parametrize("p,tile", [(1, 4), (4, 4), (5, 8), (8, 8), (10, 12), (12, 12),
+                                    (13, 16), (16, 16), (17, 0), (100, 0)])
+def test_gram_tri_tile(p, tile):
+    assert tgram.tri_tile(p) == tile
+
+
+@pytest.mark.parametrize("d,sms,per_sm,want", [
+    (595914, 132, 1, 132),     # Alg. 3 at P = 10: one block an SM, 8-9 of the 1,164 slabs each
+    (595914, 132, 2, 264),
+    (595914, 132, 4, 291),     # held at 4 slabs a block
+    (1, 132, 1, 1),
+    (2049, 132, 1, 1),
+    (5000, 132, 1, 2),
+    (1 << 24, 132, 1, 132),    # one wave
+])
+def test_gram_plan_splits(d, sms, per_sm, want):
+    n = tgram.plan_gram_splits(d, sms, per_sm)
+    slabs = -(-d // tgram.TRI_SLAB)
+    assert n == want and 1 <= n <= min(sms * per_sm, slabs)    # one wave, a slab each
+    assert n == 1 or slabs // n >= tgram.TRI_MIN_SLABS          # blocks take a few slabs each
+
+
+def test_gram_one_launch_needs_few_aligned_rows():
+    base = torch.zeros(17 * 64)
+    assert tgram.one_launch(base[:16 * 64].view(16, 64))
+    assert not tgram.one_launch(base.view(17, 64))             # P > 16
+    assert not tgram.one_launch(base[2:2 + 10 * 64].view(10, 64))   # 8-byte aligned only
+
+
+def test_gram_plan_splits_refuses_an_empty_card():
+    with pytest.raises(ValueError):
+        tgram.plan_gram_splits(595914, 0, 1)
