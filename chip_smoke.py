@@ -6,9 +6,10 @@
 1. Builds the five CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    ``nvcc`` for ``sm_90a`` (one process per source, started together) and
    prints the build time and each kernel's registers, spills and stack
-   frames; the 48 ``decode_attention``, 4 ``gram_tri_kernel`` and 12
-   ``topk_mask_kernel`` instances must all compile without a spill, and the
-   last two without a stack frame.
+   frames; every instance of every kernel (``KERNEL_INSTANCES``: 48
+   ``decode_attention``, 4 ``gram_tri_kernel``, 12 ``topk_mask_kernel``, 12
+   ``xgram_partial_kernel``, 1 ``sum_splits_kernel``, 3 ``aggregate_kernel``)
+   must compile without a spill or a stack frame, and no other may appear.
    Kernel phase: holds each kernel against its plain PyTorch version on the
    card, at the main paths' shapes (K = P = 10, Q = M = 100, D = 595,914;
    gemma3-4b's decode attention at the serve run's last step and at a 32k
@@ -22,10 +23,13 @@
    and registers; ``decode_attention`` within 1e-5·max|V| in fp32 and
    one ulp in bf16, in one kernel launch per call, with its planned grid,
    resident blocks per SM and shared memory printed at each timed shape.
-2. Main path: the paper's CIFAR-10 model (§4.1 2conv+3fc, D = 595,914) in a
-   100-client federation, 6 FLrce rounds through ``run_federated`` on the
-   card.  Every kernel's launch count is reset just before the run and read
-   just after; each kernel of the path must have run on it.
+2. Main path: the paper's CIFAR-10 model (§4.1 2conv+3fc, D = 595,914,
+   ``init(0)``, the JAX package's initial weights) in a 100-client
+   federation, 6 FLrce rounds through ``run_federated`` on the card.  Every
+   kernel's launch count is reset just before the run and read just after;
+   each kernel of the path must have run on it.  The server's ingest is
+   timed each round (synchronised), and one relationship refresh is broken
+   down by piece beside the same refresh from the reference's nine dot groups.
    Then 3 more rounds run under ``torch.profiler``: the device time by
    kernel and the device's busy share of the wall time are printed.
    2b. Baselines (§4.1) on the same federation at full width: 4 Fedcom rounds
@@ -33,10 +37,28 @@
    of Fedprox, Dropout, TimelyFL, PyramidFL and QuantizedFL, each with the
    launch counts reset just before and read just after, and the time of
    QuantizedFL's host-drawn rounding uniforms.
-3. Reference check: small federations (FLrce, Fedcom) run on the card and on
-   the CPU (the kernels' plain versions) must make the same selections,
-   exploit flags, stop decision and ledger charges, with accuracies and
-   losses within fp32 tolerance.
+   2c. The sequential engine (one client and one batch a Python step) for 2
+   rounds from phase 2's params and seed: selections and exploit flags
+   equal to phase 2's first two rounds, accuracy within 2e-3, each client's
+   first local step of round 0 within max(1e-5, 1e-4·max|U|) + 1e-3·|U| of
+   the batched engine's, round 0's whole (P, D) update matrix within
+   ``ROUND_NORM_RTOL`` of each client's norm, and each kernel launched as on
+   the batched engine; per-round wall times of both engines are printed.
+   2d. FLrce at a 1,000-client fleet (250,000 samples, 3.07 GB of host fp32),
+   4 rounds each with exact V/A maps (2.38 GB each), ``va_rows=40`` (no
+   eviction possible: equal selections, exploit flags and stop round, Ω
+   within 5e-5 of the exact run's) and ``va_rows=20`` (clients must be
+   evicted, selections well formed, Ω finite); launch counts checked per
+   run; per-round wall, synchronised ingest time, peak device memory and
+   V/A bytes printed, with the device time by piece of one exact refresh;
+   then ``cross_gram`` timed at Q = 1,000 and Q = 40 against ``torch.mm``
+   and its bound.
+3. Reference check: small federations (FLrce, Fedcom) and
+   ``examples/quickstart.py``'s configuration (FLrce with and without early
+   stopping, from ``init(0)``) run on the card and on the CPU (the kernels'
+   plain versions) must make the same selections, exploit flags, stop
+   decision and ledger charges, with accuracies and losses within fp32
+   tolerance; the no-ES run must run all 25 rounds as ``flrce_no_es``.
 4. Serving: gemma3-4b at full width (3.88 B parameters, bf16, 34 layers,
    random weights from seed 0) through ``repro_torch.launch.serve.generate``:
    8 requests × (1536 prompt + 64 generated) tokens, cache_len 1600, so the
@@ -58,7 +80,13 @@ same grid; ``DECODE_VARIANTS``); ``--kernel-variants`` does the same for
 pass alone, empty kernels; ``KERNEL_VARIANTS``); ``--time-kernels [--src
 DIR]`` times ``gram`` and ``topk_mask_rows`` at the main shape from the
 port under DIR (default ``src``), so that two trees, such as a ``git
-archive`` of a parent commit, compare in one call.
+archive`` of a parent commit, compare in one call; ``--numerics`` measures
+the FL path's float32 error against float64 at the CIFAR width (one
+gradient through cuDNN's convolution and through the patch GEMM, alone and
+vmapped, and the vmapped step's time; Eq. 6's entries in the reference's
+expanded dot form and from r = w − a on the main path's rounds), how
+far the batched and sequential engines part by local step count, and what
+phase 2c's norm check reads for a sequential engine with a planted fault.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the exit code is
@@ -67,6 +95,7 @@ port's sources are not beside this file.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -89,7 +118,7 @@ FP32_PEAK_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores (data sheet)
 # card reaches it, on a slow host too
 L2_FLUSH_BYTES = 1 << 30
 # measurement modes: they print no result line
-MODES = ("--decode-variants", "--kernel-variants", "--time-kernels")
+MODES = ("--decode-variants", "--kernel-variants", "--time-kernels", "--numerics")
 # 0.05 diverges on this data: the JAX package's run of the same
 # configuration, like the port's, reaches a NaN loss in round 1.
 MAIN_LR = 0.01
@@ -412,6 +441,9 @@ def main_path(torch) -> dict:
     if dim != D_MAIN:
         fail(f"PaperCNN CIFAR flat dim {dim} != {D_MAIN}")
     strategy = FLrce(100, 10, local_epochs=2, dim=dim, es_threshold=5.0, explore_decay=0.5, seed=0)
+    u0 = capture_round0(strategy)
+    ingest_s: list = []
+    timed_ingest(strategy, torch, ingest_s)
     print(f"  data + model set-up: {time.perf_counter() - t0:.1f} s (M=100, N=40000, D={dim})")
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -428,16 +460,12 @@ def main_path(torch) -> dict:
     print(f"  summary {json.dumps(res.summary())}")
     print(f"  selections {[r.selected for r in res.records]}")
     print(f"  exploited {[r.exploited for r in res.records]}; launches {launches}")
-    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if launches["cross_gram"] != 2 * rounds:
-        fail(f"cross_gram launched {launches['cross_gram']} times in {rounds} rounds (want 2 per round)")
-    if launches["weighted_aggregate"] != rounds:
-        fail(f"weighted_aggregate launched {launches['weighted_aggregate']} times in {rounds} rounds")
-    if launches["gram"] != exploit_rounds or exploit_rounds == 0:
-        fail(f"gram launched {launches['gram']} times over {exploit_rounds} exploit rounds (want > 0)")
-    for name in ("topk_mask_rows", "decode_attention"):
-        if launches[name] != 0:
-            fail(f"{name} launched {launches[name]} times on the FLrce path")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; ingest "
+          f"(synchronised) " + ", ".join(f"{1e3 * x:.2f}" for x in ingest_s)
+          + f" ms, median {1e3 * median(ingest_s):.2f} ms")
+    check_launches("main path", launches, res)
+    if exploit_rounds == 0:
+        fail(f"no exploit round in {rounds} rounds: gram never ran")
     for r in res.records:
         if not (math.isfinite(r.accuracy) and math.isfinite(r.mean_client_loss)):
             fail(f"round {r.t}: non-finite accuracy/loss")
@@ -451,8 +479,307 @@ def main_path(torch) -> dict:
         fail("server state has the wrong shape or non-finite relationship map")
     if rounds != 6 and not res.stopped_early:
         fail(f"ran {rounds} rounds without stopping")
-    steady = sorted(r.wall_s for r in res.records[1:])
-    return launches, (ds, model, params, steady[len(steady) // 2])
+    ingest_breakdown(torch, Timer(torch), state)
+    return launches, (ds, model, params, median(r.wall_s for r in res.records[1:])), (res, u0["u"])
+
+
+def capture_round0(strategy) -> dict:
+    """Keep a copy of round 0's (P, D) update matrix as post_round gets it."""
+    captured: dict = {}
+    inner = strategy.post_round
+
+    def post_round(t, w_before, ids, update_matrix, stats):
+        if t == 0:
+            captured["u"] = update_matrix.detach().clone()
+        return inner(t, w_before, ids, update_matrix, stats)
+
+    strategy.post_round = post_round
+    return captured
+
+
+def check_launches(label, launches, res) -> None:
+    """FLrce's kernels on its path: cross_gram twice and weighted_aggregate
+    once a round, gram once per exploit round, nothing else."""
+    rounds, exploit = res.rounds_run, sum(r.exploited for r in res.records)
+    want = {"cross_gram": 2 * rounds, "gram": exploit, "weighted_aggregate": rounds,
+            "topk_mask_rows": 0, "decode_attention": 0}
+    if launches != want:
+        fail(f"{label}: launches {launches}, want {want}")
+
+
+def median(values) -> float:
+    values = sorted(values)
+    return values[len(values) // 2]
+
+
+def sequential_phase(torch, ds, model, params, batched, u_batched) -> None:
+    """Phase 2c: the sequential engine at full width against phase 2's first
+    two rounds (same params, seed and strategy settings)."""
+    from repro_torch.fl import FLrce, run_federated
+    from repro_torch.kernels import ops
+
+    rounds = 2
+    strategy = FLrce(100, 10, local_epochs=2, dim=D_MAIN, es_threshold=5.0, explore_decay=0.5,
+                     seed=0)
+    u0 = capture_round0(strategy)
+    ops.reset_launch_counts()
+    res = run_federated(model, ds, strategy, max_rounds=rounds, learning_rate=MAIN_LR,
+                        batch_size=32, seed=0, init_params=params, torch_device="cuda",
+                        engine="sequential")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_launches("sequential engine", launches, res)
+    print(f"  sequential per-round wall " + ", ".join(f"{r.wall_s:.3f}" for r in res.records)
+          + " s; batched (phase 2) " + ", ".join(f"{r.wall_s:.3f}" for r in batched.records[:rounds])
+          + f" s; launches {launches}")
+    for a, b in zip(res.records, batched.records):
+        if (a.selected, a.exploited, a.stopped) != (b.selected, b.exploited, b.stopped):
+            fail(f"sequential round {a.t}: selection/flags {a.selected, a.exploited} != "
+                 f"batched {b.selected, b.exploited}")
+        if abs(a.accuracy - b.accuracy) > 2e-3 or (a.energy_kj, a.bytes_gb) != (b.energy_kj, b.bytes_gb):
+            fail(f"sequential round {a.t}: accuracy {a.accuracy} vs {b.accuracy} or ledger differs")
+    first = first_step_updates(torch, ds, model, params, batched.records[0].selected)
+    err1, tol1, _ = update_gap(torch, *first)
+    if err1 > 0 or not bool(torch.isfinite(first[0]).all()):
+        fail(f"sequential first local step: max |Δ| beyond the reference's tolerance by {err1:.3e}")
+    seq, bat = u0["u"], u_batched
+    if seq.shape != bat.shape or not bool(torch.isfinite(seq).all()):
+        fail(f"sequential round 0 update matrix: shape {tuple(seq.shape)} or non-finite values")
+    _, err, n_beyond = update_gap(torch, seq, bat)
+    ratios = torch.linalg.vector_norm(seq - bat, dim=1) / torch.linalg.vector_norm(bat, dim=1)
+    if float(ratios.max()) > ROUND_NORM_RTOL:
+        fail(f"sequential round 0 update matrix: ‖ΔU_k‖/‖U_k‖ up to {float(ratios.max()):.3e} "
+             f"> {ROUND_NORM_RTOL:.0e}")
+    print(f"  sequential == batched over {rounds} rounds: selections "
+          f"{[r.selected for r in res.records]}, accuracy {[round(r.accuracy, 4) for r in res.records]}"
+          f" vs {[round(r.accuracy, 4) for r in batched.records[:rounds]]}")
+    print(f"  first local step of round 0's cohort: max |Δ| {tol1:.3e}, within atol "
+          f"max(1e-5, 1e-4·max|U|) + rtol 1e-3; round 0 (P, D) after every step: "
+          f"‖ΔU_k‖/‖U_k‖ ≤ {float(ratios.max()):.3e}, max |Δ| {err:.3e} (max|U| "
+          f"{float(bat.abs().max()):.3e}), {n_beyond} of {seq.numel()} elements beyond that tolerance")
+
+
+# Round 0's full update matrices of the two engines: over 20-42 local SGD
+# steps the engines, which sum in other orders (a batched product over the
+# cohort, padded partial batches), part past the reference's elementwise
+# tolerance through ReLU and max-pool switches (``--numerics`` on the card:
+# none beyond it after 4 steps, 7,845 of 5,959,140 elements after 8, 23,606
+# after the whole round).  The first local step is held to that tolerance;
+# the whole round to each client's relative norm.  Sound engines read
+# ‖ΔU_k‖/‖U_k‖ ≤ 3.6e-3 after the round (4.5e-3 at most after 16 steps);
+# ``--numerics``'s planted faults read 0.13 (the learning rate 1% high),
+# 0.88 (a partial batch weighted as a full one) and 1.0 (partial batches
+# dropped).
+ROUND_NORM_RTOL = 1e-2
+
+
+def update_gap(torch, got, want) -> tuple:
+    """(largest excess over the reference's engine tolerance, max |Δ|, count
+    beyond it): atol max(1e-5, 1e-4·max|U|), rtol 1e-3
+    (``tests/test_batched_engine.py``)."""
+    atol = max(1e-5, 1e-4 * float(want.abs().max()))
+    err = (got - want).abs()
+    excess = err - (atol + 1e-3 * want.abs())
+    return max(0.0, float(excess.max())), float(err.max()), int((excess > 0).sum())
+
+
+def first_step_updates(torch, ds, model, params, ids) -> tuple:
+    """Each client's update after its first batch of round 0, from the
+    sequential trainer and from the batched trainer (same batches)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.distributed import flatten_params
+    from repro_torch.fl.client import (BatchedCohortTrainer, ClientTrainer, build_cohort_plan,
+                                       client_batch_rng)
+
+    plan = build_cohort_plan([ds.client_data(c) for c in ids], [2] * len(ids), 32,
+                             [client_batch_rng(0, 0, c) for c in ids])
+    one = dataclasses.replace(plan, x=plan.x[:, :1], y=plan.y[:, :1],
+                              sample_w=plan.sample_w[:, :1], step_valid=plan.step_valid[:, :1])
+    batched, _ = BatchedCohortTrainer(model, MAIN_LR, 32, "cuda").train_cohort(
+        params, one, prox_mus=[0.0] * len(ids), masks=[None] * len(ids),
+        freeze_fracs=[0.0] * len(ids))
+    trainer, rows = ClientTrainer(model, MAIN_LR, 32, "cuda"), []
+    for k in range(len(ids)):
+        n = int(plan.sample_w[k, 0].sum())
+        upd, _ = trainer.local_update(params, plan.x[k, 0, :n], plan.y[k, 0, :n], 1,
+                                      np.random.default_rng(0))
+        rows.append(flatten_params(upd)[0])
+    return torch.stack(rows), batched
+
+
+FLEET_M, FLEET_SAMPLES, FLEET_ROUNDS = 1000, 250_000, 4
+
+
+def timed_ingest(strategy, torch, times: list) -> None:
+    """Time the server's ingest (synchronised on both sides) each round."""
+    inner_bind = strategy.bind_device
+
+    def bind_device(device):
+        inner_bind(device)
+        server = strategy.server
+        inner = server.ingest
+
+        def ingest(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inner(*args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+
+        server.ingest = ingest
+
+    strategy.bind_device = bind_device
+
+
+def expanded_block(ids, u, w, v, a, last, t, om):
+    """Eq. 5/6 rows from the reference's nine dot groups, with ‖w − a_j‖²
+    expanded as ww − 2aw + aa: the port's refresh before it formed r = w − a,
+    kept as the yardstick of ``--numerics`` and of the ingest breakdown."""
+    from repro_torch.core import relationship
+    from repro_torch.kernels import ops
+
+    uv, ua = ops.cross_gram(u, v), ops.cross_gram(u, a)
+    uw, vw, aw = u @ w, v @ w, a @ w
+    vv, av, aa, ww = (v * v).sum(1), (a * v).sum(1), (a * a).sum(1), w @ w
+    dots = (uv, uw[:, None] - ua, vv, vw - av, ww - 2.0 * aw + aa)
+    return relationship.rows_from_relationship_dots(ids, dots, last, t, om)
+
+
+def ingest_breakdown(torch, timer, st) -> None:
+    """Device time of each piece of one relationship refresh against the
+    exact (M, D) maps of a finished run (its last cohort's rows as the fresh
+    ones), under phase 1's timer, and of the same refresh from the
+    reference's nine dot groups."""
+    from repro_torch.core import relationship
+    from repro_torch.kernels import ops
+
+    ids = torch.nonzero(st.last_round == st.last_round.max()).flatten()
+    u, w = st.updates[ids].clone(), st.anchors[ids[0]].clone()
+    r = w[None, :] - st.anchors
+    parts = [
+        ("r = w - A", lambda: w[None, :] - st.anchors),
+        ("cross_gram(u, V)", lambda: ops.cross_gram(u, st.updates)),
+        ("cross_gram(u, r)", lambda: ops.cross_gram(u, r)),
+        ("‖v‖² (vector_norm)", lambda: torch.linalg.vector_norm(st.updates, dim=1).square()),
+        ("⟨r, v⟩ (row sum of r·v)", lambda: (r * st.updates).sum(1)),
+        ("‖r‖² (vector_norm)", lambda: torch.linalg.vector_norm(r, dim=1).square()),
+        ("whole refresh", lambda: relationship.relationship_block(
+            ids, u, w, st.updates, st.anchors, st.last_round, st.t, st.omega[ids])),
+        ("whole refresh from the nine groups (ww - 2aw + aa)", lambda: expanded_block(
+            ids, u, w, st.updates, st.anchors, st.last_round, st.t, st.omega[ids])),
+    ]
+    times = [(label, timer(fn, iters=5, warmup=1)) for label, fn in parts]
+    del r
+    print(f"  one exact relationship refresh at M={st.omega.shape[0]} (CUDA events, median of 5): "
+          + ", ".join(f"{label} {ms:.3f} ms" for label, ms in times))
+
+
+def fleet_phase(torch, timer, bandwidth) -> None:
+    """Phase 2d: FLrce at a 1,000-client fleet, with exact maps, a sketch that
+    cannot evict (40 rows, at most 40 clients in 4 rounds) and one that does
+    (20 rows); then cross_gram at ingest's fleet shapes."""
+    import numpy as np
+
+    from repro_torch.data import make_image_like
+    from repro_torch.fl import FLrce, run_federated
+    from repro_torch.kernels import gram as kgram
+    from repro_torch.kernels import ops
+    from repro_torch.models import PaperCNN
+
+    t0 = time.perf_counter()
+    ds = make_image_like(num_clients=FLEET_M, alpha=0.1, num_samples=FLEET_SAMPLES, num_eval=4_000,
+                         side=32, channels=3, num_classes=10, seed=0)
+    sizes = ds.client_sizes()
+    model = PaperCNN(side=32, channels=3, num_classes=10, num_fc=3)
+    params = model.init(0, "cuda")
+    print(f"  data + model set-up: {time.perf_counter() - t0:.1f} s (M={FLEET_M}, "
+          f"N={FLEET_SAMPLES}, {ds.x.nbytes / 1e9:.2f} GB of host fp32); client sizes: smallest "
+          f"{sizes.min()}, median {float(np.median(sizes))}, largest {sizes.max()}")
+    if sizes.min() < 2:
+        fail(f"a client of the 1,000-client federation holds {sizes.min()} samples")
+    runs = {}
+    for label, va_rows in (("exact", None), ("va_rows=40", 40), ("va_rows=20", 20)):
+        strategy = FLrce(FLEET_M, 10, local_epochs=2, dim=D_MAIN, es_threshold=5.0,
+                         explore_decay=0.5, seed=0, va_rows=va_rows)
+        ingest_s: list = []
+        timed_ingest(strategy, torch, ingest_s)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        res = run_federated(model, ds, strategy, max_rounds=FLEET_ROUNDS, learning_rate=MAIN_LR,
+                            batch_size=32, seed=0, init_params=params, torch_device="cuda")
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        check_launches(f"M={FLEET_M} {label}", launches, res)
+        if not any(r.exploited for r in res.records):
+            fail(f"M={FLEET_M} {label}: no exploit round in {res.rounds_run}")
+        st = strategy.server.state
+        va_bytes = (st.updates.numel() + st.anchors.numel()) * 4
+        walls = [r.wall_s for r in res.records]
+        print(f"  {label:<10} per-round wall " + ", ".join(f"{w:.3f}" for w in walls)
+              + f" s; ingest (synchronised) " + ", ".join(f"{1e3 * w:.2f}" for w in ingest_s)
+              + f" ms, median {1e3 * median(ingest_s):.2f} ms = "
+              f"{100 * median(ingest_s) / median(walls):.2f}% of the median round; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; V+A "
+              f"{va_bytes / 1e9:.3f} GB; launches {launches}")
+        print(f"  {label:<10} selections {[r.selected for r in res.records]}, exploited "
+              f"{[r.exploited for r in res.records]}, accuracy "
+              f"{[round(r.accuracy, 4) for r in res.records]}")
+        for r in res.records:
+            if len(r.selected) != 10 or len(set(r.selected)) != 10 or \
+                    not all(0 <= c < FLEET_M for c in r.selected):
+                fail(f"M={FLEET_M} {label} round {r.t}: bad selection {r.selected}")
+            if not (math.isfinite(r.accuracy) and math.isfinite(r.mean_client_loss)):
+                fail(f"M={FLEET_M} {label} round {r.t}: non-finite accuracy/loss")
+        if not bool(torch.isfinite(st.omega).all()):
+            fail(f"M={FLEET_M} {label}: non-finite relationship map")
+        if va_rows is None:
+            ingest_breakdown(torch, timer, st)
+        runs[label] = (res, st.omega.cpu(), st.last_round.cpu(),
+                       None if st.va_slot is None else st.va_slot.cpu())
+        # the timing and capture wrappers close over the strategy: collect
+        # the cycle so that its maps are freed before the next run
+        del strategy, st
+        gc.collect()
+    exact, omega_exact, _, _ = runs["exact"]
+    sketch, omega_sketch, _, _ = runs["va_rows=40"]
+    for a, b in zip(sketch.records, exact.records):
+        if (a.selected, a.exploited, a.stopped) != (b.selected, b.exploited, b.stopped):
+            fail(f"va_rows=40 round {a.t}: {a.selected, a.exploited} != exact {b.selected, b.exploited}")
+    if (sketch.rounds_run, sketch.stopped_early) != (exact.rounds_run, exact.stopped_early):
+        fail("va_rows=40: stop round differs from the exact maps'")
+    d_omega = float((omega_sketch - omega_exact).abs().max())
+    if d_omega > 5e-5:
+        fail(f"va_rows=40: Ω differs from the exact maps' by {d_omega:.3e} > 5e-5")
+    _, _, last20, slot20 = runs["va_rows=20"]
+    evicted = int(((last20 >= 0) & (slot20 < 0)).sum())
+    if evicted == 0:
+        fail("va_rows=20: no client was evicted")
+    print(f"  va_rows=40 == exact: selections, exploit flags and stop round equal, max |ΔΩ| "
+          f"{d_omega:.3e}; va_rows=20: {evicted} clients evicted, Ω finite")
+    del runs, ds, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for q in (FLEET_M, 40):
+        u = torch.randn(K_MAIN, D_MAIN, generator=gen, device="cuda")
+        v = torch.randn(q, D_MAIN, generator=gen, device="cuda")
+        err, rel = check_gram(f"cross_gram Q={q}", kgram.cross_gram_cuda(u, v),
+                              kgram.cross_gram_plain(u, v), u, v, torch)
+        ms = timer(lambda: kgram.cross_gram_cuda(u, v))
+        mm_ms = timer(lambda: torch.mm(u, v.t()))
+        nbytes = 4 * (K_MAIN * D_MAIN + q * D_MAIN + K_MAIN * q)
+        bound_ms = nbytes / bandwidth * 1e3
+        print(f"  cross_gram K={K_MAIN} Q={q} D={D_MAIN}: kernel {ms:.4f} ms, torch.mm {mm_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB / {bandwidth / 1e12:.3f} TB/s) -> "
+              f"{100 * bound_ms / ms:.1f}% of bound; max |Δ|/(‖u‖‖v‖) {rel:.2e}")
+        del u, v
+    torch.cuda.empty_cache()
 
 
 def profile_phase(torch, ds, model, params, round_wall_s: float, rounds: int = 3) -> None:
@@ -499,6 +826,15 @@ def profile_phase(torch, ds, model, params, round_wall_s: float, rounds: int = 3
     for name in ("xgram_partial_kernel", "sum_splits_kernel", GRAM_KERNEL, "aggregate_kernel"):
         us = sum(t for n, t in by_name.items() if name in n)
         print(f"  {us / 1e3 / rounds:9.3f} ms/round  {100 * us / total_us:5.1f}%  {name} (this port)")
+    # vmap has no batching rule for the patch convolution's backward and
+    # runs it one client at a time: its device time, with its kernels'
+    calls, us = 0, 0.0
+    for avg in prof.key_averages():
+        if avg.key == "aten::unfold_backward":
+            calls += avg.count
+            us += getattr(avg, "device_time_total", None) or getattr(avg, "cuda_time_total", 0.0)
+    print(f"  {us / 1e3 / rounds:9.3f} ms/round  {100 * us / total_us:5.1f}%  aten::unfold_backward "
+          f"(vmap's one-client-at-a-time fallback, {calls / rounds:.0f} calls a round)")
 
 
 def run_baseline(torch, name, rounds, ds, model, params, **kw):
@@ -587,6 +923,27 @@ def reference_check(torch) -> None:
                                    seed=0, init_params=init, torch_device=dev)
                 for dev in ("cuda", "cpu")}
         compare_runs(label, runs["cuda"], runs["cpu"])
+    # examples/quickstart.py's configuration, from init(0) on each device
+    ds = make_federated_classification(num_clients=20, alpha=0.1, num_samples=4000, num_eval=800,
+                                       feature_dim=24, num_classes=10, noise=0.8, seed=0)
+    model = MLPClassifier(24, 10, (48, 32))
+    dim = sum(p.numel() for p in model.init(0, "cpu").values())
+    for use_es in (True, False):
+        runs = {dev: run_federated(model, ds, FLrce(20, 5, 2, dim=dim, es_threshold=2.5,
+                                                    explore_decay=0.9, use_early_stopping=use_es,
+                                                    seed=0),
+                                   max_rounds=25, learning_rate=0.08, batch_size=32, seed=0,
+                                   torch_device=dev)
+                for dev in ("cuda", "cpu")}
+        label = f"quickstart {runs['cuda'].strategy}"
+        compare_runs(label, runs["cuda"], runs["cpu"])
+        if runs["cuda"].strategy != ("flrce" if use_es else "flrce_no_es"):
+            fail(f"{label}: reports the name {runs['cuda'].strategy}")
+        if not use_es and runs["cuda"].rounds_run != 25:
+            fail(f"{label}: ran {runs['cuda'].rounds_run} of 25 rounds")
+        print(f"  {label}: {runs['cuda'].rounds_run} rounds, stopped early "
+              f"{runs['cuda'].stopped_early}, final accuracy GPU {runs['cuda'].final_accuracy:.4f} "
+              f"CPU {runs['cpu'].final_accuracy:.4f}")
 
 
 def compare_runs(label, a, b) -> None:
@@ -620,6 +977,16 @@ DECODE_INSTANCES = 2 * 3 * 8                # fp32/bf16 x hd 64/128/256 x G 1..8
 GRAM_INSTANCES = 4                          # row tile 4/8/12/16
 TOPK_INSTANCES = 1 + 2 + 3 * 3              # (elements a thread, load width): 1 x 1, 2 x 1/2,
                                             # 4/8/16 x 1/2/4
+# every kernel the build compiles, by name, and its instance count: the ptxas
+# gate fails on a missing or unknown instance, a spill or a stack frame
+KERNEL_INSTANCES = {
+    DECODE_KERNEL: DECODE_INSTANCES,
+    GRAM_KERNEL: GRAM_INSTANCES,
+    TOPK_KERNEL: TOPK_INSTANCES,
+    "xgram_partial_kernel": 3 * 4,          # load width 1/2/4 x U row tile 4/8/12/16
+    "sum_splits_kernel": 1,
+    "aggregate_kernel": 3,                  # load width 1/2/4
+}
 
 # (label, B, S, K, G, hd, dtype, lengths, window, ring): edge cases
 DECODE_EDGES = [
@@ -1124,6 +1491,144 @@ def time_kernels(torch, timer, bandwidth) -> None:
           f"{timer(lambda: u.sum()):.4f} ms")
 
 
+def numerics(torch) -> None:
+    """``--numerics``: where the FL path's float32 results part from float64
+    and from each other at the CIFAR width, behind three choices of the port:
+    the card's patch convolution, Eq. 6 from r = w − a, and how phase 2c
+    holds the two engines against each other."""
+    import dataclasses
+
+    import numpy as np
+    import torch.nn.functional as F
+    from torch.func import grad, vmap
+
+    from repro_torch.core import relationship
+    from repro_torch.core.distributed import flatten_params
+    from repro_torch.data import make_image_like
+    from repro_torch.fl import FLrce, run_federated
+    from repro_torch.fl.client import (BatchedCohortTrainer, ClientTrainer, build_cohort_plan,
+                                       client_batch_rng)
+    from repro_torch.models import PaperCNN, cnn
+
+    ds = make_image_like(num_clients=100, alpha=0.1, num_samples=40_000, num_eval=4_000, side=32,
+                         channels=3, num_classes=10, seed=0)
+    model = PaperCNN(side=32, channels=3, num_classes=10, num_fc=3)
+    params = model.init(0, "cuda")
+    ids = [c for c in range(100) if len(ds.client_indices[c]) >= 32][:10]
+    xs = torch.stack([torch.from_numpy(ds.client_data(c)[0][:32]) for c in ids]).cuda()
+    ys = torch.stack([torch.from_numpy(ds.client_data(c)[1][:32]) for c in ids]).cuda().long()
+
+    def loss(p, x, y):
+        return F.cross_entropy(model.logits(p, x), y)
+
+    def cudnn_conv(w_hwio, b, h_nhwc):
+        return F.conv2d(h_nhwc.permute(0, 3, 1, 2), w_hwio.permute(3, 2, 0, 1), b,
+                        padding=2).permute(0, 2, 3, 1)
+
+    # (1) one local step's gradient, one client and vmapped over ten
+    truth = grad(loss)({k: v.double() for k, v in params.items()}, xs[0].double(), ys[0])
+    stacked = {k: v.expand(len(ids), *v.shape).contiguous() for k, v in params.items()}
+    patch = cnn.patch_conv2d
+    rows = {}
+    for label, conv in (("cuDNN conv2d", cudnn_conv), ("patch GEMM", patch)):
+        cnn.patch_conv2d = conv
+        one = grad(loss)(params, xs[0], ys[0])
+        many = vmap(grad(loss))(stacked, xs, ys)
+        step_ms = Timer(torch)(lambda: vmap(grad(loss))(stacked, xs, ys), iters=10)
+        rows[label] = (one, many, step_ms)
+    cnn.patch_conv2d = patch
+    print(f"  one SGD gradient of the CIFAR CNN (32 images), max |Δ| / max|g| against float64:")
+    for name in ("conv1.w", "conv2.w", "fc.0.w", "fc.2.w"):
+        scale = float(truth[name].abs().max())
+        print(f"    {name:8s}" + "".join(
+            f"  {label}: one client {float((one[name].double() - truth[name]).abs().max()) / scale:.1e},"
+            f" vmapped over ten {float((many[name][0].double() - truth[name]).abs().max()) / scale:.1e};"
+            for label, (one, many, _) in rows.items()))
+    print("  the vmapped gradient of 10 clients x 32 images (CUDA events, median of 10): "
+          + ", ".join(f"{label} {ms:.2f} ms" for label, (_, _, ms) in rows.items()))
+
+    # (2) Eq. 6 in fp32 on a real trajectory, expanded as the reference writes
+    # it (ww - 2aw + aa) and from r = w - a, each against float64
+    def direct64(ids_, u, w, v, a, last, t, om):
+        u, w, v, a = u.double(), w.double(), v.double(), a.double()
+        r = w[None, :] - a
+        dots = (u @ v.T, u @ r.T, (v * v).sum(1), (r * v).sum(1), (r * r).sum(1))
+        return relationship.rows_from_relationship_dots(ids_, dots, last, t, om.double())
+
+    inner = relationship.relationship_block
+    errors = []
+
+    def spy(ids_, u, w, v, a, last, t, om):
+        got = inner(ids_, u, w, v, a, last, t, om)
+        stale = (last >= 0) & (last < t - 1)
+        if bool(stale.any()):
+            want = direct64(ids_, u, w, v, a, last, t, om)[:, stale]
+            errors.append((t, int(stale.sum()),
+                           float((expanded_block(ids_, u, w, v, a, last, t, om)[:, stale].double() - want).abs().max()),
+                           float((got[:, stale].double() - want).abs().max())))
+        return got
+
+    relationship.relationship_block = spy
+    try:
+        run_federated(model, ds, FLrce(100, 10, 2, dim=D_MAIN, es_threshold=5.0, explore_decay=0.5,
+                                       seed=0),
+                      max_rounds=6, learning_rate=MAIN_LR, batch_size=32, seed=0, init_params=params,
+                      torch_device="cuda")
+    finally:
+        relationship.relationship_block = inner
+    print("  Eq. 6 entries (clients last seen before t - 1) against float64, main path, M=100: "
+          + "; ".join(f"t={t} ({n} clients): expanded {e:.1e}, from r = w - a {d:.1e}"
+                      for t, n, e, d in errors))
+
+    # (3) the batched and the sequential engine on round 0's cohort, by the
+    # number of local steps; then, over the whole round, the sequential
+    # engine with a planted fault, read by phase 2c's norm check
+    rids = [16, 27, 34, 38, 56, 61, 73, 76, 79, 86]
+    plan = build_cohort_plan([ds.client_data(c) for c in rids], [2] * 10, 32,
+                             [client_batch_rng(0, 0, c) for c in rids])
+    batched = BatchedCohortTrainer(model, MAIN_LR, 32, "cuda")
+
+    def sequential(sub, fault=None):
+        us = []
+        for k in range(10):
+            p = params
+            for s in range(int(sub.step_valid[k].sum())):
+                n = int(sub.sample_w[k, s].sum())
+                lr = MAIN_LR * (1.01 if fault == "lr" else 1.0)
+                if n < 32 and fault == "dropped":
+                    continue
+                if n < 32 and fault == "weighted":
+                    lr *= n / 32
+                p, _ = ClientTrainer(model, lr, 32, "cuda")._step(
+                    p, params, torch.from_numpy(sub.x[k, s, :n]).cuda(),
+                    torch.from_numpy(sub.y[k, s, :n]).cuda().long(), None, None, 0.0)
+            us.append(flatten_params({n2: p[n2] - params[n2] for n2 in p})[0])
+        return torch.stack(us)
+
+    def norm_ratio(us, ub):
+        return float((torch.linalg.vector_norm(us - ub, dim=1) / torch.linalg.vector_norm(ub, dim=1)).max())
+
+    partial = (plan.sample_w.sum(2) % 32 > 0) & (plan.step_valid > 0)
+    print(f"  round 0's cohort {rids}: valid steps {plan.step_valid.sum(1).astype(int).tolist()}, "
+          f"partial batches {partial.sum(1).tolist()}")
+    for steps in sorted({s for s in (1, 2, 4, 8, 16, 32) if s < plan.num_steps} | {plan.num_steps}):
+        sub = dataclasses.replace(plan, x=plan.x[:, :steps], y=plan.y[:, :steps],
+                                  sample_w=plan.sample_w[:, :steps],
+                                  step_valid=plan.step_valid[:, :steps])
+        ub, _ = batched.train_cohort(params, sub, prox_mus=[0.0] * 10, masks=[None] * 10,
+                                     freeze_fracs=[0.0] * 10)
+        us = sequential(sub)
+        _, err, n_beyond = update_gap(torch, us, ub)
+        print(f"    {steps:3d} local steps: max |Δ| {err:.2e} (max|U| {float(ub.abs().max()):.3e}), "
+              f"‖ΔU_k‖/‖U_k‖ ≤ {norm_ratio(us, ub):.2e}, {n_beyond} of {us.numel()} elements beyond "
+              f"the reference's tolerance")
+    faults = (("a partial batch weighted as a full one", "weighted"),
+              ("partial batches dropped", "dropped"), ("the learning rate 1% high", "lr"))
+    print("  the whole round with a planted fault in the sequential engine, max_k ‖ΔU_k‖/‖U_k‖ "
+          f"(phase 2c fails above {ROUND_NORM_RTOL:.0e}): "
+          + "; ".join(f"{label} {norm_ratio(sequential(plan, fault), ub):.2e}" for label, fault in faults))
+
+
 def topk_route(torch, padded, k: int):
     """The top-k mask of the zero-padded (tiles, block_d) view by two PyTorch
     calls (``torch.topk``, ``torch.where``): the library route it is timed
@@ -1226,23 +1731,30 @@ def main() -> int:
     ptxas = ptxas_summary(str(info.get("log", "")))
     for line in ptxas:
         print(f"  ptxas: {line}")
-    for kernel, instances in ((DECODE_KERNEL, DECODE_INSTANCES), (GRAM_KERNEL, GRAM_INSTANCES),
-                              (TOPK_KERNEL, TOPK_INSTANCES)):
-        lines = [line for line in ptxas if line.startswith(kernel)]
-        # a stack frame is local memory too: held against the new kernels
-        spilling = [line for line in lines if "spill stores/loads 0/0 B" not in line
-                    or (kernel != DECODE_KERNEL and "stack frame" in line)]
+    unknown = [line for line in ptxas
+               if not any(line.startswith((f"{k}<", f"{k}:")) for k in KERNEL_INSTANCES)]
+    if unknown and mode is None:
+        fail(f"ptxas reports kernels the gate does not declare: {unknown}")
+    for kernel, instances in KERNEL_INSTANCES.items():
+        lines = [line for line in ptxas if line.startswith((f"{kernel}<", f"{kernel}:"))]
+        # a stack frame is local memory too, though ptxas reports no spill
+        spilling = [line for line in lines
+                    if "spill stores/loads 0/0 B" not in line or "stack frame" in line]
         regs = sorted(int(line.split(": ")[1].split()[0]) for line in lines)
         print(f"  ptxas: {len(lines)} {kernel} instances, {regs[0] if regs else '-'}-"
-              f"{regs[-1] if regs else '-'} registers, {len(spilling)} with spills")
+              f"{regs[-1] if regs else '-'} registers, {len(spilling)} with spills or stack frames")
         if (len(lines) != instances or spilling) and mode is None:
             fail(f"{kernel}: {len(lines)} instances compiled (want {instances}), "
-                 f"spilling: {spilling}")
+                 f"with spills or stack frames: {spilling}")
     print(f"memory bandwidth {bandwidth / 1e12:.3f} TB/s ({bw_src}); "
           f"fp32 peak {FP32_PEAK_FLOPS / 1e12:.0f} TFLOP/s")
     if mode == "--decode-variants":
         print("decode_attention variants")
         decode_variants(torch, Timer(torch), bandwidth)
+        return 0
+    if mode == "--numerics":
+        print("numerics of the FL path at the CIFAR width")
+        numerics(torch)
         return 0
     if mode == "--kernel-variants":
         print("topk_mask_rows and gram variants")
@@ -1258,14 +1770,26 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     print("phase 2: main path, CIFAR-10 PaperCNN, M=100, P=10, 6 FLrce rounds")
-    launches, (ds, model, params, round_wall_s) = main_path(torch)
+    launches, (ds, model, params, round_wall_s), (main_res, main_u0) = main_path(torch)
     print("profile: the main path's device time by kernel")
     profile_phase(torch, ds, model, params, round_wall_s)
 
     print("phase 2b: the §4.1 baselines at full width, M=100, P=10")
     topk_launches = baselines_phase(torch, ds, model, params)
     launches["topk_mask_rows"] = topk_launches["topk_mask_rows"]
-    del ds, model, params
+
+    print("phase 2c: the sequential engine at full width, M=100, P=10, 2 FLrce rounds")
+    sequential_phase(torch, ds, model, params, main_res, main_u0)
+    del ds, model, params, main_res, main_u0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"phase 2d: FLrce at a {FLEET_M}-client fleet, CIFAR-10 PaperCNN, P=10, "
+          f"{FLEET_ROUNDS} rounds: exact maps, va_rows=40 and va_rows=20")
+    timer = Timer(torch)
+    fleet_phase(torch, timer, bandwidth)
+    del timer
+    torch.cuda.empty_cache()
 
     print("phase 3: small federations, GPU against CPU")
     reference_check(torch)

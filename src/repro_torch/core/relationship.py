@@ -10,12 +10,15 @@ Two estimators of the relationship degree Ω[p, q] ∈ [-1, 1]:
 
 ``relationship_row`` is Algorithm 1 verbatim for one client (the oracle the
 tests hold the block against).  ``relationship_block`` refreshes all K fresh
-rows at once from inner products: the two O(K·M·D) reductions go through the
-``cross_gram`` kernel, the O(M·D) map/model dots through plain PyTorch.
+rows at once from inner products (:func:`relationship_dots`): the two
+O(K·M·D) reductions go through the ``cross_gram`` kernel, the O(M·D) row
+dots through plain PyTorch.  ``sketched_relationship_block`` does the same
+against sketched (K_rows, D) maps and scatters the dots to the M clients
+through the rows' owners.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
@@ -64,6 +67,36 @@ def relationship_row(
     return row
 
 
+def relationship_dots(
+    u: torch.Tensor,            # (K, D) fresh updates
+    w_t: torch.Tensor,          # (D,) global model at round t
+    updates: torch.Tensor,      # (Q, D) update map V (rows of the fresh ids already = u)
+    anchors: torch.Tensor,      # (Q, D) anchor map A
+) -> Tuple[torch.Tensor, ...]:
+    """The five inner-product groups Eq. 5 and Eq. 6 read, against Q rows.
+
+    ``(uv, ur, vv, rq, rr)``: ⟨u_k, v_j⟩ and ⟨u_k, r_j⟩ (K, Q) through the
+    ``cross_gram`` kernel, and ‖v_j‖², ⟨r_j, v_j⟩, ‖r_j‖² (Q,), with
+    ``r_j = w_t − a_j`` formed before any product.  The reference expands
+    ‖w − a_j‖² as ww − 2aw + aa (and ⟨w − a_j, ·⟩ likewise); an anchor is the
+    global model of a recent round, so those terms nearly cancel: at the
+    CIFAR width the expanded form put Eq. 6's fp32 entries up to 2e-3 from
+    float64 on the card, the direct form under 3e-5 (``chip_smoke.py
+    --numerics``).  The two forms are equal in exact arithmetic.  The row
+    dots are plain reductions: ``einsum`` made each a batched product that
+    took 0.77 ms at Q = 100 on the card, ten times its bytes' time.
+    """
+    u32 = u.float().contiguous()
+    v32 = updates.float()
+    r32 = w_t.float()[None, :] - anchors.float()      # (Q, D) w − a_j
+    uv = kops.cross_gram(u32, v32)                    # (K, Q) ⟨u_k, v_j⟩
+    ur = kops.cross_gram(u32, r32)                    # (K, Q) ⟨u_k, w − a_j⟩
+    vv = torch.linalg.vector_norm(v32, dim=1).square()  # (Q,) ‖v_j‖²
+    rq = (r32 * v32).sum(1)                             # (Q,) ⟨w − a_j, v_j⟩
+    rr = torch.linalg.vector_norm(r32, dim=1).square()  # (Q,) ‖w − a_j‖²
+    return uv, ur, vv, rq, rr
+
+
 def relationship_block(
     ids: torch.Tensor,          # (K,) int64 — fresh (distinct) client ids
     u: torch.Tensor,            # (K, D) fresh updates, row-aligned with ids
@@ -80,33 +113,52 @@ def relationship_block(
     already hold the fresh updates and anchors (Alg. 4 line 10 writes them
     first); the fresh self-dots ⟨u_k, u_k⟩ then come from ``uv[k, ids[k]]``.
     """
-    u32 = u.float().contiguous()
-    v32 = updates.float()
-    a32 = anchors.float()
-    w32 = w_t.float()
-    uv = kops.cross_gram(u32, v32)                   # (K, M) ⟨u_k, v_j⟩
-    ua = kops.cross_gram(u32, a32)                   # (K, M) ⟨u_k, a_j⟩
-    uw = u32 @ w32                                   # (K,)   ⟨u_k, w⟩
-    vw = v32 @ w32                                   # (M,)   ⟨v_j, w⟩
-    aw = a32 @ w32                                   # (M,)   ⟨a_j, w⟩
-    vv = torch.sum(v32 * v32, dim=1)                 # (M,)   ‖v_j‖²
-    av = torch.sum(a32 * v32, dim=1)                 # (M,)   ⟨a_j, v_j⟩
-    aa = torch.sum(a32 * a32, dim=1)                 # (M,)   ‖a_j‖²
-    ww = torch.dot(w32, w32)                         #        ‖w‖²
-    return rows_from_relationship_dots(
-        ids, (uv, ua, uw, vw, aw, vv, av, aa, ww), last_rounds, t, omega_rows
-    )
+    dots = relationship_dots(u, w_t, updates, anchors)
+    return rows_from_relationship_dots(ids, dots, last_rounds, t, omega_rows)
+
+
+def sketched_relationship_block(
+    ids: torch.Tensor,              # (K,) int64 — fresh (distinct) client ids
+    u: torch.Tensor,                # (K, D) fresh updates
+    w_t: torch.Tensor,              # (D,) global model at round t
+    updates: torch.Tensor,          # (K_rows, D) sketched update map V
+    anchors: torch.Tensor,          # (K_rows, D) sketched anchor map A
+    row_owner: torch.Tensor,        # (K_rows,) int32 client owning each row; -1 empty
+    last_rounds_eff: torch.Tensor,  # (M,) time map, -1 for clients without a row
+    t: int,
+    omega_rows: torch.Tensor,       # (K, M) previous Ω rows for ids
+) -> torch.Tensor:
+    """:func:`relationship_block` against K_rows-row sketched V/A maps.
+
+    The dots are taken on the sketch (two ``cross_gram`` launches at
+    Q = K_rows) and scattered to M columns through ``row_owner``.  A client
+    without a row gets zero dots and ``last_rounds_eff = -1``, so its Ω
+    entries keep their previous values, as for a client never seen.  The
+    fresh updates and anchors must already sit in the ids' own rows.
+    """
+    m = last_rounds_eff.shape[0]
+    # empty rows (owner -1) go to an extra column M that is cut off: -1
+    # itself would address the last client
+    col = torch.where(row_owner >= 0, row_owner, m).long()
+
+    def expand(d: torch.Tensor) -> torch.Tensor:      # (..., K_rows) → (..., M)
+        out = d.new_zeros((*d.shape[:-1], m + 1))
+        out[..., col] = d
+        return out[..., :m]
+
+    dots = tuple(expand(d) for d in relationship_dots(u, w_t, updates, anchors))
+    return rows_from_relationship_dots(ids, dots, last_rounds_eff, t, omega_rows)
 
 
 def rows_from_relationship_dots(
     ids: torch.Tensor,
-    dots: Sequence[torch.Tensor],   # (uv, ua, uw, vw, aw, vv, av, aa, ww)
+    dots: Sequence[torch.Tensor],   # (uv, ur, vv, rq, rr) of relationship_dots
     last_rounds: torch.Tensor,
     t: int,
     omega_rows: torch.Tensor,
 ) -> torch.Tensor:
-    """Assemble the K fresh Ω rows from the nine inner-product groups."""
-    uv, ua, uw, vw, aw, vv, av, aa, ww = dots
+    """Assemble the K fresh Ω rows from the five inner-product groups."""
+    uv, ur, vv, rq, rr = dots
     k = uv.shape[0]
     arange_k = torch.arange(k, device=uv.device)
     pp = uv[arange_k, ids]                           # (K,) ⟨u_k, u_k⟩
@@ -117,11 +169,8 @@ def rows_from_relationship_dots(
     sync = uv / torch.clamp(norms_u[:, None] * norms_v[None, :], min=_EPS)
 
     # asynchronous rows (Eq. 6) from dots
-    rq = vw - av                                     # (M,) ⟨w−a_j, v_j⟩
-    rr = ww - 2.0 * aw + aa                          # (M,) ‖w−a_j‖²
-    ru = uw[:, None] - ua                            # (K, M) ⟨w−a_j, u_k⟩
     asyncr = async_relationship_from_dots(
-        uu=uv, qq=vv[None, :], rq=rq[None, :], rr=rr[None, :], ru=ru, pp=pp[:, None],
+        uu=uv, qq=vv[None, :], rq=rq[None, :], rr=rr[None, :], ru=ur, pp=pp[:, None],
     )
 
     seen = last_rounds >= 0

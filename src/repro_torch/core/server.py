@@ -1,4 +1,4 @@
-"""FLrce server (paper Algorithm 4) on flattened updates, exact V/A maps.
+"""FLrce server (paper Algorithm 4) on flattened updates.
 
 State carried across rounds (Table 1), on the server's device:
 
@@ -11,11 +11,17 @@ State carried across rounds (Table 1), on the server's device:
 The maps are updated in place: they are the server's own O(M·D) buffers and
 nothing else holds them, so a functional copy per round would only double
 their memory.
+
+**Sketched V/A** (``va_rows=K < M``): V and A keep K rows, allocated least
+recently used (``va_owner`` (K,) maps a row to its client, ``va_slot`` (M,)
+a client to its row, -1 = none).  A client whose row was evicted counts as
+never seen, so its Ω entries keep their last values.  With ``va_rows=None``
+or ``va_rows >= M`` the maps are exact.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,18 +42,79 @@ class FLrceState:
     stopped: bool = False
     stop_round: Optional[int] = None
     last_conflicts: float = 0.0
+    va_owner: Optional[torch.Tensor] = None   # (K,) int32 sketch row → client; -1 empty
+    va_slot: Optional[torch.Tensor] = None    # (M,) int32 client → sketch row; -1 none
 
 
-def init_state(num_clients: int, dim: int, device: torch.device) -> FLrceState:
+def init_state(
+    num_clients: int, dim: int, device: torch.device, va_rows: Optional[int] = None
+) -> FLrceState:
     m = num_clients
+    k = m if va_rows is None else min(int(va_rows), m)
+    sketched = k < m
+
+    def index_map(n: int) -> Optional[torch.Tensor]:
+        return torch.full((n,), -1, dtype=torch.int32, device=device) if sketched else None
+
     return FLrceState(
         t=0,
         omega=torch.zeros((m, m), dtype=torch.float32, device=device),
         heuristic=torch.zeros((m,), dtype=torch.float32, device=device),
-        updates=torch.zeros((m, dim), dtype=torch.float32, device=device),
-        anchors=torch.zeros((m, dim), dtype=torch.float32, device=device),
+        updates=torch.zeros((k, dim), dtype=torch.float32, device=device),
+        anchors=torch.zeros((k, dim), dtype=torch.float32, device=device),
         last_round=torch.full((m,), -1, dtype=torch.int32, device=device),
+        va_owner=index_map(k),
+        va_slot=index_map(m),
     )
+
+
+def check_va_rows(va_rows: Optional[int], clients_per_round: int) -> None:
+    if va_rows is not None and va_rows < clients_per_round:
+        raise ValueError(
+            f"va_rows={va_rows} must be >= clients_per_round={clients_per_round}: "
+            "every selected client needs a sketch row"
+        )
+
+
+def sketch_assign_rows(
+    va_owner: torch.Tensor,     # (K,) int32 sketch row → client id; -1 empty
+    va_slot: torch.Tensor,      # (M,) int32 client id → sketch row; -1 none
+    last_round: torch.Tensor,   # (M,) int32, the LRU key before this round's write
+    ids: torch.Tensor,          # (P,) distinct selected client ids
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A sketch row for every selected client: ``(va_owner', va_slot', slots)``.
+
+    A client that owns a row keeps it; the others take rows in eviction
+    order: empty rows first, then the least recently active owners, ties by
+    row index (a stable sort).  Rows owned by this cohort are never evicted,
+    which K >= P makes always possible.  ``slots[i]`` is the row of
+    ``ids[i]``.  The inputs are left as they are.
+    """
+    k = va_owner.shape[0]
+    ids = ids.long()
+    existing = va_slot[ids]                                   # (P,) row or -1
+    has = existing >= 0
+    # -1 would address the last row: the scatters below go through an
+    # explicit out-of-range row that is cut off afterwards
+    pinned = torch.zeros((k + 1,), dtype=torch.bool, device=va_owner.device)
+    pinned[torch.where(has, existing, k).long()] = True
+    owner_last = torch.where(va_owner >= 0, last_round[va_owner.clamp_min(0).long()], -2)
+    evict_key = torch.where(pinned[:k], torch.iinfo(torch.int32).max, owner_last)
+    order = torch.argsort(evict_key, stable=True)             # empties, then LRU
+    need = ~has
+    rank = torch.cumsum(need.to(torch.int32), 0) - 1          # position among the needy
+    slots = torch.where(has, existing, order[rank.clamp_min(0)].to(torch.int32))
+    # clear the evicted owners' back-pointers before writing the new ones
+    old_owner = va_owner[slots.long()]
+    stale = need & (old_owner >= 0)
+    m = va_slot.shape[0]
+    new_slot = torch.cat([va_slot, va_slot.new_full((1,), -1)])
+    new_slot[torch.where(stale, old_owner, m).long()] = -1
+    new_slot = new_slot[:m].clone()
+    new_slot[ids] = slots
+    new_owner = va_owner.clone()
+    new_owner[slots.long()] = ids.to(torch.int32)
+    return new_owner, new_slot, slots
 
 
 class FLrceServer:
@@ -61,8 +128,10 @@ class FLrceServer:
         es_threshold: float,
         explore_decay: float = 0.98,
         seed: int = 0,
+        va_rows: Optional[int] = None,
         device: DeviceLike = "cuda",
     ):
+        check_va_rows(va_rows, clients_per_round)
         self.m = num_clients
         self.dim = dim
         self.p = clients_per_round
@@ -70,8 +139,13 @@ class FLrceServer:
         self.decay = explore_decay
         self.device = resolve_device(device)
         self._rng = random.PRNGKey(seed)
-        self.state = init_state(num_clients, dim, self.device)
+        self.va_rows = None if va_rows is None else int(va_rows)
+        self.state = init_state(num_clients, dim, self.device, self.va_rows)
         self._last_exploit = False
+
+    @property
+    def sketched(self) -> bool:
+        return self.state.va_owner is not None
 
     # -- Alg. 4 line 5: client selection ------------------------------------
     def select(self) -> np.ndarray:
@@ -99,12 +173,26 @@ class FLrceServer:
         u32 = client_updates.float()
         # Alg. 4 writes V/A/R first (line 10), then models relationships, so
         # a pair selected in the same round is compared synchronously.
-        st.updates[ids] = u32
-        st.anchors[ids] = w32
-        st.last_round[ids] = st.t
-        rows = relationship.relationship_block(
-            ids, u32, w32, st.updates, st.anchors, st.last_round, st.t, st.omega[ids]
-        )
+        if self.sketched:
+            st.va_owner, st.va_slot, slots = sketch_assign_rows(
+                st.va_owner, st.va_slot, st.last_round, ids
+            )
+            st.updates[slots.long()] = u32
+            st.anchors[slots.long()] = w32
+            st.last_round[ids] = st.t
+            # an evicted client counts as never seen
+            eff_last = torch.where(st.va_slot >= 0, st.last_round, -1)
+            rows = relationship.sketched_relationship_block(
+                ids, u32, w32, st.updates, st.anchors, st.va_owner, eff_last, st.t,
+                st.omega[ids],
+            )
+        else:
+            st.updates[ids] = u32
+            st.anchors[ids] = w32
+            st.last_round[ids] = st.t
+            rows = relationship.relationship_block(
+                ids, u32, w32, st.updates, st.anchors, st.last_round, st.t, st.omega[ids]
+            )
         st.omega[ids] = rows
         st.heuristic = heuristics.update_heuristic_rows(st.heuristic, st.omega, ids)
 

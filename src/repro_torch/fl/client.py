@@ -1,4 +1,10 @@
-"""Client-side local training (paper Eq. 3), all selected clients at once.
+"""Client-side local training (paper Eq. 3).
+
+Two paths compute the same math:
+
+* :class:`ClientTrainer` — the sequential oracle: one plain autograd SGD
+  step per batch, client by client, from Python.
+* :class:`BatchedCohortTrainer` — the production path.
 
 :class:`BatchedCohortTrainer` runs every selected client's local epochs
 together: per-client parameters are stacked along a leading client axis and
@@ -24,6 +30,7 @@ parameter.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,7 +38,7 @@ import torch
 from torch.func import grad_and_value, vmap
 
 from repro_torch.core.distributed import flatten_rows
-from repro_torch.data.loader import bucket_steps
+from repro_torch.data.loader import bucket_steps, epoch_batches
 from repro_torch.device import DeviceLike, resolve_device
 
 Params = Dict[str, torch.Tensor]
@@ -141,6 +148,87 @@ def freeze_flags(n_leaves: int, freeze_frac: float) -> np.ndarray:
     return np.array([0.0 if i < n_frozen else 1.0 for i in range(n_leaves)], np.float32)
 
 
+class ClientTrainer:
+    """Runs one client's E local epochs of SGD, a batch per Python step.
+
+    Each step takes the mean cross-entropy of the batch, on the params times
+    the client's mask when it has one, plus the prox term µ/2·Σ‖q − w_global‖²
+    over all leaves of the masked params q when µ > 0.  The gradient is
+    multiplied by the mask, then by the leaf's freeze flag (the first
+    ``int(freeze_frac · n_leaves)`` leaves get none) before the SGD update.
+    The update ``w_local − w_global`` is multiplied by the mask too.
+    """
+
+    def __init__(self, model, learning_rate: float, batch_size: int, device: DeviceLike = "cuda"):
+        self.model = model
+        self.lr = float(learning_rate)
+        self.batch_size = batch_size
+        self.device = resolve_device(device)
+
+    def _step(self, params: Params, anchor: Params, x, y, mask, freeze, prox_mu: float):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        with torch.enable_grad():
+            q = {k: leaves[k] * mask[k] for k in leaves} if mask is not None else leaves
+            loss = self.model.loss(q, x, y)
+            if prox_mu > 0.0:
+                sq = sum(torch.sum(torch.square(q[k] - anchor[k])) for k in q)
+                loss = loss + 0.5 * prox_mu * sq
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        new: Params = {}
+        with torch.no_grad():
+            for (k, p), g in zip(params.items(), grads):
+                if mask is not None:
+                    g = g * mask[k]
+                if freeze is not None:
+                    g = g * freeze[k]
+                new[k] = p - self.lr * g
+        return new, loss.detach()
+
+    def local_update(
+        self,
+        global_params: Params,
+        x: np.ndarray,
+        y: np.ndarray,
+        epochs: int,
+        rng: np.random.Generator,
+        *,
+        prox_mu: float = 0.0,
+        mask: Optional[Params] = None,
+        freeze_frac: float = 0.0,
+    ) -> Tuple[Params, Dict[str, float]]:
+        """Returns (update dict u_k in leaf order, stats)."""
+        dev = self.device
+        if mask is not None:
+            mask = {k: mask[k].to(device=dev, dtype=v.dtype) for k, v in global_params.items()}
+        freeze = None
+        if freeze_frac > 0:
+            flags = freeze_flags(len(global_params), freeze_frac)
+            freeze = {k: float(f) for k, f in zip(global_params, flags)}
+        params = global_params
+        losses: List[torch.Tensor] = []
+        n_samples = 0
+        for _ in range(max(1, epochs)):
+            for bx, by in epoch_batches(x, y, self.batch_size, rng):
+                params, loss = self._step(
+                    params, global_params, torch.from_numpy(bx).to(dev),
+                    torch.from_numpy(by).to(dev).long(), mask, freeze, prox_mu,
+                )
+                losses.append(loss)
+                n_samples += len(bx)
+        with torch.no_grad():
+            update = {k: params[k] - global_params[k] for k in params}
+            if mask is not None:
+                update = {k: update[k] * mask[k] for k in update}
+        trace = torch.stack(losses).cpu().numpy().astype(np.float64) if losses else np.zeros(0)
+        stats = {
+            "mean_loss": float(np.mean(trace)) if trace.size else float("nan"),
+            "final_loss": float(trace[-1]) if trace.size else float("nan"),
+            "samples_processed": float(n_samples),
+            "steps": float(trace.size),
+        }
+        return update, stats
+
+
 def stack_freeze_flags(n_leaves: int, freeze_fracs: Sequence[float]) -> np.ndarray:
     """(n_leaves, P) per-leaf trainability flags of a cohort."""
     return np.stack([freeze_flags(n_leaves, float(f)) for f in freeze_fracs], axis=1)
@@ -236,7 +324,14 @@ class BatchedCohortTrainer:
         losses = torch.zeros((p, s_pad), dtype=torch.float32, device=dev)
         any_valid = np.flatnonzero(plan.step_valid.max(axis=0) > 0)
         n_steps = int(any_valid[-1]) + 1 if any_valid.size else 0
-        with torch.no_grad():
+        with torch.no_grad(), warnings.catch_warnings():
+            if dev.type == "cuda":
+                # vmap runs unfold's backward (the card's patch convolution)
+                # one client at a time, and says so once.  chip_smoke.py's
+                # profile prints that backward's device time per round, and
+                # --numerics times the vmapped step against cuDNN's.
+                warnings.filterwarnings("ignore",
+                                        message=".*batching rule for aten::unfold_backward")
             for s in range(n_steps):
                 grads, loss = step(params, xs[:, s], ys[:, s], ws[:, s], mask, global_params, mu)
                 for k in params:

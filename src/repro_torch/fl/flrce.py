@@ -2,7 +2,10 @@
 
 Wraps :class:`repro_torch.core.FLrceServer` behind the engine-facing
 Strategy interface (paper Alg. 4).  The server's state is allocated on the
-run's device when ``run_federated`` binds it.
+run's device when ``run_federated`` binds it.  ``use_early_stopping=False``
+is the paper's "FLrce w/o ES" ablation arm (named ``flrce_no_es``): Alg. 3
+still runs on every exploit round, but its decision never ends the job.
+``va_rows=K < M`` sketches the server's (M, D) V/A maps down to K rows.
 """
 from __future__ import annotations
 
@@ -11,7 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.server import FLrceServer
+from repro_torch.core.server import FLrceServer, check_va_rows
 from repro_torch.fl.strategy import TorchStrategy
 
 
@@ -27,13 +30,26 @@ class TorchFLrce(TorchStrategy):
         dim: int,
         es_threshold: float = 5.0,
         explore_decay: float = 0.98,
+        use_early_stopping: bool = True,
         seed: int = 0,
+        va_rows: Optional[int] = None,
+        candidates_per_chunk: Optional[int] = None,
     ):
         super().__init__(num_clients, clients_per_round, local_epochs, seed)
+        if candidates_per_chunk is not None:
+            raise ValueError(
+                "candidates_per_chunk narrows the compiled driver's device-side "
+                "selection; the port has no compiled driver yet (ROADMAP A.6)"
+            )
+        check_va_rows(va_rows, clients_per_round)
         self.dim = dim
         self.es_threshold = es_threshold
         self.explore_decay = explore_decay
+        self.use_es = use_early_stopping
+        self.va_rows = va_rows
         self.server: Optional[FLrceServer] = None
+        if not use_early_stopping:
+            self.name = "flrce_no_es"
 
     def bind_device(self, device: torch.device) -> None:
         if self.server is not None:
@@ -45,6 +61,7 @@ class TorchFLrce(TorchStrategy):
             es_threshold=self.es_threshold,
             explore_decay=self.explore_decay,
             seed=self.seed,
+            va_rows=self.va_rows,
             device=device,
         )
 
@@ -66,7 +83,7 @@ class TorchFLrce(TorchStrategy):
         server.ingest(w_before.float(), client_ids, updates)
         stop = server.check_early_stop(updates)
         server.advance_round()
-        return bool(stop)
+        return bool(stop) and self.use_es
 
 
 FLrce = TorchFLrce

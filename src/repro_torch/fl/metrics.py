@@ -14,6 +14,9 @@ from typing import Dict
 DEVICE_PROFILES: Dict[str, float] = {
     # Jetson Nano: ~10 W at ~0.235 TFLOP/s fp16 sustained ≈ 4.3e-11 J/FLOP
     "jetson_nano": 4.3e-11,
+    # the reference's second profile, a TPU v5e chip: ~200 W at 197 TFLOP/s
+    # bf16 ≈ 1.0e-12 J/FLOP; an energy price for the ledger, not a speed
+    "tpu_v5e": 1.0e-12,
 }
 
 BYTES_PER_PARAM = 4  # float32 transport, as in the paper

@@ -1,23 +1,27 @@
 """The federated round loop (paper Algorithm 4's outer loop).
 
-Runs T rounds of: select → local training of the whole cohort (batched, with
-the strategy's prox/mask/freeze variants) → the strategy's update transform
-on the device (Fedcom's top-k mask, QuantizedFL's int8 rounding) → Eq. 4
+Runs T rounds of: select → local training of the cohort (with the
+strategy's prox/mask/freeze variants) → the strategy's update transform on
+the device (Fedcom's top-k mask, QuantizedFL's int8 rounding) → Eq. 4
 aggregation through the ``weighted_aggregate`` kernel → strategy bookkeeping
-(FLrce's relationship ingest and Alg. 3 early stopping) → evaluation, with
-exact resource accounting through a :class:`ResourceLedger`.
+(FLrce's relationship ingest and Alg. 3 early stopping) → evaluation every
+``eval_every`` rounds, with exact resource accounting through a
+:class:`ResourceLedger`.
 
-The port has one engine (``"batched"``) and one driver (``"loop"``): one
-Python iteration and one host sync per round.  The round's flat (D,) model
-and (P, D) update matrix stay on the device and are shared by aggregation,
-ingest and early stopping.  ``device=`` names the ledger's energy profile;
-the torch device is ``torch_device=`` and defaults to ``"cuda"``.
+Two engines train the cohort: ``"batched"`` (the default, all clients in one
+vmapped step) and ``"sequential"`` (the per-client oracle,
+:class:`ClientTrainer`), whose updates are stacked into the same (P, D)
+matrix.  The port has one driver (``"loop"``): one Python iteration per
+round.  The round's flat (D,) model and (P, D) update matrix stay on the
+device and are shared by aggregation, ingest and early stopping.
+``device=`` names the ledger's energy profile; the torch device is
+``torch_device=`` and defaults to ``"cuda"``.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,13 +30,20 @@ from repro_torch.core.distributed import flatten_params
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fl.aggregation import aggregation_weights
-from repro_torch.fl.client import BatchedCohortTrainer, build_cohort_plan, client_batch_rng
+from repro_torch.fl.client import (
+    BatchedCohortTrainer,
+    ClientTrainer,
+    build_cohort_plan,
+    client_batch_rng,
+)
 from repro_torch.fl.metrics import ResourceLedger, communication_efficiency, computation_efficiency
-from repro_torch.fl.strategy import TorchStrategy
+from repro_torch.fl.strategy import LocalConfig, TorchStrategy
 from repro_torch.kernels import ops as kops
 from repro_torch.models.cnn import param_count
 
 Params = Dict[str, torch.Tensor]
+
+ENGINES = ("batched", "sequential")
 
 
 @dataclasses.dataclass
@@ -46,8 +57,8 @@ class RoundRecord:
     exploited: bool
     stopped: bool
     wall_s: float
-    evaluated: bool = True   # the port evaluates every round; kept for the
-    # reference's record layout
+    evaluated: bool = True   # False ⇒ ``accuracy`` is copied from the last
+    # evaluated round (eval_every > 1), not a measurement of round t
 
 
 @dataclasses.dataclass
@@ -75,6 +86,9 @@ class FLResult:
     @property
     def communication_efficiency(self) -> float:
         return communication_efficiency(self.final_accuracy, self.ledger.total_bytes)
+
+    def accuracy_curve(self) -> np.ndarray:
+        return np.asarray([r.accuracy for r in self.records])
 
     def summary(self) -> Dict[str, float]:
         return {
@@ -104,8 +118,9 @@ def finalize_result(
     ledger: ResourceLedger,
     final_params: Params,
 ) -> FLResult:
-    """Assemble the FLResult; the final accuracy is the last round's."""
-    final_accuracy = records[-1].accuracy if records else 0.0
+    """Assemble the FLResult; the final accuracy is the last evaluated
+    round's (the terminal round always is)."""
+    final_accuracy = next((r.accuracy for r in reversed(records) if r.evaluated), 0.0)
     return FLResult(
         strategy=strategy.name,
         records=records,
@@ -117,6 +132,27 @@ def finalize_result(
     )
 
 
+def _sequential_round(
+    trainer: ClientTrainer,
+    params: Params,
+    dataset: FederatedDataset,
+    ids: np.ndarray,
+    cfgs: Sequence[LocalConfig],
+    rngs: Sequence[np.random.Generator],
+) -> Tuple[List[Params], List[Dict[str, float]]]:
+    """The oracle's round: a Python loop over clients, each over its batches."""
+    updates, stats = [], []
+    for cid, cfg, rng_k in zip(ids, cfgs, rngs):
+        x_k, y_k = dataset.client_data(int(cid))
+        update, st = trainer.local_update(
+            params, x_k, y_k, cfg.epochs, rng_k,
+            prox_mu=cfg.prox_mu, mask=cfg.mask, freeze_frac=cfg.freeze_frac,
+        )
+        updates.append(update)
+        stats.append(st)
+    return updates, stats
+
+
 def run_federated(
     model,
     dataset: FederatedDataset,
@@ -126,6 +162,7 @@ def run_federated(
     learning_rate: float = 0.05,
     batch_size: int = 32,
     device: str = "jetson_nano",
+    eval_every: int = 1,
     seed: int = 0,
     init_params: Optional[Params] = None,
     verbose: bool = False,
@@ -133,12 +170,14 @@ def run_federated(
     driver: str = "loop",
     torch_device: DeviceLike = "cuda",
 ) -> FLResult:
-    if engine != "batched":
-        raise ValueError(f"the port runs engine='batched' only, got {engine!r}")
+    if engine not in ENGINES:
+        raise ValueError(f"the port's engines are {ENGINES}, got {engine!r}")
     if driver != "loop":
         raise ValueError(f"the port runs driver='loop' only, got {driver!r}")
     if max_rounds < 1:
         raise ValueError(f"max_rounds must be >= 1, got {max_rounds}")
+    if eval_every < 1:
+        raise ValueError(f"eval_every must be >= 1, got {eval_every}")
     dev = resolve_device(torch_device)
     if init_params is None:
         params = model.init(seed, dev)
@@ -148,13 +187,17 @@ def run_federated(
     strategy.bind_device(dev)
     # the strategy's update post-processing stage, built once per job
     transform = strategy.update_transform(params)
-    trainer = BatchedCohortTrainer(model, learning_rate, batch_size, dev)
+    if engine == "sequential":
+        trainer = ClientTrainer(model, learning_rate, batch_size, dev)
+    else:
+        trainer = BatchedCohortTrainer(model, learning_rate, batch_size, dev)
     ledger = ResourceLedger(device=device)
     eval_x = torch.from_numpy(dataset.eval_x).to(dev)
     eval_y = torch.from_numpy(dataset.eval_y).to(dev)
     sizes = dataset.client_sizes()
     records: List[RoundRecord] = []
     stopped = False
+    last_eval_acc = 0.0
 
     for t in range(max_rounds):
         t0 = time.perf_counter()
@@ -164,19 +207,23 @@ def run_federated(
         w_before, unflatten = flatten_params(params)
         cfgs = [strategy.client_config(t, int(cid), params) for cid in ids]
         rngs = [client_batch_rng(seed, t, int(cid)) for cid in ids]
-        plan = build_cohort_plan(
-            [dataset.client_data(int(cid)) for cid in ids],
-            [cfg.epochs for cfg in cfgs],
-            batch_size,
-            rngs,
-        )
-        update_matrix, stats = trainer.train_cohort(
-            params,
-            plan,
-            prox_mus=[cfg.prox_mu for cfg in cfgs],
-            masks=[cfg.mask for cfg in cfgs],
-            freeze_fracs=[cfg.freeze_frac for cfg in cfgs],
-        )
+        if engine == "sequential":
+            updates, stats = _sequential_round(trainer, params, dataset, ids, cfgs, rngs)
+            update_matrix = torch.stack([flatten_params(u)[0] for u in updates])
+        else:
+            plan = build_cohort_plan(
+                [dataset.client_data(int(cid)) for cid in ids],
+                [cfg.epochs for cfg in cfgs],
+                batch_size,
+                rngs,
+            )
+            update_matrix, stats = trainer.train_cohort(
+                params,
+                plan,
+                prox_mus=[cfg.prox_mu for cfg in cfgs],
+                masks=[cfg.mask for cfg in cfgs],
+                freeze_fracs=[cfg.freeze_frac for cfg in cfgs],
+            )
         if transform is not None:
             update_matrix = transform(t, np.asarray(ids), update_matrix)
 
@@ -198,8 +245,13 @@ def run_federated(
         stop = strategy.post_round(t, w_before, ids, update_matrix, stats)
         ledger.end_round()
 
-        with torch.no_grad():
-            acc = float(model.accuracy(params, eval_x, eval_y))
+        evaluated = (t % eval_every == 0) or stop or (t == max_rounds - 1)
+        if evaluated:
+            with torch.no_grad():
+                acc = float(model.accuracy(params, eval_x, eval_y))
+            last_eval_acc = acc
+        else:
+            acc = last_eval_acc
         rec = RoundRecord(
             t=t,
             accuracy=acc,
@@ -210,6 +262,7 @@ def run_federated(
             exploited=strategy.last_round_was_exploit,
             stopped=bool(stop),
             wall_s=time.perf_counter() - t0,
+            evaluated=evaluated,
         )
         records.append(rec)
         if verbose:

@@ -42,6 +42,23 @@ def test_cross_gram_kernel_matches_plain(cuda, k, q, d):
     assert ops.launch_counts()["cross_gram"] == 2
 
 
+@pytest.mark.parametrize("q", [1000, 40])
+def test_cross_gram_kernel_at_fleet_shapes(cuda, q):
+    """Ingest's two shapes at a 1,000-client fleet: Q = M (exact maps) and
+    Q = K_rows = 40 (sketched maps), at the CIFAR model's D."""
+    from repro_torch.kernels import gram, ops
+
+    k, d = 10, 595914
+    g = torch.Generator(device=cuda).manual_seed(q)
+    u = torch.randn(k, d, generator=g, device=cuda)
+    v = torch.randn(q, d, generator=g, device=cuda)
+    got = ops.cross_gram(u, v)
+    assert got.shape == (k, q)
+    assert torch.all((got - gram.cross_gram_plain(u, v)).abs() <= 1e-4 * _scale(u, v))
+    assert torch.equal(got, ops.cross_gram(u, v))
+    assert ops.launch_counts()["cross_gram"] == 2
+
+
 @pytest.mark.parametrize("p,d", [(10, 1), (10, 2049), (1, 595914), (17, 5000)])
 def test_gram_kernel_matches_plain(cuda, p, d):
     from repro_torch.kernels import gram, ops
@@ -455,3 +472,66 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+def test_sketched_server_gpu_matches_cpu(cuda):
+    """A sketched FLrce server (K = P + 2, evictions every few rounds) fed the
+    same updates on the card and on the CPU: the owner/slot tables, R and
+    the selections equal, Ω within 5e-5."""
+    import numpy as np
+
+    from repro_torch.core.server import FLrceServer
+    from repro_torch.kernels import ops
+
+    m, d, p, k = 30, 4099, 4, 6
+    kw = dict(num_clients=m, dim=d, clients_per_round=p, es_threshold=0.5, explore_decay=0.5,
+              seed=2, va_rows=k)
+    servers = {dev: FLrceServer(**kw, device=dev) for dev in (cuda, "cpu")}
+    rng = np.random.default_rng(0)
+    w = rng.normal(size=(d,)).astype(np.float32)
+    drift = rng.normal(size=(m, d)).astype(np.float32)
+    for _ in range(10):
+        ids = {dev: s.select() for dev, s in servers.items()}
+        np.testing.assert_array_equal(ids[cuda], ids["cpu"])
+        upd = (drift[ids["cpu"]] + 0.5 * rng.normal(size=(p, d))).astype(np.float32)
+        for dev, s in servers.items():
+            s.ingest(torch.from_numpy(w).to(dev), ids["cpu"], torch.from_numpy(upd).to(dev))
+            s.check_early_stop(torch.from_numpy(upd).to(dev))
+            s.advance_round()
+        w = (w + upd.mean(0)).astype(np.float32)
+    g, c = servers[cuda].state, servers["cpu"].state
+    assert ops.launch_counts()["cross_gram"] == 20
+    for name in ("va_owner", "va_slot", "last_round"):
+        assert torch.equal(getattr(g, name).cpu(), getattr(c, name)), name
+    assert int((c.last_round >= 0).sum()) > k
+    assert torch.all((g.omega.cpu() - c.omega).abs() <= 5e-5)
+    assert g.last_conflicts == c.last_conflicts
+
+
+def test_quickstart_configuration_gpu_matches_cpu(cuda):
+    """examples/quickstart.py's configuration from init(0) on both devices,
+    with and without early stopping."""
+    from repro_torch.data import make_federated_classification
+    from repro_torch.fl import FLrce, run_federated
+    from repro_torch.models import MLPClassifier
+
+    ds = make_federated_classification(num_clients=20, alpha=0.1, num_samples=4000, num_eval=800,
+                                       feature_dim=24, num_classes=10, noise=0.8, seed=0)
+    model = MLPClassifier(24, 10, (48, 32))
+    dim = sum(p.numel() for p in model.init(0, "cpu").values())
+    for use_es in (True, False):
+        runs = {dev: run_federated(model, ds, FLrce(20, 5, 2, dim=dim, es_threshold=2.5,
+                                                    explore_decay=0.9, use_early_stopping=use_es,
+                                                    seed=0),
+                                   max_rounds=25, learning_rate=0.08, batch_size=32, seed=0,
+                                   torch_device=dev)
+                for dev in ("cuda", "cpu")}
+        a, b = runs["cuda"], runs["cpu"]
+        assert a.strategy == b.strategy == ("flrce" if use_es else "flrce_no_es")
+        assert (a.rounds_run, a.stopped_early) == (b.rounds_run, b.stopped_early)
+        for ra, rb in zip(a.records, b.records):
+            assert (ra.selected, ra.exploited, ra.stopped) == (rb.selected, rb.exploited, rb.stopped)
+            assert ra.energy_kj == rb.energy_kj and ra.bytes_gb == rb.bytes_gb
+            assert abs(ra.accuracy - rb.accuracy) <= 2e-3
+        if not use_es:
+            assert a.rounds_run == 25

@@ -56,7 +56,9 @@ def _imports(path: Path):
 
 
 def test_no_jax_or_reference_imports_in_source():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    examples = sorted((REPO / "examples").glob("*_torch.py"))
+    assert REPO / "examples" / "quickstart_torch.py" in examples
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + examples
     assert len(files) > 10
     for path in files:
         for name in _imports(path):
@@ -126,3 +128,19 @@ def test_serving_entry_points_default_to_cuda():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "[serve] gemma3-4b-reduced on cpu: generated 4 tokens" in proc.stdout
+
+
+def test_quickstart_example_defaults_to_cuda():
+    """examples/quickstart_torch.py refuses without CUDA unless asked for the
+    CPU, and then runs the quickstart configuration to its summary."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the no-CUDA contract cannot be observed")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="2")
+    cmd = [sys.executable, str(REPO / "examples" / "quickstart_torch.py")]
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and "torch.cuda.is_available() is False" in proc.stderr
+    proc = subprocess.run(cmd + ["--device", "cpu"], env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "=== FLrce quickstart summary (cpu) ===" in proc.stdout
+    assert "  strategy: flrce\n" in proc.stdout and "  final_accuracy: " in proc.stdout

@@ -116,3 +116,59 @@ def test_init_shapes_and_cifar_dim():
     assert all(torch.all(v == 0) for k, v in small.items() if k.endswith(".b"))
     again = tcnn.MLPClassifier(4, 3, (5,)).init(0, "cpu")
     assert all(torch.equal(small[k], again[k]) for k in small)
+
+
+@pytest.mark.parametrize("kind", ["mlp", "cnn", "cifar", "emnist"])
+def test_init_equals_reference_init_bitwise(kind):
+    """init(seed) draws the reference's init(PRNGKey(seed)) bit for bit:
+    the keys split in the reference's order, the normals from random.normal."""
+    make = {
+        "mlp": MODELS["mlp"][0],
+        "cnn": MODELS["cnn"][0],
+        "cifar": lambda m: m.PaperCNN(side=32, channels=3, num_classes=10, num_fc=3),
+        "emnist": lambda m: m.PaperCNN(side=28, channels=1, num_classes=62, num_fc=1),
+    }[kind]
+    jm, tm = make(jcnn), make(tcnn)
+    for seed in (0, 1, 5) if kind != "cifar" else (0,):
+        want = params_from_jax(jax.device_get(jm.init(jax.random.PRNGKey(seed))), tm, "cpu")
+        got = tm.init(seed, "cpu")
+        assert list(got) == list(want)
+        for name in want:
+            assert got[name].dtype == torch.float32 and got[name].shape == want[name].shape
+            np.testing.assert_array_equal(got[name].numpy().view(np.int32),
+                                          want[name].numpy().view(np.int32), err_msg=name)
+
+
+@pytest.mark.parametrize("shape", [(3, 8, 8, 3, 4), (2, 16, 16, 32, 64), (4, 5, 7, 1, 2)])
+def test_patch_conv2d_matches_conv2d_and_reference(shape):
+    """The card's convolution (one GEMM of the patches) against conv2d and the
+    reference's conv_general_dilated: outputs, and weight gradients of a
+    vmapped loss over three clients."""
+    n, h, w, cin, cout = shape
+    rng = np.random.default_rng(n * h)
+    x = rng.normal(size=(n, h, w, cin)).astype(np.float32)
+    wt = (0.2 * rng.normal(size=(5, 5, cin, cout))).astype(np.float32)
+    b = rng.normal(size=(cout,)).astype(np.float32)
+    got = tcnn.patch_conv2d(torch.from_numpy(wt), torch.from_numpy(b), torch.from_numpy(x))
+    lib = torch.nn.functional.conv2d(torch.from_numpy(x).permute(0, 3, 1, 2),
+                                     torch.from_numpy(wt).permute(3, 2, 0, 1), torch.from_numpy(b),
+                                     padding=2).permute(0, 2, 3, 1)
+    want = jax.lax.conv_general_dilated(jnp.asarray(x), jnp.asarray(wt), (1, 1), "SAME",
+                                        dimension_numbers=("NHWC", "HWIO", "NHWC")) + b
+    np.testing.assert_allclose(got.numpy(), lib.numpy(), rtol=RTOL, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=1e-5)
+
+    ws = torch.from_numpy(np.stack([wt, 0.5 * wt, -wt]))
+    xs = torch.from_numpy(np.stack([x, x[::-1].copy(), 2 * x]))
+
+    def loss(conv):
+        return lambda w_, x_: torch.sum(torch.tanh(conv(w_, torch.from_numpy(b), x_)))
+
+    def lib_conv(w_, b_, x_):
+        return torch.nn.functional.conv2d(x_.permute(0, 3, 1, 2), w_.permute(3, 2, 0, 1), b_,
+                                          padding=2).permute(0, 2, 3, 1)
+
+    g_patch = torch.func.vmap(torch.func.grad(loss(tcnn.patch_conv2d)))(ws, xs)
+    g_lib = torch.func.vmap(torch.func.grad(loss(lib_conv)))(ws, xs)
+    np.testing.assert_allclose(g_patch.numpy(), g_lib.numpy(), rtol=1e-4,
+                               atol=1e-5 * float(g_lib.abs().max()))

@@ -89,3 +89,45 @@ def test_select_rejects_p_above_m():
         trandom.choice(trandom.PRNGKey(0), 3, 4)
     with pytest.raises(ValueError):
         trandom.PRNGKey(-1)
+
+
+def _bits(a) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(a, np.float32)).view(np.int32)
+
+
+@pytest.mark.parametrize("shape", [(), (1,), (7,), (3, 5), (2, 3, 4), (1025,)])
+def test_normal_bitwise(shape):
+    """jax.random.normal's float32 draws, bit for bit, over 50 seeds."""
+    for seed in SEEDS:
+        jkey = jax.random.split(jax.random.PRNGKey(seed))[1]
+        tkey = trandom.split(trandom.PRNGKey(seed))[1]
+        want, got = jax.random.normal(jkey, shape), trandom.normal(tkey, shape)
+        assert np.shape(got) == shape and np.asarray(got).dtype == np.float32
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_normal_million_draws_bitwise():
+    """A million draws reach both branches of erf_inv (w < 5 and w >= 5) and
+    both of log1p; every bit agrees, so the largest difference is 0 ulp."""
+    want = np.asarray(jax.random.normal(jax.random.PRNGKey(11), (1_000_000,)))
+    got = trandom.normal(trandom.PRNGKey(11), (1_000_000,))
+    assert np.abs(got).max() > 4.5          # tails: w = -log1p(-u²) >= 5
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_erf_inv_bitwise_on_a_grid():
+    x = np.concatenate([np.linspace(-1, 1, 200_001, dtype=np.float32),
+                        np.array([0.0, -0.0, 1e-30, 0.41421357, -0.4142135, 0.99999994],
+                                 np.float32)])
+    np.testing.assert_array_equal(_bits(trandom.erf_inv(x)), _bits(jax.lax.erf_inv(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-1.0, 1.0), (-3.3, 7.1), (0.25, 0.5),
+                                   (-1e-3, 2.0), (5.0, 6.0)])
+def test_uniform_minval_maxval_bitwise(lo, hi):
+    for seed in SEEDS:
+        jkey, tkey = jax.random.PRNGKey(seed), trandom.PRNGKey(seed)
+        for shape in ((), (9,), (4, 33)):
+            want = jax.random.uniform(jkey, shape, jnp.float32, lo, hi)
+            got = trandom.uniform(tkey, shape, lo, hi)
+            np.testing.assert_array_equal(_bits(got), _bits(want))
