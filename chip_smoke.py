@@ -53,6 +53,24 @@
    V/A bytes printed, with the device time by piece of one exact refresh;
    then ``cross_gram`` timed at Q = 1,000 and Q = 40 against ``torch.mm``
    and its bound.
+   2e. The compiled round driver (``driver="scan"``) on phase 2's
+   federation, params and seed: FLrce for 8 rounds in chunks of 4, resident
+   and pipelined, resident and serial, paged with all clients as candidates
+   (each equal to the loop driver's run: selections, exploit flags, stop,
+   ledger, accuracy within 2e-3, the final params' max |Δ| printed), paged
+   and resident with ``candidates_per_chunk=40`` (equal to each other
+   bitwise); the pipelined run again with the round body eager on the card
+   (no capture; bitwise the graph's); FedAvg and Fedcom for 4 rounds against
+   the loop; then ``benchmarks/common.py``'s quick ``BenchConfig`` (MLP
+   16→24→10, M = 30, P = 6, 50 rounds) on the loop driver, the graph and the
+   eager chunks.  Each scan run runs under a device-only ``torch.profiler``
+   and must show one capture per key, one host sync per chunk (dispatch runs
+   under ``set_sync_debug_mode("error")``), each kernel's launches in the
+   replays as its round launches it (``gram`` every round), and the
+   profiler's kernel counts between the replays' and those plus the warm-up
+   rounds'; it
+   prints per-round wall, device busy share, capture time, store, page and
+   schedule bytes, peak device memory and real against run local steps.
 3. Reference check: small federations (FLrce, Fedcom) and
    ``examples/quickstart.py``'s configuration (FLrce with and without early
    stopping, from ``init(0)``) run on the card and on the CPU (the kernels'
@@ -962,6 +980,253 @@ def compare_runs(label, a, b) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 2e: the compiled round driver (driver="scan")
+# ---------------------------------------------------------------------------
+SCAN_ROUNDS, SCAN_CHUNK = 8, 4
+# the kernel whose launches stand for a wrapper's call under the profiler
+# (cross_gram: its split pass; at P = 10, gram takes the one-launch kernel)
+PROFILED_KERNEL = {"cross_gram": "xgram_partial_kernel", "gram": GRAM_KERNEL,
+                   "weighted_aggregate": "aggregate_kernel", "topk_mask_rows": TOPK_KERNEL}
+
+
+def device_busy(prof) -> tuple:
+    """(busy µs as the union of the device's activities, their number,
+    launches by the kernel names of ``PROFILED_KERNEL``), from the
+    profiler's raw records
+    (a chunk replays tens of thousands of kernels: building the event tree
+    of ``prof.events()`` over them took minutes)."""
+    import torch
+
+    spans, counts = [], dict.fromkeys(PROFILED_KERNEL, 0)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        name = e.name()
+        for k, kernel in PROFILED_KERNEL.items():
+            if kernel in name:
+                counts[k] += 1
+    busy_ns, last_end = 0, float("-inf")
+    for start, end in sorted(spans):
+        busy_ns += max(0, end - max(start, last_end))
+        last_end = max(last_end, end)
+    return busy_ns / 1e3, len(spans), counts
+
+
+def scan_run(torch, label, ds, model, params, make, rounds, **kw):
+    """One driver="scan" job under a device-only torch.profiler, checked: one
+    capture per key, one host sync per chunk, each kernel launched in the
+    replays as the strategy's round launches it, the profiler's kernel
+    counts at least the replays' and at most those plus the warm-up rounds'."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fl import run_federated
+    from repro_torch.kernels import ops
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    strategy = make()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = run_federated(model, ds, strategy, max_rounds=rounds, learning_rate=MAIN_LR,
+                            batch_size=32, seed=0, init_params=params, driver="scan",
+                            torch_device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    busy_us, n_activities, prof_counts = device_busy(prof)
+    st = res.driver_stats
+    n = st["replays"]
+    flrce = strategy.name.startswith("flrce")
+    want = {"cross_gram": 2 * n if flrce else 0, "gram": n if flrce else 0,
+            "weighted_aggregate": n, "topk_mask_rows": n if strategy.name == "fedcom" else 0,
+            "decode_attention": 0}
+    if st["replay_launches"] != want:
+        fail(f"{label}: launches in the replays {st['replay_launches']}, want {want}")
+    if st["captures_chunk"] != st["programs"] or st["captures_chunk"] < 1:
+        fail(f"{label}: {st['captures_chunk']} captures for {st['programs']} keys")
+    if st["host_syncs"] != st["chunks"]:
+        fail(f"{label}: {st['host_syncs']} host syncs in {st['chunks']} chunks")
+    # the profiler sees each replayed kernel; one of the warm-up round's
+    # eager launches has been seen missing from its records
+    for k in PROFILED_KERNEL:
+        lo, hi = st["replay_launches"][k], st["replay_launches"][k] + st["warmup_launches"][k]
+        if not lo <= prof_counts[k] <= hi:
+            fail(f"{label}: the profiler counted {prof_counts[k]} {PROFILED_KERNEL[k]} launches; "
+                 f"the replays launched {lo}, and the warm-up rounds {hi - lo}")
+    walls = [r.wall_s for r in res.records]
+    steps = st["steps"]
+    print(f"  {label}: {res.rounds_run} rounds in {st['chunks']} chunks, {wall:.2f} s; "
+          f"captures {st['captures_chunk']}, replays {n}, host syncs per chunk "
+          f"{st['host_syncs'] / st['chunks']:.0f}; per-round wall (chunk wall / R) "
+          + ", ".join(f"{x:.3f}" for x in walls) + " s")
+    print(f"  {label}: device busy {busy_us / 1e6:.3f} s of {wall:.3f} s "
+          f"({100 * busy_us / 1e6 / wall:.1f}%, device-only profiler; {n_activities} device "
+          f"activities, {n_activities / (n + st['captures_chunk']):.0f} a round); capture "
+          f"(warm-up round "
+          f"and capture) {st['capture_s']:.3f} s, build and dispatch {st['host_build_s']:.3f} s, device wait {st['device_wait_s']:.3f} s, flush "
+          f"{st['host_flush_s']:.3f} s; launches in the replays {st['replay_launches']}, "
+          f"in the warm-up rounds {st['warmup_launches']}, by the profiler {prof_counts}")
+    print(f"  {label}: store {st['store_bytes_device'] / 2**30:.2f} GiB on the device, "
+          f"{st['store_bytes_host'] / 2**30:.2f} GiB on the host; H2D page "
+          f"{st['page_bytes_h2d'] / 2**20:.1f} MiB, schedules {st['schedule_bytes_host'] / 2**20:.1f} "
+          f"MiB, all staged {st['h2d_bytes'] / 2**20:.1f} MiB; peak device memory "
+          f"{peak / 2**30:.2f} GiB; local steps per round real/run "
+          + ", ".join(f"{a}/{b}" for a, b in steps))
+    return res, strategy
+
+
+def compare_scan(label, loop, scan, torch) -> None:
+    """A scan run against the loop run from the same params: discrete
+    results and ledger equal, accuracy within 2e-3."""
+    if (loop.rounds_run, loop.stopped_early) != (scan.rounds_run, scan.stopped_early):
+        fail(f"{label}: loop ran {loop.rounds_run} rounds (stop {loop.stopped_early}), scan "
+             f"{scan.rounds_run} (stop {scan.stopped_early})")
+    acc_gap = loss_gap = 0.0
+    for a, b in zip(loop.records, scan.records):
+        if (a.selected, a.exploited, a.stopped, a.evaluated, a.energy_kj, a.bytes_gb) != \
+                (b.selected, b.exploited, b.stopped, b.evaluated, b.energy_kj, b.bytes_gb):
+            fail(f"{label} round {a.t}: loop and scan differ: {a} vs {b}")
+        acc_gap = max(acc_gap, abs(a.accuracy - b.accuracy))
+        loss_gap = max(loss_gap, abs(a.mean_client_loss - b.mean_client_loss))
+        if not (math.isfinite(b.accuracy) and math.isfinite(b.mean_client_loss)):
+            fail(f"{label} round {a.t}: non-finite accuracy/loss")
+    if acc_gap > 2e-3:
+        fail(f"{label}: accuracy {acc_gap:.2e} from the loop's")
+    param_gap = max(float((loop.final_params[k] - scan.final_params[k]).abs().max())
+                    for k in loop.final_params)
+    print(f"  {label} == loop over {scan.rounds_run} rounds: selections "
+          f"{[r.selected for r in scan.records][:3]}..., exploited "
+          f"{[r.exploited for r in scan.records]}; max |Δ| accuracy {acc_gap:.2e}, loss "
+          f"{loss_gap:.2e}, final params {param_gap:.3e}")
+
+
+def scan_phase(torch, ds, model, params) -> None:
+    """Phase 2e: FLrce through driver="scan" in four configurations, then
+    FedAvg and Fedcom, each against the loop driver from the same params;
+    then the quick BenchConfig federation on both drivers."""
+    from repro_torch.fl import FLrce, baselines, run_federated
+
+    def flrce(**kw):
+        return lambda: FLrce(100, 10, local_epochs=2, dim=D_MAIN, es_threshold=5.0,
+                             explore_decay=0.5, seed=0, **kw)
+
+    loop_kw = dict(learning_rate=MAIN_LR, batch_size=32, seed=0, init_params=params,
+                   torch_device="cuda")
+    t0 = time.perf_counter()
+    loop = run_federated(model, ds, flrce()(), max_rounds=SCAN_ROUNDS, **loop_kw)
+    torch.cuda.synchronize()
+    print(f"  loop FLrce: {loop.rounds_run} rounds in {time.perf_counter() - t0:.2f} s; per-round "
+          "wall " + ", ".join(f"{r.wall_s:.3f}" for r in loop.records) + " s")
+    graph = None
+    for label, kw in (("resident pipelined", dict(client_store="resident", pipeline=True)),
+                      ("resident serial", dict(client_store="resident", pipeline=False)),
+                      ("paged", dict(client_store="paged"))):
+        res, _ = scan_run(torch, f"FLrce {label}", ds, model, params, flrce(), SCAN_ROUNDS,
+                          scan_chunk_rounds=SCAN_CHUNK, **kw)
+        compare_scan(f"FLrce {label}", loop, res, torch)
+        graph = graph or res
+    eager_chunks(torch, "FLrce resident pipelined", graph, model, ds, flrce()(), SCAN_ROUNDS,
+                 MAIN_LR, params, SCAN_CHUNK)
+    # a 40-client candidate set: selection within the proposal, so the loop
+    # cannot be its yardstick; the paged run must equal the resident one
+    # bitwise, and pick only proposed clients
+    runs = {}
+    for store in ("paged", "resident"):
+        runs[store], strat = scan_run(torch, f"FLrce candidates_per_chunk=40 {store}", ds, model,
+                                      params, flrce(candidates_per_chunk=40), SCAN_ROUNDS,
+                                      scan_chunk_rounds=SCAN_CHUNK, client_store=store)
+    a, b = runs["paged"], runs["resident"]
+    for ra, rb in zip(a.records, b.records):
+        if (ra.selected, ra.exploited, ra.stopped, ra.accuracy, ra.mean_client_loss) != \
+                (rb.selected, rb.exploited, rb.stopped, rb.accuracy, rb.mean_client_loss):
+            fail(f"candidates_per_chunk=40 round {ra.t}: paged {ra} != resident {rb}")
+        if len(set(ra.selected)) != 10:
+            fail(f"candidates_per_chunk=40 round {ra.t}: bad selection {ra.selected}")
+    if a.rounds_run != b.rounds_run or any(
+            not torch.equal(a.final_params[k], b.final_params[k]) for k in a.final_params):
+        fail("candidates_per_chunk=40: paged and resident final params differ")
+    print(f"  FLrce candidates_per_chunk=40: paged == resident bitwise over {a.rounds_run} rounds; "
+          f"selections {[r.selected for r in a.records][:3]}...")
+    for name, kw in (("FedAvg", {}), ("Fedcom", dict(keep_frac=0.1))):
+        make = lambda: getattr(baselines, name)(100, 10, 2, seed=0, **kw)  # noqa: E731
+        loop = run_federated(model, ds, make(), max_rounds=4, **loop_kw)
+        print(f"  loop {name}: per-round wall " + ", ".join(f"{r.wall_s:.3f}" for r in loop.records)
+              + " s")
+        res, _ = scan_run(torch, f"{name} resident", ds, model, params, make, 4,
+                          scan_chunk_rounds=SCAN_CHUNK)
+        compare_scan(name, loop, res, torch)
+    quick_bench(torch)
+
+
+def eager_chunks(torch, label, graph, model, ds, strategy, rounds, lr, params, chunk) -> None:
+    """The same scan job with the round body run eagerly on the card (no
+    capture): what the graph saves, and its results equal bitwise."""
+    from repro_torch.fl.scan_driver import run_scan_driver
+
+    t0 = time.perf_counter()
+    eager = run_scan_driver(model, ds, strategy, max_rounds=rounds, learning_rate=lr,
+                            batch_size=32, device="jetson_nano", eval_every=1, seed=0,
+                            init_params=params, verbose=False, chunk_rounds=chunk,
+                            torch_device=torch.device("cuda"), capture=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for a, b in zip(graph.records, eager.records):
+        if (a.selected, a.exploited, a.stopped, a.accuracy, a.mean_client_loss) != \
+                (b.selected, b.exploited, b.stopped, b.accuracy, b.mean_client_loss):
+            fail(f"{label} round {a.t}: graph {a} != eager {b}")
+    if graph.rounds_run != eager.rounds_run or any(
+            not torch.equal(graph.final_params[k], eager.final_params[k])
+            for k in graph.final_params):
+        fail(f"{label}: the graph's and the eager chunks' final params differ")
+    st = eager.driver_stats
+    print(f"  {label} eager chunks (no capture): {eager.rounds_run} rounds in {wall:.2f} s, "
+          f"bitwise the graph's; per-round wall " + ", ".join(f"{r.wall_s:.3f}" for r in
+                                                             eager.records)
+          + f" s; build and dispatch {st['host_build_s']:.3f} s, device wait "
+          f"{st['device_wait_s']:.3f} s, host syncs {st['host_syncs']}")
+
+
+def quick_bench(torch) -> None:
+    """``benchmarks/common.py`` ``BenchConfig`` at its quick scale (MLP
+    16→24→10, M = 30, P = 6, T = 50, FLrce ψ = 3.3): the dispatch-bound
+    regime, on both drivers."""
+    from repro_torch.data import make_federated_classification
+    from repro_torch.fl import FLrce, run_federated
+    from repro_torch.models import MLPClassifier
+
+    ds = make_federated_classification(num_clients=30, alpha=0.1, num_samples=12_000,
+                                       num_eval=1_500, feature_dim=16, num_classes=10, noise=1.6,
+                                       harmful_fraction=0.2, seed=0)
+    model = MLPClassifier(16, 10, (24,))
+    dim = sum(p.numel() for p in model.init(0, "cpu").values())
+    runs = {}
+    for label, kw in (("loop", {}), ("scan", dict(driver="scan", scan_chunk_rounds=8))):
+        t0 = time.perf_counter()
+        runs[label] = run_federated(model, ds, FLrce(30, 6, 2, dim=dim, es_threshold=3.3,
+                                                     explore_decay=0.95, seed=0),
+                                    max_rounds=50, learning_rate=0.1, batch_size=32, seed=0,
+                                    torch_device="cuda", **kw)
+        torch.cuda.synchronize()
+        res = runs[label]
+        steady = sorted(r.wall_s for r in res.records[8:]) or [float("nan")]
+        print(f"  quick BenchConfig {label}: {res.rounds_run} rounds in "
+              f"{time.perf_counter() - t0:.2f} s, steady per-round wall (median after round 8) "
+              f"{1e3 * steady[len(steady) // 2]:.2f} ms, stopped early {res.stopped_early}, final "
+              f"accuracy {res.final_accuracy:.4f}")
+    compare_scan("quick BenchConfig", runs["loop"], runs["scan"], torch)
+    eager_chunks(torch, "quick BenchConfig", runs["scan"], model, ds,
+                 FLrce(30, 6, 2, dim=dim, es_threshold=3.3, explore_decay=0.95, seed=0), 50, 0.1,
+                 None, 8)
+    st = runs["scan"].driver_stats
+    print(f"  quick BenchConfig scan: {st['chunks']} chunks, {st['captures_chunk']} captures, "
+          f"{st['host_syncs']} host syncs, local steps per round real/run "
+          + ", ".join(f"{a}/{b}" for a, b in st["steps"][:8]) + " ...")
+
+
+# ---------------------------------------------------------------------------
 # decode attention and the serving path (gemma3-4b)
 # ---------------------------------------------------------------------------
 # gemma3-4b at serving: 4 KV heads, groups of 2 query heads, head_dim 256
@@ -1780,6 +2045,10 @@ def main() -> int:
 
     print("phase 2c: the sequential engine at full width, M=100, P=10, 2 FLrce rounds")
     sequential_phase(torch, ds, model, params, main_res, main_u0)
+
+    print(f"phase 2e: the compiled round driver (driver='scan'), CIFAR-10 PaperCNN, M=100, P=10, "
+          f"{SCAN_ROUNDS} FLrce rounds in chunks of {SCAN_CHUNK}, FedAvg and Fedcom")
+    scan_phase(torch, ds, model, params)
     del ds, model, params, main_res, main_u0
     gc.collect()
     torch.cuda.empty_cache()

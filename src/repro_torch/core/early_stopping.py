@@ -8,6 +8,7 @@ they equal the reference's normalized-Gram signs except within rounding of 0.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -41,3 +42,15 @@ def should_stop(updates: torch.Tensor, psi: float, *, is_exploit_round: bool) ->
     if not is_exploit_round:
         return ESDecision(stop=False, conflicts=0.0, conflict_pairs=0)
     return decide_from_pairs(conflict_pairs(updates), updates.shape[0], psi)
+
+
+def stop_count(psi: float, p: int) -> int:
+    """The smallest ordered-pair count n with ``n / p >= psi`` in host float64:
+    the compiled driver stops on ``pairs >= stop_count`` on the device, the
+    decision :func:`decide_from_pairs` makes, with no float division there."""
+    n = max(0, int(math.ceil(psi * p)))
+    while n > 0 and (n - 1) / p >= psi:
+        n -= 1
+    while n / p < psi:
+        n += 1
+    return n

@@ -19,7 +19,9 @@ def update_heuristic_rows(h: torch.Tensor, omega: torch.Tensor, rows: torch.Tens
     """
     sub = omega[rows]                                # (K, M), a copy
     k = sub.shape[0]
-    sub[torch.arange(k, device=sub.device), rows] = 0.0
+    # a device tensor of values: a Python scalar would be copied from the
+    # host, a sync the compiled driver's chunks may not make
+    sub[torch.arange(k, device=sub.device), rows] = sub.new_zeros(k)
     out = h.clone()
     out[rows] = torch.sum(sub, dim=1)
     return out

@@ -21,7 +21,7 @@ or ``va_rows >= M`` the maps are exact.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -96,8 +96,9 @@ def sketch_assign_rows(
     has = existing >= 0
     # -1 would address the last row: the scatters below go through an
     # explicit out-of-range row that is cut off afterwards
+    # (values are device tensors: a Python scalar would be a host copy)
     pinned = torch.zeros((k + 1,), dtype=torch.bool, device=va_owner.device)
-    pinned[torch.where(has, existing, k).long()] = True
+    pinned[torch.where(has, existing, k).long()] = torch.ones_like(has)
     owner_last = torch.where(va_owner >= 0, last_round[va_owner.clamp_min(0).long()], -2)
     evict_key = torch.where(pinned[:k], torch.iinfo(torch.int32).max, owner_last)
     order = torch.argsort(evict_key, stable=True)             # empties, then LRU
@@ -109,7 +110,7 @@ def sketch_assign_rows(
     stale = need & (old_owner >= 0)
     m = va_slot.shape[0]
     new_slot = torch.cat([va_slot, va_slot.new_full((1,), -1)])
-    new_slot[torch.where(stale, old_owner, m).long()] = -1
+    new_slot[torch.where(stale, old_owner, m).long()] = torch.full_like(old_owner, -1)
     new_slot = new_slot[:m].clone()
     new_slot[ids] = slots
     new_owner = va_owner.clone()
@@ -209,3 +210,111 @@ class FLrceServer:
 
     def advance_round(self) -> None:
         self.state.t += 1
+
+    # -- the compiled driver's round pieces -----------------------------------
+    # The carry is the server's own tensors: a chunk writes their rows in
+    # place, every write masked by ``live`` (False once the job has stopped,
+    # so a round after the stop leaves the state bitwise as it was).  The
+    # key chain stays on the host: Alg. 2's draws depend on nothing else.
+
+    def scan_carry(self) -> Dict[str, torch.Tensor]:
+        """The state a chunk reads and writes, as device tensors (the
+        state's own V/A maps, Ω, H and R, plus Alg. 3's scalars)."""
+        st = self.state
+        dev = self.device
+        carry = {
+            "omega": st.omega,
+            "heuristic": st.heuristic.clone(),
+            "updates": st.updates,
+            "anchors": st.anchors,
+            "last_round": st.last_round,
+            "es_stopped": torch.tensor(st.stopped, device=dev),
+            "es_stop_round": torch.tensor(-1 if st.stop_round is None else st.stop_round,
+                                          dtype=torch.int32, device=dev),
+            "pairs": torch.tensor(round(st.last_conflicts * self.p), dtype=torch.float32,
+                                  device=dev),
+        }
+        if self.sketched:
+            carry["va_owner"] = st.va_owner.clone()
+            carry["va_slot"] = st.va_slot.clone()
+        # rounds from st.t on draw from this key chain: key before round t
+        self._scan_keys = {st.t: self._rng}
+        return carry
+
+    def explore_draws(self, ts: Sequence[int], n: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Alg. 2's host draws for rounds ``ts`` over ``n`` candidates:
+        ``(explore (R,) bool, explore slots (R, P) int64)``, each round's
+        key split off the chain exactly as :meth:`select` splits it."""
+        explore = np.zeros(len(ts), bool)
+        slots = np.zeros((len(ts), self.p), np.int64)
+        for i, t in enumerate(ts):
+            key, sub = random.split(self._scan_keys[int(t)])
+            self._scan_keys[int(t) + 1] = key
+            explore[i], slots[i] = selection.explore_draws(sub, int(t), n, self.p, self.decay)
+        return explore, slots
+
+    def scan_select(self, carry, explore, explore_slots, cand) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Alg. 2 on the device over candidates ``cand``: ``(slots, exploited)``;
+        ``cand[slots]`` are the client ids."""
+        return selection.select_clients_device_candidates(explore, explore_slots,
+                                                          carry["heuristic"], cand, self.p)
+
+    def scan_ingest(self, carry, w_t, ids, client_updates, t, live) -> None:
+        """:meth:`ingest` on the carry at device round ``t``, rows masked by ``live``."""
+        ids = ids.long()
+        w32 = w_t.float()
+        u32 = client_updates.float()
+        keep = lambda new, old: torch.where(live, new, old)  # noqa: E731
+        upd, anc, last, omega = (carry[k] for k in ("updates", "anchors", "last_round", "omega"))
+        t32 = t.to(torch.int32)
+        if self.sketched:
+            owner, slot, rows_k = sketch_assign_rows(carry["va_owner"], carry["va_slot"], last, ids)
+            carry["va_owner"].copy_(keep(owner, carry["va_owner"]))
+            carry["va_slot"].copy_(keep(slot, carry["va_slot"]))
+            rows_k = rows_k.long()
+            upd[rows_k] = keep(u32, upd[rows_k])
+            anc[rows_k] = keep(w32.expand_as(u32), anc[rows_k])
+            last[ids] = keep(t32, last[ids])
+            eff_last = torch.where(carry["va_slot"] >= 0, last, -1)
+            rows = relationship.sketched_relationship_block(
+                ids, u32, w32, upd, anc, carry["va_owner"], eff_last, t, omega[ids])
+        else:
+            upd[ids] = keep(u32, upd[ids])
+            anc[ids] = keep(w32.expand_as(u32), anc[ids])
+            last[ids] = keep(t32, last[ids])
+            rows = relationship.relationship_block(ids, u32, w32, upd, anc, last, t, omega[ids])
+        omega[ids] = keep(rows, omega[ids])
+        h = carry["heuristic"]
+        h.copy_(keep(heuristics.update_heuristic_rows(h, omega, ids), h))
+
+    def scan_check_early_stop(self, carry, selected_updates, t, exploited, live) -> torch.Tensor:
+        """Alg. 3 on the device: the exact pair count against the host's
+        integer threshold (:func:`early_stopping.stop_count`), so the
+        decision is :meth:`check_early_stop`'s.  The Gram runs every round;
+        explore rounds never stop.  Returns this round's decision."""
+        pairs = early_stopping.conflict_pairs(selected_updates)
+        stop = torch.logical_and(exploited,
+                                 pairs >= float(early_stopping.stop_count(self.psi, self.p)))
+        prev = carry["es_stopped"]
+        first = torch.logical_and(live, torch.logical_not(prev))
+        carry["es_stop_round"].copy_(torch.where(
+            first, torch.where(stop, t.to(torch.int32), -1), carry["es_stop_round"]))
+        carry["es_stopped"].copy_(torch.logical_or(prev, torch.logical_and(live, stop)))
+        carry["pairs"].copy_(torch.where(live, torch.where(exploited, pairs, 0.0), carry["pairs"]))
+        return stop
+
+    def load_scan_carry(self, carry, t_next: int, last_exploit: bool) -> None:
+        """Write a settled carry back into the state (no chunk in flight)."""
+        st = self.state
+        stop_round = int(carry["es_stop_round"])
+        st.t = int(t_next)
+        st.omega, st.updates, st.anchors = carry["omega"], carry["updates"], carry["anchors"]
+        st.last_round = carry["last_round"]
+        st.heuristic = carry["heuristic"].clone()
+        st.stopped = bool(carry["es_stopped"])
+        st.stop_round = None if stop_round < 0 else stop_round
+        st.last_conflicts = int(carry["pairs"]) / self.p
+        if self.sketched:
+            st.va_owner, st.va_slot = carry["va_owner"].clone(), carry["va_slot"].clone()
+        self._rng = self._scan_keys[int(t_next)]
+        self._last_exploit = bool(last_exploit)

@@ -21,6 +21,7 @@ _MASK_STREAM = 0x6D61736B  # 'mask': domain-separates from client_batch_rng
 
 class TorchDropout(TorchStrategy):
     name = "dropout"
+    supports_scan = True     # masks are built on the host per chunk
 
     def __init__(self, *args, keep_rate: float = 0.5, **kwargs):
         super().__init__(*args, **kwargs)

@@ -6,5 +6,7 @@ from repro_torch.fl.strategy import TorchStrategy
 class TorchFedAvg(TorchStrategy):
     """Uniform random selection, full local training (the base strategy)."""
 
+    supports_scan = True
+
 
 FedAvg = TorchFedAvg

@@ -19,6 +19,7 @@ from repro_torch.kernels import ops as kops
 
 class TorchFedcom(TorchStrategy):
     name = "fedcom"
+    supports_scan = True     # the top-k mask runs inside the chunk
 
     def __init__(self, *args, keep_frac: float = 0.1, **kwargs):
         super().__init__(*args, **kwargs)

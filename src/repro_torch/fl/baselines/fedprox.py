@@ -10,6 +10,7 @@ from repro_torch.fl.strategy import LocalConfig, TorchStrategy
 
 class TorchFedprox(TorchStrategy):
     name = "fedprox"
+    supports_scan = True
 
     def __init__(self, *args, mu: float = 0.01, epoch_fraction: float = 0.4, **kwargs):
         super().__init__(*args, **kwargs)

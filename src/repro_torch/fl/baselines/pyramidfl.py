@@ -15,6 +15,9 @@ from repro_torch.fl.strategy import LocalConfig, TorchStrategy
 
 class TorchPyramidFL(TorchStrategy):
     name = "pyramidfl"
+    # selection and epochs follow the losses of earlier rounds, so a chunk
+    # cannot be planned ahead: driver="scan" falls back to the loop
+    supports_scan = False
 
     def __init__(self, *args, explore_frac: float = 0.2, min_epoch_frac: float = 0.4, **kwargs):
         super().__init__(*args, **kwargs)

@@ -28,6 +28,7 @@ from repro_torch.fl.strategy import LocalConfig, TorchStrategy
 
 class TorchQuantizedFL(TorchStrategy):
     name = "quantized8"
+    supports_scan = True     # as the reference declares; see scan_program
 
     def __init__(self, *args, bits: int = 8, **kwargs):
         super().__init__(*args, **kwargs)
@@ -47,6 +48,13 @@ class TorchQuantizedFL(TorchStrategy):
                 if hi > lo:
                     out[row, lo:hi] = prng.uniform(prng.fold_in(key_c, i), (int(hi - lo),))
         return out
+
+    def scan_program(self):
+        raise NotImplementedError(
+            "QuantizedFL under driver='scan' needs its rounding uniforms drawn inside the "
+            "chunk, by a device Threefry bitwise the host's (ROADMAP A.6); they are a host "
+            "draw today. Run it with driver='loop'."
+        )
 
     def update_transform(self, template) -> Callable:
         levels = 2 ** (self.bits - 1) - 1

@@ -12,6 +12,7 @@ from repro_torch.fl.strategy import LocalConfig, TorchStrategy
 
 class TorchTimelyFL(TorchStrategy):
     name = "timelyfl"
+    supports_scan = True     # freeze flags are built on the host per chunk
 
     def __init__(self, *args, min_capability: float = 0.3, epoch_fraction: float = 0.6, **kwargs):
         super().__init__(*args, **kwargs)

@@ -126,14 +126,22 @@ def build_cohort_plan(
     )
 
 
+def mean_losses(losses: np.ndarray, step_valid: np.ndarray) -> List[float]:
+    """Each client's mean loss over its valid steps (NaN for none) from the
+    (P, S) loss trace."""
+    return [float(np.mean(lk[v > 0])) if (v > 0).any() else float("nan")
+            for lk, v in zip(losses, step_valid)]
+
+
 def cohort_stats(losses: np.ndarray, plan: CohortPlan) -> List[Dict[str, float]]:
     """Per-client stats from the (P, S) loss trace, over valid steps only."""
     out: List[Dict[str, float]] = []
+    means = mean_losses(losses, plan.step_valid)
     for k in range(plan.num_clients):
         v = plan.step_valid[k] > 0
         lk = losses[k][v]
         out.append({
-            "mean_loss": float(np.mean(lk)) if lk.size else float("nan"),
+            "mean_loss": means[k],
             "final_loss": float(lk[-1]) if lk.size else float("nan"),
             "samples_processed": float(plan.sample_w[k].sum()),
             "steps": float(v.sum()),
@@ -261,9 +269,10 @@ class BatchedCohortTrainer:
     µ > 0, on the params times the client's mask when some client has one.
     The gradient is multiplied by the mask, then by the leaf's freeze flag ×
     the step's validity before the SGD update, so a padded step leaves the
-    parameters bitwise unchanged.  Steps past the last valid step of every
-    client are such no-ops for the whole cohort and are not run.  Without
-    prox and masks (FedAvg) the step is the plain weighted loss.
+    parameters bitwise unchanged.  :meth:`train_cohort` does not run the
+    steps past the last valid step of every client (such no-ops for the
+    whole cohort); the compiled driver runs them all (:meth:`run_steps`).  Without prox
+    and masks (FedAvg) the step is the plain weighted loss.
     """
 
     def __init__(self, model, learning_rate: float, batch_size: int, device: DeviceLike = "cuda"):
@@ -295,6 +304,46 @@ class BatchedCohortTrainer:
             )
         return self._steps[key]
 
+    def run_steps(self, global_params: Params, n_steps: int, batch_at, sample_w, step_valid,
+                  mask: Optional[Params], flags: torch.Tensor, mu: torch.Tensor,
+                  use_prox: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The first ``n_steps`` cohort steps of a (P, S) schedule, with no
+        host read: ``batch_at(s)`` gives step s's ``(x (P, B, …), y (P, B))``,
+        ``sample_w`` is (P, S, B), ``mask`` leaf → (P, …) or None, ``flags``
+        the (n_leaves, P) freeze flags, ``mu`` (P,).  Returns the flat (P, D)
+        update and the (P, S) losses, on the device.  The compiled driver
+        runs all S steps, as the reference's ``lax.scan`` does (a step past a
+        client's last is a bitwise no-op); :meth:`train_cohort` stops after
+        the last valid step of any client."""
+        has_mask = mask is not None
+        step = self._step(use_prox, has_mask)
+        p, s_pad = step_valid.shape
+        # per-leaf (P, S) gates: the freeze flag times the step's validity,
+        # the reference's f · v for every step at once
+        gates = {k: flags[i][:, None] * step_valid for i, k in enumerate(global_params)}
+        params = {k: v.unsqueeze(0).expand(p, *v.shape).clone() for k, v in global_params.items()}
+        losses = torch.zeros((p, s_pad), dtype=torch.float32, device=step_valid.device)
+        with torch.no_grad(), warnings.catch_warnings():
+            if step_valid.is_cuda:
+                # vmap runs unfold's backward (the card's patch convolution)
+                # one client at a time, and says so once.  chip_smoke.py's
+                # profile prints that backward's device time per round, and
+                # --numerics times the vmapped step against cuDNN's.
+                warnings.filterwarnings("ignore",
+                                        message=".*batching rule for aten::unfold_backward")
+            for s in range(n_steps):
+                x, y = batch_at(s)
+                grads, loss = step(params, x, y.long(), sample_w[:, s], mask, global_params, mu)
+                for k in params:
+                    g = grads[k] * mask[k] if has_mask else grads[k]
+                    gate = gates[k][:, s].view(-1, *([1] * (params[k].dim() - 1)))
+                    params[k] = params[k] - self.lr * (g * gate)
+                losses[:, s] = loss
+            update = {k: params[k] - global_params[k] for k in params}
+            if has_mask:
+                update = {k: update[k] * mask[k] for k in update}
+            return flatten_rows(update), losses
+
     def train_cohort(
         self,
         global_params: Params,
@@ -306,42 +355,16 @@ class BatchedCohortTrainer:
     ) -> Tuple[torch.Tensor, List[Dict[str, float]]]:
         """Returns (flat (P, D) fp32 update matrix in leaf order, per-client stats)."""
         dev = self.device
-        p, s_pad = plan.step_valid.shape
         mask = stack_variant_trees(masks, global_params)
-        has_mask = mask is not None
         use_prox = bool(np.any(np.asarray(prox_mus) > 0.0))
-        step = self._step(use_prox, has_mask)
         mu = torch.from_numpy(np.asarray(prox_mus, np.float32)).to(dev)
         xs = torch.from_numpy(plan.x).to(dev)
-        ys = torch.from_numpy(plan.y).to(dev).long()
-        ws = torch.from_numpy(plan.sample_w).to(dev)
-        valid = torch.from_numpy(plan.step_valid).to(dev)
-        # per-leaf (P, S) gates: the freeze flag times the step's validity,
-        # the reference's f · v for every step at once
+        ys = torch.from_numpy(plan.y).to(dev)
         flags = torch.from_numpy(stack_freeze_flags(len(global_params), freeze_fracs)).to(dev)
-        gates = {k: flags[i][:, None] * valid for i, k in enumerate(global_params)}
-        params = {k: v.unsqueeze(0).expand(p, *v.shape).clone() for k, v in global_params.items()}
-        losses = torch.zeros((p, s_pad), dtype=torch.float32, device=dev)
         any_valid = np.flatnonzero(plan.step_valid.max(axis=0) > 0)
         n_steps = int(any_valid[-1]) + 1 if any_valid.size else 0
-        with torch.no_grad(), warnings.catch_warnings():
-            if dev.type == "cuda":
-                # vmap runs unfold's backward (the card's patch convolution)
-                # one client at a time, and says so once.  chip_smoke.py's
-                # profile prints that backward's device time per round, and
-                # --numerics times the vmapped step against cuDNN's.
-                warnings.filterwarnings("ignore",
-                                        message=".*batching rule for aten::unfold_backward")
-            for s in range(n_steps):
-                grads, loss = step(params, xs[:, s], ys[:, s], ws[:, s], mask, global_params, mu)
-                for k in params:
-                    g = grads[k] * mask[k] if has_mask else grads[k]
-                    gate = gates[k][:, s].view(-1, *([1] * (params[k].dim() - 1)))
-                    params[k] = params[k] - self.lr * (g * gate)
-                losses[:, s] = loss
-            update = {k: params[k] - global_params[k] for k in params}
-            if has_mask:
-                update = {k: update[k] * mask[k] for k in update}
-            flat = flatten_rows(update)
-        stats = cohort_stats(losses.cpu().numpy(), plan)
-        return flat, stats
+        flat, losses = self.run_steps(
+            global_params, n_steps, lambda s: (xs[:, s], ys[:, s]),
+            torch.from_numpy(plan.sample_w).to(dev), torch.from_numpy(plan.step_valid).to(dev),
+            mask, flags, mu, use_prox)
+        return flat, cohort_stats(losses.cpu().numpy(), plan)

@@ -6,6 +6,10 @@ run's device when ``run_federated`` binds it.  ``use_early_stopping=False``
 is the paper's "FLrce w/o ES" ablation arm (named ``flrce_no_es``): Alg. 3
 still runs on every exploit round, but its decision never ends the job.
 ``va_rows=K < M`` sketches the server's (M, D) V/A maps down to K rows.
+Under ``driver="scan"`` selection, ingest and Alg. 3 run inside the chunk on
+the server's own tensors (:meth:`TorchFLrce.scan_program`), and
+``candidates_per_chunk=P_cand < M`` narrows each chunk's device selection to
+a host-proposed candidate set (:meth:`TorchFLrce.propose_candidates`).
 """
 from __future__ import annotations
 
@@ -15,12 +19,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.server import FLrceServer, check_va_rows
-from repro_torch.fl.strategy import TorchStrategy
+from repro_torch.fl.strategy import ScanProgram, TorchStrategy
 
 
 # named apart from the reference's FLrce for its lint; see fl/strategy.py
 class TorchFLrce(TorchStrategy):
     name = "flrce"
+    supports_scan = True
 
     def __init__(
         self,
@@ -37,10 +42,14 @@ class TorchFLrce(TorchStrategy):
     ):
         super().__init__(num_clients, clients_per_round, local_epochs, seed)
         if candidates_per_chunk is not None:
-            raise ValueError(
-                "candidates_per_chunk narrows the compiled driver's device-side "
-                "selection; the port has no compiled driver yet (ROADMAP A.6)"
-            )
+            if candidates_per_chunk < clients_per_round:
+                raise ValueError(
+                    f"candidates_per_chunk={candidates_per_chunk} must be >= "
+                    f"clients_per_round={clients_per_round}"
+                )
+            candidates_per_chunk = min(int(candidates_per_chunk), num_clients)
+        self.candidates_per_chunk = candidates_per_chunk
+        self._heur_snapshot: Optional[np.ndarray] = None
         check_va_rows(va_rows, clients_per_round)
         self.dim = dim
         self.es_threshold = es_threshold
@@ -84,6 +93,48 @@ class TorchFLrce(TorchStrategy):
         stop = server.check_early_stop(updates)
         server.advance_round()
         return bool(stop) and self.use_es
+
+
+    def propose_candidates(self, ts) -> Optional[np.ndarray]:
+        """The chunk's candidate set under ``candidates_per_chunk=P_cand``:
+        the top P_cand/2 clients by the host's snapshot of H, then a seeded
+        random fill, sorted.  The snapshot is taken only when no chunk is in
+        flight (job start and every ``finalize``), so under pipelining it is
+        stale: that, and selecting within the proposal, is the
+        approximation.  ``None`` (all clients) without ``candidates_per_chunk``."""
+        p_cand = self.candidates_per_chunk
+        if p_cand is None or p_cand >= self.m:
+            return None
+        heur = self._heur_snapshot
+        if heur is None:
+            heur = np.zeros(self.m, np.float32)
+        n_top = p_cand // 2
+        top = np.lexsort((np.arange(self.m), -heur))[:n_top]
+        rng = np.random.default_rng(np.random.SeedSequence([self.seed, 0x5EED, int(ts[0])]))
+        rest = np.setdiff1d(np.arange(self.m), top, assume_unique=False)
+        fill = rng.choice(rest, size=p_cand - len(top), replace=False)
+        return np.sort(np.concatenate([top, fill])).astype(np.int64)
+
+    def scan_program(self) -> ScanProgram:
+        """Alg. 2 (device top-P over host draws), Alg. 1 ingest and Alg. 3 on
+        the server's own tensors; ``finalize`` writes the carry back."""
+        server = self._bound()
+        use_es = bool(self.use_es)
+        carry = server.scan_carry()
+        self._heur_snapshot = server.state.heuristic.cpu().numpy()
+
+        def post_round(carry, t, w_before, ids, update_matrix, exploited, live):
+            u32 = update_matrix.float()
+            server.scan_ingest(carry, w_before, ids, u32, t, live)
+            stop = server.scan_check_early_stop(carry, u32, t, exploited, live)
+            return stop if use_es else torch.zeros_like(stop)
+
+        def finalize(carry, t_next, last_exploit):
+            server.load_scan_carry(carry, t_next, last_exploit)
+            self._heur_snapshot = server.state.heuristic.cpu().numpy()
+
+        return ScanProgram(carry=carry, draws=server.explore_draws, select=server.scan_select,
+                           post_round=post_round, finalize=finalize)
 
 
 FLrce = TorchFLrce

@@ -11,17 +11,27 @@ aggregation through the ``weighted_aggregate`` kernel → strategy bookkeeping
 Two engines train the cohort: ``"batched"`` (the default, all clients in one
 vmapped step) and ``"sequential"`` (the per-client oracle,
 :class:`ClientTrainer`), whose updates are stacked into the same (P, D)
-matrix.  The port has one driver (``"loop"``): one Python iteration per
-round.  The round's flat (D,) model and (P, D) update matrix stay on the
+matrix.  The round's flat (D,) model and (P, D) update matrix stay on the
 device and are shared by aggregation, ingest and early stopping.
 ``device=`` names the ledger's energy profile; the torch device is
 ``torch_device=`` and defaults to ``"cuda"``.
+
+Two drivers run Algorithm 4's outer loop:
+
+* ``driver="loop"`` (default): one Python iteration per round.
+* ``driver="scan"``: chunks of ``scan_chunk_rounds`` rounds with one host
+  sync each, replayed from a captured CUDA graph on the card
+  (``fl/scan_driver.py``); ``pipeline`` (default on) overlaps the next
+  chunk's build with the current one, ``client_store="paged"`` keeps the
+  client universe in host memory and copies each chunk's candidate rows.
+  It runs the batched engine and strategies with ``supports_scan``; the
+  others (PyramidFL) fall back to the loop.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +54,7 @@ from repro_torch.models.cnn import param_count
 Params = Dict[str, torch.Tensor]
 
 ENGINES = ("batched", "sequential")
+DRIVERS = ("loop", "scan")
 
 
 @dataclasses.dataclass
@@ -70,6 +81,9 @@ class FLResult:
     stopped_early: bool
     ledger: ResourceLedger
     final_params: Params
+    # the scan driver's counters and timings (chunks, captures, syncs, the
+    # build/wait/flush split, bytes); empty for the loop driver
+    driver_stats: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def energy_kj(self) -> float:
@@ -117,6 +131,7 @@ def finalize_result(
     stopped: bool,
     ledger: ResourceLedger,
     final_params: Params,
+    driver_stats: Optional[Dict[str, Any]] = None,
 ) -> FLResult:
     """Assemble the FLResult; the final accuracy is the last evaluated
     round's (the terminal round always is)."""
@@ -129,6 +144,7 @@ def finalize_result(
         stopped_early=stopped,
         ledger=ledger,
         final_params=final_params,
+        driver_stats=driver_stats or {},
     )
 
 
@@ -167,18 +183,61 @@ def run_federated(
     init_params: Optional[Params] = None,
     verbose: bool = False,
     engine: str = "batched",
+    mesh=None,
     driver: str = "loop",
+    scan_chunk_rounds: int = 8,
+    pipeline: Optional[bool] = None,
+    client_store: str = "resident",
+    async_rounds=None,
     torch_device: DeviceLike = "cuda",
 ) -> FLResult:
+    if engine == "sharded" or mesh is not None:
+        raise ValueError(
+            "engine='sharded' and mesh= are the reference's multi-device path; the port "
+            "runs one device until ROADMAP A.8 (multi-GPU) lands")
     if engine not in ENGINES:
-        raise ValueError(f"the port's engines are {ENGINES}, got {engine!r}")
-    if driver != "loop":
-        raise ValueError(f"the port runs driver='loop' only, got {driver!r}")
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    if driver not in DRIVERS:
+        raise ValueError(f"driver must be one of {DRIVERS}, got {driver!r}")
     if max_rounds < 1:
         raise ValueError(f"max_rounds must be >= 1, got {max_rounds}")
     if eval_every < 1:
         raise ValueError(f"eval_every must be >= 1, got {eval_every}")
+    if pipeline is not None and driver != "scan":
+        raise ValueError(
+            "pipeline= selects the scan driver's chunk pipelining; it has no "
+            f"meaning for driver={driver!r} (pass driver='scan')")
+    if client_store not in ("resident", "paged"):
+        raise ValueError(f"client_store must be 'resident' or 'paged', got {client_store!r}")
+    if client_store == "paged" and driver != "scan":
+        raise ValueError(
+            "client_store='paged' is the scan driver's host-paged store; it "
+            f"has no meaning for driver={driver!r} (pass driver='scan')")
+    if async_rounds is not None:
+        raise NotImplementedError(
+            "async_rounds (staleness-aware rounds) is not ported yet: ROADMAP A.6, remaining")
     dev = resolve_device(torch_device)
+    if driver == "scan":
+        if engine == "sequential":
+            raise ValueError(
+                "driver='scan' runs the batched engine; engine='sequential' is the "
+                f"per-step reference loop (got engine={engine!r}, use 'batched')")
+        if strategy.supports_scan:
+            from repro_torch.fl.scan_driver import run_scan_driver
+
+            return run_scan_driver(
+                model, dataset, strategy, max_rounds=max_rounds, learning_rate=learning_rate,
+                batch_size=batch_size, device=device, eval_every=eval_every, seed=seed,
+                init_params=init_params, verbose=verbose, chunk_rounds=scan_chunk_rounds,
+                torch_device=dev, pipeline=True if pipeline is None else pipeline,
+                paged=client_store == "paged")
+        if client_store == "paged":
+            raise ValueError(
+                f"client_store='paged' requires the compiled scan path, but {strategy.name} "
+                f"falls back to the {engine} loop driver (supports_scan)")
+        if verbose:
+            print(f"[{strategy.name}] no scan support for engine={engine!r}; "
+                  f"falling back to the {engine} loop driver")
     if init_params is None:
         params = model.init(seed, dev)
     else:

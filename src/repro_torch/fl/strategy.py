@@ -2,14 +2,14 @@
 
 A strategy controls client selection, the per-client local-training config,
 an update transform on the device (compression), per-round bookkeeping with
-the stop decision, and the ledger's cost fractions.  The port runs the
-per-round loop driver only; the reference's compiled-driver and mesh hooks
-have no counterpart here.
+the stop decision, and the ledger's cost fractions.  For the compiled round
+driver (``driver="scan"``) a strategy also hands out its device pieces as a
+:class:`ScanProgram`.  The reference's mesh hooks have no counterpart here.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -24,6 +24,39 @@ class LocalConfig:
     compute_fraction: float = 1.0        # relative FLOPs vs full local training
     download_fraction: float = 1.0       # fraction of model bytes sent down
     upload_fraction: float = 1.0         # fraction of update bytes sent up
+
+
+@dataclasses.dataclass
+class ScanProgram:
+    """A strategy's round pieces for the compiled driver (``fl/scan_driver.py``).
+
+    Every device function runs inside a chunk, which on the card is a
+    captured CUDA graph: no host sync, no data-dependent Python branch, and
+    every write to the carry masked by ``live`` (a () bool, False once the
+    job has stopped), so a round after the stop leaves the carry bitwise.
+
+    * ``carry`` — the device state the chunk reads and writes in place
+      (``{}`` for a stateless strategy).
+    * ``draws(ts, n) -> (explore (R,) bool, explore_slots (R, P) int)`` —
+      host draws for device selection over ``n`` candidates, made per chunk
+      (they may depend only on the seed and the round).
+    * ``select(carry, explore, explore_slots, cand) -> (slots, exploited)``
+      — device selection of one round over the candidate ids ``cand``
+      (P_cand,); ``cand[slots]`` are the client ids.  ``None``: the driver
+      selects on the host with :meth:`TorchStrategy.select`.
+    * ``post_round(carry, t, w_before, ids, update_matrix, exploited, live)
+      -> stop`` — per-round bookkeeping and the stop decision (a () bool).
+      Only with ``select``: a host-selected chunk cannot react to a stop.
+    * ``finalize(carry, t_next, last_exploit)`` — writes a settled carry back
+      into the strategy (no chunk in flight), so the host sees the state the
+      loop driver would have left.
+    """
+
+    carry: Dict[str, torch.Tensor]
+    draws: Optional[Callable] = None
+    select: Optional[Callable] = None
+    post_round: Optional[Callable] = None
+    finalize: Optional[Callable] = None
 
 
 # The port's classes carry names of their own and are exported under the
@@ -74,6 +107,30 @@ class TorchStrategy:
         """True when :meth:`update_transform` is overridden (derived, so a new
         compression strategy cannot skip its own stage)."""
         return type(self).update_transform is not TorchStrategy.update_transform
+
+    # -- the compiled driver (driver="scan") ---------------------------------
+    supports_scan: bool = False
+    """True: ``driver="scan"`` runs this strategy's rounds in chunks.  Its
+    ``client_config`` is pure (with ``global_params=None`` it returns the
+    mask-free form), its ``update_transform`` runs inside a chunk, masks and
+    freeze flags come only with host selection, and selection is either
+    :meth:`select` (independent of round results) or a device ``select`` of
+    its :meth:`scan_program`.  False: the driver falls back to the loop."""
+
+    supports_paged_store: bool = True
+    """True: the driver may page this strategy's chunks from a host store
+    (``client_store="paged"``): device selection honours the candidate set."""
+
+    def propose_candidates(self, ts) -> Optional[np.ndarray]:
+        """Sorted unique global ids (P_cand >= P) that device selection may
+        pick from in the chunk of rounds ``ts``; ``None`` for all clients."""
+        return None
+
+    def scan_program(self) -> ScanProgram:
+        """Host selection, no bookkeeping, never stops (FedAvg's program)."""
+        if not self.supports_scan:
+            raise NotImplementedError(f"{self.name} does not support driver='scan'")
+        return ScanProgram(carry={})
 
     def post_round(
         self,

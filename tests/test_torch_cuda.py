@@ -318,6 +318,126 @@ def test_small_baseline_federation_gpu_matches_cpu(cuda, name):
         assert abs(ra.mean_client_loss - rb.mean_client_loss) <= 1e-4
 
 
+# --- the compiled round driver (driver="scan") -----------------------------------
+def _scan_fed():
+    from repro_torch.data import make_federated_classification
+    from repro_torch.models import MLPClassifier
+
+    ds = make_federated_classification(num_clients=8, num_samples=600, num_eval=200,
+                                       feature_dim=10, num_classes=4, seed=3)
+    return ds, MLPClassifier(10, 4, (16,))
+
+
+def _scan_strategy(name, dim):
+    from repro_torch.fl import FLrce, baselines
+
+    flrce = dict(dim=dim, es_threshold=10.0, explore_decay=0.5, seed=0)
+    return {
+        "flrce": lambda: FLrce(8, 3, 2, **flrce),
+        "flrce_sketched": lambda: FLrce(8, 3, 2, va_rows=5, **flrce),
+        "flrce_no_es": lambda: FLrce(8, 3, 2, use_early_stopping=False, **flrce),
+        "flrce_stop": lambda: FLrce(8, 3, 1, dim=dim, es_threshold=1e-6, explore_decay=0.01,
+                                    seed=0),
+    }.get(name) or (lambda: getattr(baselines, name)(8, 3, 2, seed=0))
+
+
+def test_scan_chunk_graph_matches_eager_chunk(cuda):
+    """Each chunk is one captured graph replayed R times with one host sync,
+    under sync-debug "error"; it equals the same body run eagerly on the card
+    bitwise, and the CPU's within fp32 tolerance."""
+    from repro_torch.fl.scan_driver import run_scan_driver
+
+    ds, model = _scan_fed()
+    init = model.init(0, "cpu")
+    dim = sum(p.numel() for p in init.values())
+    kw = dict(max_rounds=7, learning_rate=0.1, batch_size=16, device="jetson_nano",
+              eval_every=1, seed=0, init_params=init, verbose=False, chunk_rounds=3)
+    runs = {}
+    for label, dev, capture in (("graph", cuda, True), ("eager", cuda, False),
+                                ("cpu", torch.device("cpu"), False)):
+        runs[label] = run_scan_driver(model, ds, _scan_strategy("flrce", dim)(),
+                                      torch_device=dev, capture=capture, **kw)
+    g, e, c = runs["graph"], runs["eager"], runs["cpu"]
+    assert torch.cuda.get_sync_debug_mode() == 0
+    st = g.driver_stats
+    assert st["captures_chunk"] == st["programs"] == 1
+    assert st["host_syncs"] == st["chunks"] == 3 and st["replays"] == 7
+    assert e.driver_stats["captures_chunk"] == 0
+    assert any(r.exploited for r in g.records)
+    for ra, rb, rc in zip(g.records, e.records, c.records):
+        assert (ra.selected, ra.exploited, ra.stopped) == (rb.selected, rb.exploited, rb.stopped)
+        assert ra.accuracy == rb.accuracy and ra.mean_client_loss == rb.mean_client_loss
+        assert (ra.selected, ra.exploited, ra.stopped) == (rc.selected, rc.exploited, rc.stopped)
+        assert ra.energy_kj == rc.energy_kj and abs(ra.accuracy - rc.accuracy) <= 2e-3
+    for k in g.final_params:
+        assert torch.equal(g.final_params[k], e.final_params[k])
+    want = {"cross_gram": 14, "gram": 7, "weighted_aggregate": 7, "topk_mask_rows": 0,
+            "decode_attention": 0}
+    assert st["replay_launches"] == want
+
+
+@pytest.mark.parametrize("capture", [True, False])
+def test_scan_hidden_sync_raises(cuda, capture):
+    """A host read inside the round body fails the chunk: in the warm-up
+    round before the capture, or in the eager chunk."""
+    from repro_torch.fl import run_federated
+    from repro_torch.fl.baselines import FedAvg
+    from repro_torch.fl.scan_driver import run_scan_driver
+
+    class Syncing(FedAvg):
+        def update_transform(self, template):
+            return lambda t, ids, u: u * float(u.abs().max() > 0)
+
+    ds, model = _scan_fed()
+    with pytest.raises(RuntimeError):
+        run_scan_driver(model, ds, Syncing(8, 3, 1, seed=0), max_rounds=2, learning_rate=0.1,
+                        batch_size=16, device="jetson_nano", eval_every=1, seed=0,
+                        init_params=None, verbose=False, chunk_rounds=2, torch_device=cuda,
+                        capture=capture)
+    assert torch.cuda.get_sync_debug_mode() == 0
+    run_federated(model, ds, Syncing(8, 3, 1, seed=0), max_rounds=1, torch_device=cuda)
+
+
+@pytest.mark.parametrize("name", ["flrce", "flrce_sketched", "flrce_no_es", "flrce_stop",
+                                  "FedAvg", "Fedprox", "Fedcom", "Dropout", "TimelyFL"])
+@pytest.mark.parametrize("pipeline,store", [(True, "resident"), (False, "paged")])
+def test_scan_matches_loop_on_the_card(cuda, name, pipeline, store):
+    """Every strategy the compiled driver runs, on the card, against the
+    loop driver on the card: discrete results and ledger equal, floats within
+    fp32 tolerance; each kernel launched inside the replays."""
+    from repro_torch.fl import run_federated
+
+    ds, model = _scan_fed()
+    init = model.init(0, "cpu")
+    dim = sum(p.numel() for p in init.values())
+    make = _scan_strategy(name, dim)
+    rounds = 40 if name == "flrce_stop" else 5
+    lr = 0.8 if name == "flrce_stop" else 0.1
+    kw = dict(max_rounds=rounds, learning_rate=lr, batch_size=16, init_params=init,
+              torch_device=cuda)
+    loop = run_federated(model, ds, make(), **kw)
+    scan = run_federated(model, ds, make(), driver="scan", scan_chunk_rounds=3,
+                         pipeline=pipeline, client_store=store, **kw)
+    assert loop.rounds_run == scan.rounds_run and loop.stopped_early == scan.stopped_early
+    for ra, rb in zip(loop.records, scan.records):
+        assert (ra.selected, ra.exploited, ra.stopped, ra.evaluated) == \
+            (rb.selected, rb.exploited, rb.stopped, rb.evaluated)
+        assert ra.energy_kj == rb.energy_kj and ra.bytes_gb == rb.bytes_gb
+        assert abs(ra.accuracy - rb.accuracy) <= 2e-3
+        assert abs(ra.mean_client_loss - rb.mean_client_loss) <= 1e-4
+    st = scan.driver_stats
+    assert st["captures_chunk"] == st["programs"] >= 1
+    assert st["host_syncs"] == st["chunks"]
+    n = st["replays"]
+    flrce = name.startswith("flrce")
+    want = {"cross_gram": 2 * n if flrce else 0, "gram": n if flrce else 0,
+            "weighted_aggregate": n, "topk_mask_rows": n if name == "Fedcom" else 0,
+            "decode_attention": 0}
+    assert st["replay_launches"] == want
+    if store == "paged":
+        assert st["page_bytes_h2d"] > 0
+
+
 # --- decode_attention and the serving path ------------------------------------
 def _decode_case(dev, seed, b, s, kv, g, hd, dtype, lengths):
     gen = torch.Generator(device=dev).manual_seed(seed)
