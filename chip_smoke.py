@@ -89,6 +89,32 @@
 5. A small gemma3-family model (8 layers, window 8, fp32) teacher-forced over
    20 positions on the card and on the CPU: logits within 1e-4 of
    max|logit|, greedy tokens equal.
+6. Federated LoRA fine-tuning of gemma3-4b at full width (3.88 B bf16
+   parameters, 34 layers, random weights from seed 0) through
+   ``run_federated``: ``LMClassifier(cfg, seq_len=128)`` wrapped in
+   ``LoRAClassifier(rank=8)`` (D = 14,901,248 over 70 target leaves), 16
+   clients of 32 sequences from ``make_federated_lm`` (vocab 262,144) and 64
+   eval sequences; FLrce (P = 4, 4 rounds, lr 0.01, batch 8, batched
+   engine, loop driver), then FedAvg and Fedcom (keep 0.1) for 2 rounds
+   each, every run with the launch counts reset just before and read just
+   after.  Checks: (a) at B = 0 the merged model's logits equal the base
+   model's bitwise; (b) ``cross_gram``, ``gram``, ``weighted_aggregate`` and
+   ``topk_mask_rows`` on the phase's own operands against their plain
+   versions (phase 1's tolerances, the mask bitwise), timed beside the
+   plain version, the PyTorch call and the bound; (c) finite losses, P
+   distinct ids a round, an exploit round, the ledger's bytes equal to the
+   host formula at D; (d) the first local step of round 0's cohort on the
+   batched engine within the reference's engine tolerance of the
+   sequential engine's.  Prints the adapters' and the data's host time,
+   per-round wall, peak memory, and from 2 profiled rounds the device time
+   by group (LoRA merges, chunked attention, cross-entropy, projection
+   GEMMs, FL kernels, H2D) and the device's busy share.
+   6b. A reduced gemma3 config on the card against the CPU: LoRA FLrce over
+   a bf16 and an fp32 base (3 rounds each), the full-model fp32
+   ``LMClassifier`` under FedAvg (2 rounds), and LoRA FedAvg through
+   ``driver="scan"`` (a captured round) against the loop: selections,
+   exploit flags, stops and ledger equal, accuracy within 2e-3, losses
+   within 1e-4.
 
 Measurement modes, which print no result line:
 ``--decode-variants`` builds and times variants of the ``decode_attention``
@@ -106,7 +132,9 @@ expanded dot form and from r = w − a on the main path's rounds), how
 far the batched and sequential engines part by local step count, and what
 phase 2c's norm check reads for a sequential engine with a planted fault.
 
-The second-to-last line is the kernels' JSON record; the last line is
+The second-to-last line is the kernels' JSON record (the five kernels at
+their phase 1 shapes, then the four FL kernels at phase 6's as
+``<name>@gemma3-4b-lora``, with phase 6's launches); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the exit code is
 non-zero and no result line is printed.  Exits 1 when CUDA is absent or the
 port's sources are not beside this file.  Imports nothing of JAX.
@@ -502,13 +530,15 @@ def main_path(torch) -> dict:
 
 
 def capture_round0(strategy) -> dict:
-    """Keep a copy of round 0's (P, D) update matrix as post_round gets it."""
+    """Keep a copy of round 0's (P, D) update matrix and (D,) model as
+    post_round gets them."""
     captured: dict = {}
     inner = strategy.post_round
 
     def post_round(t, w_before, ids, update_matrix, stats):
         if t == 0:
             captured["u"] = update_matrix.detach().clone()
+            captured["w"] = w_before.detach().clone()
         return inner(t, w_before, ids, update_matrix, stats)
 
     strategy.post_round = post_round
@@ -601,7 +631,7 @@ def update_gap(torch, got, want) -> tuple:
     return max(0.0, float(excess.max())), float(err.max()), int((excess > 0).sum())
 
 
-def first_step_updates(torch, ds, model, params, ids) -> tuple:
+def first_step_updates(torch, ds, model, params, ids, lr=MAIN_LR, batch=32, epochs=2) -> tuple:
     """Each client's update after its first batch of round 0, from the
     sequential trainer and from the batched trainer (same batches)."""
     import dataclasses
@@ -612,14 +642,14 @@ def first_step_updates(torch, ds, model, params, ids) -> tuple:
     from repro_torch.fl.client import (BatchedCohortTrainer, ClientTrainer, build_cohort_plan,
                                        client_batch_rng)
 
-    plan = build_cohort_plan([ds.client_data(c) for c in ids], [2] * len(ids), 32,
+    plan = build_cohort_plan([ds.client_data(c) for c in ids], [epochs] * len(ids), batch,
                              [client_batch_rng(0, 0, c) for c in ids])
     one = dataclasses.replace(plan, x=plan.x[:, :1], y=plan.y[:, :1],
                               sample_w=plan.sample_w[:, :1], step_valid=plan.step_valid[:, :1])
-    batched, _ = BatchedCohortTrainer(model, MAIN_LR, 32, "cuda").train_cohort(
+    batched, _ = BatchedCohortTrainer(model, lr, batch, "cuda").train_cohort(
         params, one, prox_mus=[0.0] * len(ids), masks=[None] * len(ids),
         freeze_fracs=[0.0] * len(ids))
-    trainer, rows = ClientTrainer(model, MAIN_LR, 32, "cuda"), []
+    trainer, rows = ClientTrainer(model, lr, batch, "cuda"), []
     for k in range(len(ids)):
         n = int(plan.sample_w[k, 0].sum())
         upd, _ = trainer.local_update(params, plan.x[k, 0, :n], plan.y[k, 0, :n], 1,
@@ -1953,6 +1983,432 @@ def decode_variants(torch, timer, bandwidth) -> None:
             counters.zero_()
 
 
+# ---------------------------------------------------------------------------
+# phase 6: federated LoRA fine-tuning of gemma3-4b at full width
+# ---------------------------------------------------------------------------
+LORA_ARCH, LORA_RANK, LORA_SEQ = "gemma3-4b", 8, 128
+LORA_M, LORA_N, LORA_P, LORA_EVAL, LORA_BATCH = 16, 32, 4, 64, 8
+LORA_D = 14_901_248          # rank-8 adapters on gemma3-4b's 70 target leaves
+LORA_LR = 0.01
+LORA_KEEP = 0.1              # Fedcom's keep fraction
+# device time by group in the profiled rounds: a kernel counts for the group
+# of the annotated call that launched it (forward, or its backward through
+# the autograd sequence number, or its recomputation under remat); GEMMs
+# outside every annotation are the model's projections and unembedding
+LORA_GROUPS = ("lora_merge", "chunked_attention", "cross_entropy")
+
+
+def lora_phase(torch, timer, bandwidth) -> tuple:
+    """Phase 6: FLrce, FedAvg and Fedcom over rank-8 LoRA adapters on
+    full-width bf16 gemma3-4b, with checks (a) to (d), the kernels at the
+    phase's own operands, and a profile of two rounds."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_federated_lm
+    from repro_torch.fl import FLrce, run_federated
+    from repro_torch.fl.baselines import FedAvg, Fedcom
+    from repro_torch.kernels import ops
+    from repro_torch.models import LMClassifier, LoRAClassifier
+    from repro_torch.models.lm import lm_from_flat
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(LORA_ARCH)
+    base = LMClassifier(cfg, seq_len=LORA_SEQ)
+    t0 = time.perf_counter()
+    base_params = base.init(0, "cuda")
+    torch.cuda.synchronize()
+    n_base = sum(p.numel() for p in base_params.values())
+    print(f"  base {cfg.name}: {n_base:,} parameters ({cfg.dtype}), {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {len(base_params)} leaves, drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    lora = LoRAClassifier(base, base_params, rank=LORA_RANK)
+    dim = lora.adapter_dim()
+    n_targets = len({base for _, base, factor in lora.adapter_leaves() if factor is not None})
+    if dim != LORA_D:
+        fail(f"LoRA adapter dim {dim} != {LORA_D}")
+    t0 = time.perf_counter()
+    adapters = lora.init(0, "cuda")
+    print(f"  LoRA rank {LORA_RANK}: D = {dim:,} over {n_targets} target leaves; adapters drawn "
+          f"on the host (the reference's generator) in {time.perf_counter() - t0:.1f} s; "
+          f"V and A {LORA_M * dim * 4 / 1e9:.2f} GB each")
+    t0 = time.perf_counter()
+    ds = make_federated_lm(num_clients=LORA_M, samples_per_client=LORA_N, seq_len=LORA_SEQ,
+                           vocab_size=cfg.vocab_size, num_eval=LORA_EVAL, seed=0)
+    print(f"  data: {LORA_M} x {LORA_N} + {LORA_EVAL} sequences of {LORA_SEQ} tokens at vocab "
+          f"{cfg.vocab_size:,} made on the host in {time.perf_counter() - t0:.2f} s")
+
+    # (a) B = 0: the merged model is the base model, logits bitwise
+    tokens = torch.from_numpy(ds.eval_x[:4]).cuda().long()
+    with torch.no_grad():
+        want = base.lm.forward(lm_from_flat(cfg, base_params), {"tokens": tokens})
+        got = base.lm.forward(lm_from_flat(cfg, lora.merge(adapters)), {"tokens": tokens})
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got.view(torch.int16),
+                                                      want.view(torch.int16)):
+            fail("(a) the merged model's logits at B = 0 differ from the base model's")
+    print(f"  (a) merged logits at B = 0 equal the base model's bitwise on 4 eval sequences "
+          f"{tuple(got.shape)} {got.dtype}")
+    del want, got
+
+    # the main path: FLrce, the counts reset just before and read just after
+    strategy = FLrce(LORA_M, LORA_P, 1, dim=dim, explore_decay=0.5, seed=0)
+    u0 = capture_round0(strategy)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_federated(lora, ds, strategy, max_rounds=4, learning_rate=LORA_LR,
+                        batch_size=LORA_BATCH, seed=0, init_params=adapters, verbose=True,
+                        torch_device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("LoRA FLrce", launches, res)
+    lora_checks("LoRA FLrce", res, strategy, dim, need_exploit=True)
+    round_wall = median(r.wall_s for r in res.records[1:])
+    print(f"  FLrce: {res.rounds_run} rounds in {wall:.2f} s; per-round wall "
+          + ", ".join(f"{r.wall_s:.3f}" for r in res.records) + f" s (median after the first "
+          f"{round_wall:.3f} s); selections {[r.selected for r in res.records]}; exploited "
+          f"{[r.exploited for r in res.records]}; losses "
+          f"{[round(r.mean_client_loss, 5) for r in res.records]}; launches {launches}; peak "
+          f"device memory {peak / 2**30:.2f} GiB")
+
+    # (b) the four kernels on the phase's own operands
+    state = strategy.server.state
+    u, w = u0["u"], u0["w"]
+    sizes = ds.client_sizes()[res.records[0].selected]
+    weights = torch.from_numpy((sizes / sizes.sum()).astype(np.float32)).cuda()
+    rows = lora_kernel_rows(torch, timer, bandwidth, u, state.updates, w, weights)
+
+    # (d) the first local step of round 0's cohort, batched against sequential
+    seq, bat = first_step_updates(torch, ds, lora, adapters, res.records[0].selected,
+                                  lr=LORA_LR, batch=LORA_BATCH, epochs=1)
+    excess, gap, n_beyond = update_gap(torch, seq, bat)
+    ratios = torch.linalg.vector_norm(seq - bat, dim=1) / torch.linalg.vector_norm(bat, dim=1)
+    print(f"  (d) first local step, batched against sequential: max |Δ| {gap:.3e} (max|U| "
+          f"{float(bat.abs().max()):.3e}), {n_beyond} of {seq.numel()} elements beyond atol "
+          f"max(1e-5, 1e-4·max|U|) + rtol 1e-3; ‖ΔU_k‖/‖U_k‖ ≤ {float(ratios.max()):.3e}")
+    if excess > 0 or not bool(torch.isfinite(seq).all()):
+        fail(f"(d) first local step: beyond the reference's engine tolerance by {excess:.3e}")
+    del seq, bat, u0, u, w
+
+    # FedAvg and Fedcom, each with the counts reset just before
+    other = {}
+    for name, make in (("FedAvg", lambda: FedAvg(LORA_M, LORA_P, 1, seed=0)),
+                       ("Fedcom", lambda: Fedcom(LORA_M, LORA_P, 1, seed=0, keep_frac=LORA_KEEP))):
+        strat = make()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = run_federated(lora, ds, strat, max_rounds=2, learning_rate=LORA_LR,
+                          batch_size=LORA_BATCH, seed=0, init_params=adapters,
+                          torch_device="cuda")
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        want = {"cross_gram": 0, "gram": 0, "weighted_aggregate": r.rounds_run,
+                "topk_mask_rows": r.rounds_run if name == "Fedcom" else 0, "decode_attention": 0}
+        if got != want:
+            fail(f"LoRA {name}: launches {got}, want {want}")
+        lora_checks(f"LoRA {name}", r, strat, dim, need_exploit=False)
+        other[name] = got
+        print(f"  {name}: {r.rounds_run} rounds in {time.perf_counter() - t0:.2f} s; per-round "
+              f"wall " + ", ".join(f"{x.wall_s:.3f}" for x in r.records) + f" s; losses "
+              f"{[round(x.mean_client_loss, 5) for x in r.records]}; accuracy "
+              f"{[x.accuracy for x in r.records]}; launches {got}")
+    launches["topk_mask_rows"] = other["Fedcom"]["topk_mask_rows"]
+
+    lora_profile(torch, lora, ds, adapters, dim, res.records)
+    print(f"  phase 6 wall {time.perf_counter() - t_phase:.1f} s")
+    del lora, base_params, adapters, strategy, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def lora_checks(label, res, strategy, dim, *, need_exploit: bool) -> None:
+    """(c): finite losses and accuracy, P distinct ids a round, an exploit
+    round where asked, and the ledger's bytes equal to the host formula at D."""
+    up = down = 0.0
+    for r in res.records:
+        if not (math.isfinite(r.accuracy) and math.isfinite(r.mean_client_loss)):
+            fail(f"{label} round {r.t}: non-finite accuracy/loss")
+        if len(r.selected) != strategy.p or len(set(r.selected)) != strategy.p:
+            fail(f"{label} round {r.t}: bad selection {r.selected}")
+        for cid in r.selected:
+            cfg = strategy.client_config(r.t, cid, None)
+            down += dim * 4 * cfg.download_fraction
+            up += dim * 4 * cfg.upload_fraction
+    if (res.ledger.bytes_up, res.ledger.bytes_down) != (up, down):
+        fail(f"{label}: ledger bytes up/down {res.ledger.bytes_up}/{res.ledger.bytes_down}, host "
+             f"formula at D = {dim}: {up}/{down}")
+    if need_exploit and not any(r.exploited for r in res.records):
+        fail(f"{label}: no exploit round in {res.rounds_run} rounds: Alg. 3 never ran")
+    for name, p in res.final_params.items():
+        if not bool(p.isfinite().all()):
+            fail(f"{label}: final adapter {name} not finite")
+
+
+def lora_kernel_rows(torch, timer, bandwidth, u, v, w, weights) -> dict:
+    """Each of the four FL kernels on phase 6's operands (round 0's update
+    matrix, the server's V after the run, round 0's model) against its plain
+    version, timed beside the plain version, the PyTorch call and the bound."""
+    from repro_torch.kernels import aggregate as kagg
+    from repro_torch.kernels import gram as kgram
+    from repro_torch.kernels import topk_mask as ktopk
+
+    k, d = u.shape
+    q = v.shape[0]
+
+    def bound(nbytes, flops):
+        t_bytes, t_ops = nbytes / bandwidth, flops / FP32_PEAK_FLOPS
+        return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+    src = "src/repro_torch/kernels/csrc/"
+    rows = []
+    err, rel = check_gram("cross_gram (phase 6)", kgram.cross_gram_cuda(u, v),
+                          kgram.cross_gram_plain(u, v), u, v, torch)
+    b_ms, b_by = bound(4 * (k * d + q * d + k * q), 2 * k * q * d)
+    rows.append(dict(name="cross_gram", route="cuda", source=src + "gram.cu",
+                     replaces="src/repro/kernels/gram.py:99", max_abs_err=err, rel_err=rel,
+                     ms=timer(lambda: kgram.cross_gram_cuda(u, v)),
+                     plain_ms=timer(lambda: kgram.cross_gram_plain(u, v)),
+                     bound_ms=b_ms, bound_by=b_by, library_ms=timer(lambda: torch.mm(u, v.t())),
+                     shape=f"K={k} Q={q} D={d}"))
+    err, rel = check_gram("gram (phase 6)", kgram.gram_cuda(u), kgram.gram_plain(u), u, u, torch)
+    b_ms, b_by = bound(4 * (k * d + k * k), 2 * k * k * d)
+    rows.append(dict(name="gram", route="cuda", source=src + "gram.cu",
+                     replaces="src/repro/kernels/gram.py:56", max_abs_err=err, rel_err=rel,
+                     ms=timer(lambda: kgram.gram_cuda(u)),
+                     plain_ms=timer(lambda: kgram.gram_plain(u)),
+                     bound_ms=b_ms, bound_by=b_by, library_ms=timer(lambda: torch.mm(u, u.t())),
+                     shape=f"P={k} D={d}"))
+    err = check_aggregate("weighted_aggregate (phase 6)", kagg.weighted_aggregate_cuda(w, u, weights),
+                          kagg.weighted_aggregate_plain(w, u, weights), torch)
+    b_ms, b_by = bound(4 * (d + k * d + k + d), 2 * k * d)
+    rows.append(dict(name="weighted_aggregate", route="cuda", source=src + "aggregate.cu",
+                     replaces="src/repro/kernels/aggregate.py:37", max_abs_err=err, rel_err=err,
+                     ms=timer(lambda: kagg.weighted_aggregate_cuda(w, u, weights)),
+                     plain_ms=timer(lambda: kagg.weighted_aggregate_plain(w, u, weights)),
+                     bound_ms=b_ms, bound_by=b_by,
+                     library_ms=timer(lambda: torch.addmv(w, u.t(), weights)),
+                     shape=f"P={k} D={d}"))
+    check_bitwise("topk_mask_rows (phase 6)", ktopk.topk_mask_rows_cuda(u, keep_frac=LORA_KEEP),
+                  ktopk.topk_mask_rows_plain(u, keep_frac=LORA_KEEP), torch)
+    bd = ktopk.DEFAULT_BLOCK_D
+    padded = torch.nn.functional.pad(u, (0, (-d) % bd)).reshape(-1, bd)
+    b_ms, b_by = bound(4 * (k * d + k * d), k * d)
+    rows.append(dict(name="topk_mask_rows", route="cuda", source=src + "topk_mask.cu",
+                     replaces="src/repro/kernels/topk_mask.py:38", max_abs_err=0.0, rel_err=0.0,
+                     ms=timer(lambda: ktopk.topk_mask_rows_cuda(u, keep_frac=LORA_KEEP)),
+                     plain_ms=timer(lambda: ktopk.topk_mask_rows_plain(u, keep_frac=LORA_KEEP)),
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     route_ms=timer(lambda: topk_route(torch, padded,
+                                                       ktopk.keep_count(LORA_KEEP, bd))),
+                     shape=f"P={k} D={d} ({-(-d // bd)} tiles a row) keep_frac={LORA_KEEP}"))
+    for r in rows:
+        lib = (f"library {r['library_ms']:.4f} ms" if r["library_ms"] is not None
+               else f"torch.topk+torch.where (two calls) {r['route_ms']:.4f} ms")
+        print(f"  (b) {r['name']:<18} {r['shape']:<44} max|Δ| {r['max_abs_err']:.3e}  kernel "
+              f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  {lib}  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) -> {100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+    del padded
+    return {r["name"]: r for r in rows}
+
+
+def lora_profile(torch, lora, ds, adapters, dim, main_records, rounds: int = 2) -> None:
+    """Device time by group of the main FLrce run's first two rounds, run
+    again under torch.profiler with the same seed (so the same cohorts), and
+    the device's busy share of those rounds read two ways: against the
+    profiled run's own wall (a lower bound, since the profiler's host
+    overhead is in that wall) and against the same rounds' unprofiled walls
+    in ``main_records`` (whose round 0 also paid first-call costs)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.fl import FLrce, run_federated
+    from repro_torch.models import attention, lora as lora_mod, transformer
+
+    patched = []
+
+    def annotate(module, attr, label):
+        inner = getattr(module, attr)
+
+        def wrapper(*args, **kwargs):
+            with record_function(label):
+                return inner(*args, **kwargs)
+
+        patched.append((module, attr, inner))
+        setattr(module, attr, wrapper)
+
+    annotate(attention, "chunked_attention", "chunked_attention")
+    annotate(transformer, "_chunk_nll", "cross_entropy")
+    annotate(lora_mod.LoRAClassifier, "merge", "lora_merge")
+    strategy = FLrce(LORA_M, LORA_P, 1, dim=dim, explore_decay=0.5, seed=0)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = run_federated(lora, ds, strategy, max_rounds=rounds, learning_rate=LORA_LR,
+                                batch_size=LORA_BATCH, seed=0, init_params=adapters,
+                                torch_device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for module, attr, inner in patched:
+            setattr(module, attr, inner)
+    t0 = time.perf_counter()
+    groups, busy_us, n_kernels, top = device_groups(prof)
+    total = sum(groups.values())
+    main_walls = [r.wall_s for r in main_records[:rounds]]
+    same = [r.selected for r in res.records] == [r.selected for r in main_records[:rounds]]
+    print(f"  profile: the main run's first {rounds} FLrce rounds again under the profiler (seed 0; "
+          f"selections {'equal' if same else 'DIFFER from'} the main run's), wall {wall:.3f} s "
+          f"(rounds " + ", ".join(f"{r.wall_s:.3f}" for r in res.records) + f" s); device busy "
+          f"{busy_us / 1e6:.3f} s ({n_kernels} device activities) = "
+          f"{100 * busy_us / 1e6 / wall:.1f}% of the profiled wall (a lower bound: the profiler's "
+          f"host overhead is in it), {100 * busy_us / 1e6 / sum(main_walls):.1f}% of the same "
+          f"rounds' unprofiled walls ({', '.join(f'{x:.3f}' for x in main_walls)} s; round 0 also "
+          f"paid first-call costs); events read in {time.perf_counter() - t0:.1f} s")
+    for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  {us / 1e3 / rounds:10.2f} ms/round  {100 * us / max(total, 1e-9):5.1f}%  {name}")
+    for name, (us, n) in top[:12]:
+        print(f"    top kernel {us / 1e3 / rounds:9.2f} ms/round  {n / rounds:7.0f}/round  {name[:120]}")
+
+
+def device_groups(prof) -> tuple:
+    """(device µs by group, busy µs, kernel count, top kernels) from the
+    profiler's raw records.  A kernel belongs to the CPU op that launched it
+    (its linked correlation id); the op to the innermost span around it on
+    its thread that carries a label: an annotation of ``LORA_GROUPS``
+    (forward, or recomputed under remat), or a backward node whose
+    forward op (same creating thread and sequence number) ran inside one.
+    Unlabelled GEMMs are the model's projections and unembedding; the FL
+    kernels go by name, copies by kind.  The annotations' own device-side
+    ranges are not kernels and are left out."""
+    import torch
+
+    ops, kernels = [], []
+    annotations, evaluate = [], []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if name not in LORA_GROUPS:
+                kernels.append((name, e.start_ns(), e.duration_ns(), e.linked_correlation_id()))
+            continue
+        if e.linked_correlation_id() > 0:
+            continue           # a runtime call (the launch); it links to its op
+        start, tid = e.start_ns(), e.start_thread_id()
+        end = start + e.duration_ns()
+        if name in LORA_GROUPS:
+            annotations.append((tid, start, end, name))
+        elif name.startswith("autograd::engine::evaluate_function"):
+            evaluate.append((tid, start, end, (e.fwd_thread_id(), e.sequence_nr())))
+        else:
+            ops.append((tid, start, end, e.correlation_id(), e.sequence_nr()))
+
+    def innermost(spans, items):
+        """For items (tid, start, end, key) the label of the innermost span
+        (tid, start, end, label) containing each; spans nest on a thread."""
+        out = {}
+        by_tid: dict = {}
+        for sp in spans:
+            by_tid.setdefault(sp[0], []).append(sp)
+        for tid, tid_spans in by_tid.items():
+            tid_spans.sort(key=lambda sp: (sp[1], -sp[2]))
+        items = sorted(items, key=lambda it: (it[0], it[1]))
+        cur_tid, stack, j, tid_spans = None, [], 0, []
+        for tid, start, end, key in items:
+            if tid != cur_tid:
+                cur_tid, stack, j, tid_spans = tid, [], 0, by_tid.get(tid, [])
+            while j < len(tid_spans) and tid_spans[j][1] <= start:
+                stack.append(tid_spans[j])
+                j += 1
+            while stack and stack[-1][2] < end:
+                stack.pop()
+            if stack:
+                out[key] = stack[-1][3]
+        return out
+
+    # forward ops inside an annotation label the backward nodes they create
+    fwd = innermost(annotations, [(tid, s, e_, (tid, seq)) for tid, s, e_, _, seq in ops
+                                  if seq >= 0])
+    spans = annotations + [(tid, s, e_, fwd[key]) for tid, s, e_, key in evaluate if key in fwd]
+    op_label = innermost(spans, [(tid, s, e_, corr) for tid, s, e_, corr, _ in ops])
+    groups: dict = {}
+    top: dict = {}
+    for name, start, dur, corr in kernels:
+        us = dur / 1e3
+        t_us, t_n = top.get(name, (0.0, 0))
+        top[name] = (t_us + us, t_n + 1)
+        low = name.lower()
+        label = op_label.get(corr)
+        if any(kernel in name for kernel in PROFILED_KERNEL.values()) or "sum_splits" in name:
+            group = "FL server kernels (this port's)"
+        elif "memcpy htod" in low:
+            group = "H2D copies"
+        elif "memcpy" in low or "memset" in low:
+            group = "other copies and sets"
+        elif label is not None:
+            group = {"lora_merge": "LoRA merges (forward and backward)",
+                     "chunked_attention": "chunked attention (fp32; forward, recompute, backward)",
+                     "cross_entropy": "chunked cross-entropy (forward, recompute, backward)"}[label]
+        elif "gemm" in low or "xmma" in low or "nvjet" in low or "cutlass" in low:
+            group = "projection and unembedding GEMMs (forward, recompute, backward)"
+        else:
+            group = "other kernels (norms, RoPE, MLP activations, residuals, gathers, SGD)"
+        groups[group] = groups.get(group, 0.0) + us
+    busy_ns, last_end = 0, float("-inf")
+    for start, end in sorted((k[1], k[1] + k[2]) for k in kernels):
+        busy_ns += max(0, end - max(start, last_end))
+        last_end = max(last_end, end)
+    top_sorted = sorted(top.items(), key=lambda kv: -kv[1][0])
+    return groups, busy_ns / 1e3, len(kernels), top_sorted
+
+
+def lora_reference_check(torch) -> None:
+    """Phase 6b: a reduced gemma3 config on the card against the CPU: LoRA
+    FLrce over a bf16 and an fp32 base, the full-model LMClassifier under
+    FedAvg, and LoRA FedAvg through driver="scan" against the loop."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_federated_lm
+    from repro_torch.fl import FLrce, run_federated
+    from repro_torch.fl.baselines import FedAvg
+    from repro_torch.models import LMClassifier, LoRAClassifier
+
+    t_phase = time.perf_counter()
+    reduced = get_arch(LORA_ARCH, reduced=True)
+    kw = dict(learning_rate=0.01, batch_size=8, seed=0)
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(reduced, dtype=dtype)
+        base = LMClassifier(cfg, seq_len=32)
+        ds = make_federated_lm(num_clients=8, samples_per_client=16, seq_len=32,
+                               vocab_size=cfg.vocab_size, num_eval=32, seed=0)
+        host = base.init(0, "cpu")
+        models = {dev: LoRAClassifier(base, {k: v.to(dev) for k, v in host.items()}, rank=8)
+                  for dev in ("cuda", "cpu")}
+        dim = models["cpu"].adapter_dim()
+        runs = {dev: run_federated(m, ds, FLrce(8, 4, 1, dim=dim, explore_decay=0.5, seed=0),
+                                   max_rounds=3, torch_device=dev, **kw)
+                for dev, m in models.items()}
+        compare_runs(f"LoRA FLrce over a {dtype} base ({cfg.name})", runs["cuda"], runs["cpu"])
+        if dtype == "float32":
+            full = {dev: run_federated(base, ds, FedAvg(8, 4, 1, seed=0), max_rounds=2,
+                                       init_params=host, torch_device=dev, **kw)
+                    for dev in ("cuda", "cpu")}
+            compare_runs("full-model LMClassifier FedAvg (fp32)", full["cuda"], full["cpu"])
+            loop = run_federated(models["cuda"], ds, FedAvg(8, 4, 1, seed=0), max_rounds=4,
+                                 torch_device="cuda", **kw)
+            scan = run_federated(models["cuda"], ds, FedAvg(8, 4, 1, seed=0), max_rounds=4,
+                                 torch_device="cuda", driver="scan", scan_chunk_rounds=2, **kw)
+            compare_scan("LoRA FedAvg driver='scan' on the card", loop, scan, torch)
+            st = scan.driver_stats
+            print(f"  LoRA FedAvg scan: captures {st['captures_chunk']}, replays {st['replays']}, "
+                  f"host syncs {st['host_syncs']} in {st['chunks']} chunks")
+    print(f"  phase 6b wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -2075,6 +2531,17 @@ def main() -> int:
 
     print("phase 5: a small gemma3-family model served on the GPU and on the CPU")
     serve_reference_check(torch)
+    torch.cuda.empty_cache()
+
+    print(f"phase 6: federated LoRA (rank {LORA_RANK}) on {LORA_ARCH} at full width, M={LORA_M}, "
+          f"P={LORA_P}, {LORA_N} sequences of {LORA_SEQ} tokens a client: FLrce, FedAvg, Fedcom")
+    timer = Timer(torch)
+    lora_rows, lora_launches = lora_phase(torch, timer, bandwidth)
+    del timer
+    torch.cuda.empty_cache()
+
+    print("phase 6b: a reduced gemma3 config, LoRA and full-model federations, GPU against CPU")
+    lora_reference_check(torch)
 
     kernels = []
     for name in ("cross_gram", "gram", "weighted_aggregate", "topk_mask_rows", "decode_attention"):
@@ -2086,6 +2553,14 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+        })
+    for name in ("cross_gram", "gram", "weighted_aggregate", "topk_mask_rows"):
+        r = lora_rows[name]
+        kernels.append({
+            "name": f"{name}@{LORA_ARCH}-lora", "route": r["route"], "source": r["source"],
+            "replaces": r["replaces"], "launches": lora_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -7,8 +7,11 @@ inverse.  Names follow the pytree paths (``{"fc": [{"w": ...}]}`` is
 ``"fc.0.w"``); shapes and layouts are identical, so the exchange copies
 values bit for bit.  ``lm_params_from_jax`` / ``lm_params_to_jax`` do the same
 for the language model, whose layers the reference stacks by pattern position
-and the port keeps as a list in run order.  Nothing here imports JAX: callers
-pass NumPy arrays.
+and the port keeps as a list in run order; ``lm_flat_from_jax`` /
+``lm_flat_to_jax`` for ``LMClassifier``'s flat dict, which keeps the
+reference's stacking; ``lora_from_jax`` / ``lora_to_jax`` for the adapters of
+a ``LoRAClassifier``, which the reference keys by path strings.  Nothing here
+imports JAX: callers pass NumPy arrays.
 """
 from __future__ import annotations
 
@@ -17,27 +20,17 @@ from typing import Any, Dict, List, Union
 import numpy as np
 import torch
 
+from repro_torch.core.distributed import flatten_tree
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.lm import flat_from_lm, lm_from_flat
 
 Tree = Union[Dict[str, Any], List[Any], np.ndarray]
-
-
-def _leaves(tree: Tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
-    if isinstance(tree, dict):
-        for key in sorted(tree):
-            _leaves(tree[key], f"{prefix}{key}.", out)
-    elif isinstance(tree, (list, tuple)):
-        for i, sub in enumerate(tree):
-            _leaves(sub, f"{prefix}{i}.", out)
-    else:
-        out[prefix[:-1]] = np.asarray(tree)
 
 
 def params_from_jax(tree: Tree, model, device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
     """The port's parameter dict for ``model`` from a reference pytree."""
     dev = resolve_device(device)
-    leaves: Dict[str, np.ndarray] = {}
-    _leaves(tree, "", leaves)
+    leaves = {name: np.asarray(leaf) for name, leaf in flatten_tree(tree).items()}
     spec = model.param_spec()
     if set(leaves) != {name for name, _ in spec}:
         raise ValueError(
@@ -167,4 +160,50 @@ def lm_params_to_jax(cfg, params: Dict[str, Any]) -> Dict[str, Any]:
     }
     if "unembed" in params:
         out["unembed"] = _numpy_from_tensor(params["unembed"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# LMClassifier's flat dict and LoRA adapters
+# ---------------------------------------------------------------------------
+def lm_flat_from_jax(cfg, tree: Dict[str, Any],
+                     device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
+    """``LMClassifier``'s flat dict (the reference's leaf order and stacked
+    shapes) from the reference's LM pytree, bit for bit."""
+    return flat_from_lm(cfg, lm_params_from_jax(cfg, tree, device))
+
+
+def lm_flat_to_jax(cfg, flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The reference's LM pytree (NumPy leaves) from ``LMClassifier``'s flat dict."""
+    return lm_params_to_jax(cfg, lm_from_flat(cfg, flat))
+
+
+def _adapter_keys(lora) -> List[tuple]:
+    """(port name, reference path key, factor or None) of every adapter leaf,
+    in the adapter dict's order."""
+    return [(n, base.replace(".", "/"), factor) for n, base, factor in lora.adapter_leaves()]
+
+
+def lora_from_jax(lora, tree: Dict[str, Any],
+                  device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
+    """A ``LoRAClassifier``'s adapter dict (in its order) from the
+    reference's adapter dict ``{path: {"a", "b"}}`` (``{path: leaf}`` for a
+    passthrough leaf)."""
+    dev = resolve_device(device)
+    found = {}
+    for name, key, factor in _adapter_keys(lora):
+        leaf = tree[key] if factor is None else tree[key][factor]
+        found[name] = _tensor_from_numpy(np.asarray(leaf)).to(dev)
+    return found
+
+
+def lora_to_jax(lora, adapters: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The reference's adapter dict (NumPy leaves) from a port adapter dict."""
+    out: Dict[str, Any] = {}
+    for name, key, factor in _adapter_keys(lora):
+        leaf = _numpy_from_tensor(adapters[name])
+        if factor is None:
+            out[key] = leaf
+        else:
+            out.setdefault(key, {})[factor] = leaf
     return out

@@ -1,7 +1,8 @@
 """Flat-vector helpers and the Gram-based relationship math (pure).
 
-``flatten_params``/``unflatten`` turn a parameter dict into one float32
-vector in the reference's pytree leaf order, so a flat update of the port
+``flatten_tree`` names the leaves of a nested dict/list tree in the
+reference's pytree leaf order; ``flatten_params``/``unflatten`` turn a
+parameter dict into one float32 vector in that order, so a flat update of the port
 and of the reference line up element for element.  The rest is the
 reference's ``core.distributed`` math that reads only inner products: Eq. 5
 cosines and the Alg. 3 conflict count from a Gram matrix, and Eq. 6 from
@@ -9,13 +10,33 @@ dot products via ``orthdist(x, a, v)² = ‖x−a‖² − ⟨x−a, v⟩²/‖v
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
 _EPS = 1e-12
 
 Params = Dict[str, torch.Tensor]
+
+
+def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """Leaves of a nested dict/list tree in the reference's pytree order
+    (dict keys sorted at each level, lists in order, ``None`` skipped), named
+    by their dotted paths."""
+    out: Dict[str, Any] = {}
+
+    def walk(node, pre):
+        if isinstance(node, dict):
+            for key in sorted(node):
+                walk(node[key], f"{pre}{key}.")
+        elif isinstance(node, (list, tuple)):
+            for i, sub in enumerate(node):
+                walk(sub, f"{pre}{i}.")
+        elif node is not None:
+            out[pre[:-1]] = node
+
+    walk(tree, prefix)
+    return out
 
 
 def flatten_params(params: Params) -> Tuple[torch.Tensor, Callable[[torch.Tensor], Params]]:

@@ -22,6 +22,10 @@ _MASK_STREAM = 0x6D61736B  # 'mask': domain-separates from client_batch_rng
 class TorchDropout(TorchStrategy):
     name = "dropout"
     supports_scan = True     # masks are built on the host per chunk
+    # the Bernoulli sub-model mask is defined over the full weight tensors;
+    # over LoRA factors it would zero adapter coordinates instead
+    supports_param_subset = False
+    param_subset_reason = "sub-model masks presume the full weight tensors"
 
     def __init__(self, *args, keep_rate: float = 0.5, **kwargs):
         super().__init__(*args, **kwargs)

@@ -13,6 +13,10 @@ from repro_torch.fl.strategy import LocalConfig, TorchStrategy
 class TorchTimelyFL(TorchStrategy):
     name = "timelyfl"
     supports_scan = True     # freeze flags are built on the host per chunk
+    # freezing orders the full model's leaves front to back; an adapter
+    # dict's leaf order has no depth meaning
+    supports_param_subset = False
+    param_subset_reason = "layer freezing is depth-indexed over the full model"
 
     def __init__(self, *args, min_capability: float = 0.3, epoch_fraction: float = 0.6, **kwargs):
         super().__init__(*args, **kwargs)

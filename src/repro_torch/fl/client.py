@@ -10,8 +10,12 @@ Two paths compute the same math:
 together: per-client parameters are stacked along a leading client axis and
 one SGD step of the whole cohort is ``torch.func.vmap`` of ``grad`` over that
 axis.  A Python loop over the padded step axis takes the place of the
-reference's ``lax.scan``.  The returned update is ``w_local − w_global``
-after all local epochs, flattened in the reference's leaf order.
+reference's ``lax.scan``.  A model with ``vmap_clients = False`` (the
+language models, whose ``remat`` checkpointing does not run under
+``torch.func``) takes the same steps one client at a time with plain
+autograd, on the same schedule, gates and weights.  The returned update is
+``w_local − w_global`` after all local epochs, flattened in the reference's
+leaf order.
 
 Variants cover the baselines' local tweaks, as in the reference:
 
@@ -156,6 +160,40 @@ def freeze_flags(n_leaves: int, freeze_frac: float) -> np.ndarray:
     return np.array([0.0 if i < n_frozen else 1.0 for i in range(n_leaves)], np.float32)
 
 
+def client_loss(model, params: Params, x, y, w, mask: Optional[Params], anchor: Params, mu,
+                use_prox: bool):
+    """One client's local loss on the batched engines: per-example losses ×
+    sample weights, summed and divided by ``max(Σw, 1)``, on the params times
+    the mask when there is one, plus µ/2·‖q − anchor‖² over all leaves of the
+    masked params q (in leaf order) when ``use_prox``."""
+    q = {k: params[k] * mask[k] for k in params} if mask is not None else params
+    per = model.per_example_loss(q, x, y)
+    loss = torch.sum(per * w) / torch.clamp(torch.sum(w), min=1.0)
+    if use_prox:
+        sq = sum(torch.sum(torch.square(q[k] - anchor[k])) for k in q)
+        loss = loss + 0.5 * mu * sq
+    return loss
+
+
+def sgd_leaf(p: torch.Tensor, g: torch.Tensor, lr: float, mask=None, gate=None) -> torch.Tensor:
+    """One leaf's local SGD update ``p − lr·(g·mask·gate)``: the gradient is
+    multiplied by the mask, then by the gate (freeze flag × step validity),
+    each when given."""
+    if mask is not None:
+        g = g * mask
+    if gate is not None:
+        g = g * gate
+    return p - lr * g
+
+
+def masked_update(params: Params, global_params: Params, mask: Optional[Params]) -> torch.Tensor:
+    """The flat (P, D) update ``(w_local − w_global)·mask`` of stacked params."""
+    update = {k: params[k] - global_params[k] for k in params}
+    if mask is not None:
+        update = {k: update[k] * mask[k] for k in update}
+    return flatten_rows(update)
+
+
 class ClientTrainer:
     """Runs one client's E local epochs of SGD, a batch per Python step.
 
@@ -182,14 +220,10 @@ class ClientTrainer:
                 sq = sum(torch.sum(torch.square(q[k] - anchor[k])) for k in q)
                 loss = loss + 0.5 * prox_mu * sq
             grads = torch.autograd.grad(loss, list(leaves.values()))
-        new: Params = {}
         with torch.no_grad():
-            for (k, p), g in zip(params.items(), grads):
-                if mask is not None:
-                    g = g * mask[k]
-                if freeze is not None:
-                    g = g * freeze[k]
-                new[k] = p - self.lr * g
+            new = {k: sgd_leaf(p, g, self.lr, None if mask is None else mask[k],
+                               None if freeze is None else freeze[k])
+                   for (k, p), g in zip(params.items(), grads)}
         return new, loss.detach()
 
     def local_update(
@@ -288,18 +322,11 @@ class BatchedCohortTrainer:
         if key not in self._steps:
             model = self.model
 
-            def client_loss(params: Params, x, y, w, mask, anchor, mu):
-                q = {k: params[k] * mask[k] for k in params} if has_mask else params
-                per = model.per_example_loss(q, x, y)
-                base = torch.sum(per * w) / torch.clamp(torch.sum(w), min=1.0)
-                if use_prox:
-                    # on the masked params, over all leaves in leaf order
-                    sq = sum(torch.sum(torch.square(q[k] - anchor[k])) for k in q)
-                    base = base + 0.5 * mu * sq
-                return base
+            def loss(params: Params, x, y, w, mask, anchor, mu):
+                return client_loss(model, params, x, y, w, mask, anchor, mu, use_prox)
 
             self._steps[key] = vmap(
-                grad_and_value(client_loss),
+                grad_and_value(loss),
                 in_dims=(0, 0, 0, 0, 0 if has_mask else None, None, 0),
             )
         return self._steps[key]
@@ -316,6 +343,9 @@ class BatchedCohortTrainer:
         client's last is a bitwise no-op); :meth:`train_cohort` stops after
         the last valid step of any client."""
         has_mask = mask is not None
+        if not getattr(self.model, "vmap_clients", True):
+            return self._run_steps_per_client(global_params, n_steps, batch_at, sample_w,
+                                              step_valid, mask, flags, mu, use_prox)
         step = self._step(use_prox, has_mask)
         p, s_pad = step_valid.shape
         # per-leaf (P, S) gates: the freeze flag times the step's validity,
@@ -335,14 +365,44 @@ class BatchedCohortTrainer:
                 x, y = batch_at(s)
                 grads, loss = step(params, x, y.long(), sample_w[:, s], mask, global_params, mu)
                 for k in params:
-                    g = grads[k] * mask[k] if has_mask else grads[k]
                     gate = gates[k][:, s].view(-1, *([1] * (params[k].dim() - 1)))
-                    params[k] = params[k] - self.lr * (g * gate)
+                    params[k] = sgd_leaf(params[k], grads[k], self.lr,
+                                         mask[k] if has_mask else None, gate)
                 losses[:, s] = loss
-            update = {k: params[k] - global_params[k] for k in params}
-            if has_mask:
-                update = {k: update[k] * mask[k] for k in update}
-            return flatten_rows(update), losses
+            return masked_update(params, global_params, mask), losses
+
+    def _run_steps_per_client(self, global_params: Params, n_steps: int, batch_at, sample_w,
+                              step_valid, mask: Optional[Params], flags: torch.Tensor,
+                              mu: torch.Tensor,
+                              use_prox: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`run_steps` one client at a time: each client's step is one
+        plain autograd gradient of :func:`client_loss`, on its own parameters
+        (the global tensors themselves until its first step; a LoRA model's
+        frozen base is never copied), updated by :func:`sgd_leaf`.  Only the
+        looping differs from the vmapped step."""
+        names = list(global_params)
+        p, s_pad = step_valid.shape
+        gates = {k: flags[i][:, None] * step_valid for i, k in enumerate(names)}
+        masks = [None if mask is None else {n: mask[n][k] for n in names} for k in range(p)]
+        clients = [dict(global_params) for _ in range(p)]
+        losses = torch.zeros((p, s_pad), dtype=torch.float32, device=step_valid.device)
+        for s in range(n_steps):
+            x, y = batch_at(s)
+            for k in range(p):
+                leaves = {n: clients[k][n].detach().requires_grad_(True) for n in names}
+                with torch.enable_grad():
+                    loss = client_loss(self.model, leaves, x[k], y[k].long(), sample_w[k, s],
+                                       masks[k], global_params, mu[k], use_prox)
+                    grads = torch.autograd.grad(loss, list(leaves.values()))
+                with torch.no_grad():
+                    clients[k] = {n: sgd_leaf(leaves[n].detach(), g, self.lr,
+                                              None if masks[k] is None else masks[k][n],
+                                              gates[n][k, s])
+                                  for n, g in zip(names, grads)}
+                    losses[k, s] = loss.detach()
+        with torch.no_grad():
+            stacked = {n: torch.stack([c[n] for c in clients]) for n in names}
+            return masked_update(stacked, global_params, mask), losses
 
     def train_cohort(
         self,

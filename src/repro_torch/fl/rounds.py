@@ -148,6 +148,40 @@ def finalize_result(
     )
 
 
+def check_param_subset(model, strategy: TorchStrategy) -> None:
+    """Reject a param-subset model (LoRA adapters) under a strategy whose
+    variants presume the full parameter vector."""
+    if getattr(model, "param_subset", False) and not strategy.supports_param_subset:
+        reason = strategy.param_subset_reason
+        raise ValueError(
+            f"{strategy.name} does not support param-subset models like "
+            f"{getattr(model, 'name', type(model).__name__)} (supports_param_subset is False"
+            + (f": {reason}" if reason else "") + ")")
+
+
+def initial_params(model, init_params: Optional[Params], seed: int,
+                   dev: torch.device) -> Params:
+    """The job's trained dict at round 0, on ``dev``: ``init_params`` or
+    ``model.init(seed)``.
+
+    Every trained leaf must be fp32: the flat round buffer is fp32 and its
+    inverse returns fp32 views, so a bf16 leaf would silently train in fp32,
+    which the reference never does (its batched engine cannot carry a bf16
+    full model at all).  A LoRA model's frozen base keeps its own dtype; its
+    adapters are fp32."""
+    params = model.init(seed, dev) if init_params is None else dict(init_params)
+    odd = {k: v.dtype for k, v in params.items() if v.dtype != torch.float32}
+    if odd:
+        name, dtype = next(iter(odd.items()))
+        raise ValueError(
+            f"{getattr(model, 'name', type(model).__name__)}: trained leaves must be float32, "
+            f"got {len(odd)} others ({name}: {dtype}); the round's flat buffer is float32, so "
+            "a reduced-precision model would train in float32 silently.  Train a bf16 model "
+            "through a param-subset wrapper such as LoRAClassifier, whose frozen base keeps "
+            "its dtype")
+    return {k: v.to(dev) for k, v in params.items()}
+
+
 def _sequential_round(
     trainer: ClientTrainer,
     params: Params,
@@ -213,6 +247,7 @@ def run_federated(
         raise ValueError(
             "client_store='paged' is the scan driver's host-paged store; it "
             f"has no meaning for driver={driver!r} (pass driver='scan')")
+    check_param_subset(model, strategy)
     if async_rounds is not None:
         raise NotImplementedError(
             "async_rounds (staleness-aware rounds) is not ported yet: ROADMAP A.6, remaining")
@@ -238,10 +273,7 @@ def run_federated(
         if verbose:
             print(f"[{strategy.name}] no scan support for engine={engine!r}; "
                   f"falling back to the {engine} loop driver")
-    if init_params is None:
-        params = model.init(seed, dev)
-    else:
-        params = {k: v.to(dev, torch.float32) for k, v in init_params.items()}
+    params = initial_params(model, init_params, seed, dev)
     n_params = param_count(params)
     strategy.bind_device(dev)
     # the strategy's update post-processing stage, built once per job

@@ -346,7 +346,7 @@ def run_scan_driver(
     ``capture=False`` runs the same body eagerly on the card, which is what
     the graph is held against.
     """
-    from repro_torch.fl.rounds import RoundRecord, finalize_result, nan_safe_mean
+    from repro_torch.fl.rounds import RoundRecord, finalize_result, initial_params, nan_safe_mean
 
     if chunk_rounds < 1:
         raise ValueError(f"chunk_rounds must be >= 1, got {chunk_rounds}")
@@ -359,10 +359,7 @@ def run_scan_driver(
         capture = cuda
     if capture and not cuda:
         raise ValueError("capture=True needs the chunks on a CUDA device")
-    if init_params is None:
-        params = model.init(seed, dev)
-    else:
-        params = {k: v.to(dev, torch.float32) for k, v in init_params.items()}
+    params = initial_params(model, init_params, seed, dev)
     n_params = param_count(params)
     strategy.bind_device(dev)
     program = strategy.scan_program()

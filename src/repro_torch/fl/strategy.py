@@ -121,6 +121,17 @@ class TorchStrategy:
     """True: the driver may page this strategy's chunks from a host store
     (``client_store="paged"``): device selection honours the candidate set."""
 
+    supports_param_subset: bool = True
+    """True: sound when the trained dict is a parameter subset of the
+    deployed model (``model.param_subset``, e.g. ``LoRAClassifier``'s
+    adapters): selection, Eq. 4, FLrce's maps and Alg. 3 are defined on
+    whatever flat vector the trained dict gives.  False: the strategy's
+    per-client variants presume the full parameter vector (Dropout's masks,
+    TimelyFL's depth-indexed freezing); ``run_federated`` rejects such a
+    model, and ``param_subset_reason`` says why."""
+
+    param_subset_reason: Optional[str] = None
+
     def propose_candidates(self, ts) -> Optional[np.ndarray]:
         """Sorted unique global ids (P_cand >= P) that device selection may
         pick from in the chunk of rounds ``ts``; ``None`` for all clients."""

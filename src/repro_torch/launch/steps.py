@@ -1,5 +1,6 @@
 """Step functions of the port's launchers, from the reference's
-``src/repro/launch/steps.py``: the one-token serve step."""
+``src/repro/launch/steps.py``: train, prefill and the one-token serve step.
+The FLrce server round step is ``core.server``'s."""
 from __future__ import annotations
 
 from typing import Callable
@@ -7,6 +8,43 @@ from typing import Callable
 import torch
 
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.optim.optimizers import Optimizer, apply_updates, tree_leaves, tree_map
+
+
+def build_train_step(model: TransformerLM, optimizer: Optimizer) -> Callable:
+    """(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    One gradient of ``model.loss`` through autograd, the optimizer's update
+    and ``apply_updates``; ``metrics["loss"]`` is the fp32 loss."""
+
+    def train_step(params, opt_state, batch):
+        leaves = tree_leaves(params)
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        it = iter(live)
+        tracked = tree_map(lambda _: next(it), params)
+        with torch.enable_grad():
+            loss = model.loss(tracked, batch)
+            grads_flat = torch.autograd.grad(loss, live)
+        it = iter(grads_flat)
+        grads = tree_map(lambda _: next(it), params)
+        with torch.no_grad():
+            updates, new_opt = optimizer.update(grads, opt_state, params)
+            new_params = apply_updates(params, updates)
+        return new_params, new_opt, {"loss": loss.detach().float()}
+
+    return train_step
+
+
+def build_prefill_step(model: TransformerLM) -> Callable:
+    """(params, batch) -> last-position logits (B, V): the full-sequence
+    forward, without filling a cache."""
+
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            h = model.hidden(params, batch)
+            return model.unembed(params, h[:, -1, :])
+
+    return prefill_step
 
 
 def build_serve_step(model: TransformerLM) -> Callable:

@@ -1,15 +1,18 @@
-"""Attention for cached decoding, the decode half of the reference's
-``src/repro/models/attention.py``: GQA projections, KV caches and one decode
-step over global (full-length cache) or local (sliding-window) layers.
+"""Attention blocks, from the reference's ``src/repro/models/attention.py``:
+GQA projections, training/prefill attention over whole sequences, KV caches
+and one decode step over global (full-length cache) or local
+(sliding-window) layers.
 
-The step's attention is ``kernels.ops.decode_attention``: the hand-written
-CUDA kernel for CUDA tensors, its plain version (the reference's
-``decode_attention_jnp`` in PyTorch) for CPU tensors.  Training/prefill
-attention over whole sequences and the cross-attention branch wait for a later
-slice.
+Training and prefill attend with :func:`chunked_attention`, the reference's
+online softmax over KV chunks in plain fp32 tensor ops.  The decode step's
+attention is ``kernels.ops.decode_attention``: the hand-written CUDA kernel
+for CUDA tensors, its plain version (the reference's
+``decode_attention_jnp`` in PyTorch) for CPU tensors.  The cross-attention
+branch waits for a later slice.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -19,6 +22,9 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense_init
 
 Params = Dict[str, torch.Tensor]
+
+_NEG_INF = -1e30
+DEFAULT_KV_CHUNK = 1024
 
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
@@ -46,6 +52,92 @@ def _project_qkv(params: Params, x: torch.Tensor, cfg: ArchConfig):
     return q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd), v.reshape(b, s, kv, hd)
 
 
+# ---------------------------------------------------------------------------
+# chunked (flash-style) attention over full sequences
+# ---------------------------------------------------------------------------
+def _chunk_attend(q, k, v, mask, scale):
+    """q: (B,S,K,G,hd)  k/v: (B,C,K,hd)  mask: (B,S,C) bool -> (out, m, l)."""
+    logits = torch.einsum("bskgd,bckd->bskgc", q.float(), k.float())
+    logits = logits * scale
+    logits = torch.where(mask[:, :, None, None, :], logits, _NEG_INF)
+    m = torch.amax(logits, dim=-1)                             # (B,S,K,G)
+    p = torch.exp(logits - m[..., None])
+    l = torch.sum(p, dim=-1)
+    out = torch.einsum("bskgc,bckd->bskgd", p, v.float())
+    return out, m, l
+
+
+def chunked_attention(
+    q: torch.Tensor,             # (B, S, H, hd)
+    k: torch.Tensor,             # (B, Skv, K, hd)
+    v: torch.Tensor,
+    q_positions: torch.Tensor,   # (B, S) absolute positions of queries
+    kv_positions: torch.Tensor,  # (B, Skv)
+    *,
+    causal: bool,
+    window: int = 0,
+    kv_chunk: int = DEFAULT_KV_CHUNK,
+) -> torch.Tensor:
+    """Online-softmax attention over KV chunks of ``kv_chunk``, in fp32.
+    Returns (B, S, H, hd) in q's dtype.
+
+    KV is padded to a chunk multiple; padded positions are -1 and always
+    masked.  A Python loop over the chunks takes the place of the
+    reference's ``lax.scan``."""
+    b, s, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, s, kvh, group, hd)
+
+    pad = (-skv) % kv_chunk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = torch.nn.functional.pad(kv_positions, (0, pad), value=-1)
+    n_chunks = (skv + pad) // kv_chunk
+
+    for c in range(n_chunks):
+        sl = slice(c * kv_chunk, (c + 1) * kv_chunk)
+        kc, vc, pc = k[:, sl], v[:, sl], kv_positions[:, sl]
+        mask = (pc >= 0)[:, None, :].expand(b, s, kv_chunk)          # (B, S, C)
+        if causal:
+            mask = mask & (pc[:, None, :] <= q_positions[:, :, None])
+        if window > 0:
+            mask = mask & (pc[:, None, :] > q_positions[:, :, None] - window)
+        out_c, m_c, l_c = _chunk_attend(qg, kc, vc, mask, scale)
+        if c == 0:
+            # the reference merges chunk 0 into (0, -1e30, 0): alpha is 0
+            # (or 1 with nothing to scale) and beta 1, which leaves chunk
+            # 0's own (out, m, l)
+            acc, m_run, l_run = out_c, m_c, l_c
+            continue
+        m_new = torch.maximum(m_run, m_c)
+        alpha = torch.exp(m_run - m_new)
+        beta = torch.exp(m_c - m_new)
+        acc = acc * alpha[..., None] + out_c * beta[..., None]
+        l_run = l_run * alpha + l_c * beta
+        m_run = m_new
+    out = acc / torch.clamp(l_run, min=1e-30)[..., None]
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def attention_block(params: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
+                    *, local: bool) -> torch.Tensor:
+    """Causal self-attention sub-block over a whole sequence, without norms
+    or residual."""
+    q, k, v = _project_qkv(params, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    b, s = x.shape[:2]
+    out = chunked_attention(q, k, v, positions, positions, causal=True,
+                            window=cfg.window if local else 0)
+    return out.reshape(b, s, -1) @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# decode with KV cache
+# ---------------------------------------------------------------------------
 def init_kv_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype: torch.dtype,
                   device: torch.device) -> Params:
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim

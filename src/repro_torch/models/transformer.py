@@ -1,6 +1,7 @@
-"""Decoder-only LM for cached decoding, the decode half of the reference's
-``src/repro/models/transformer.py``, for the dense attention-only
-architectures (global and sliding-window attention, dense MLP).
+"""Decoder-only LM, from the reference's ``src/repro/models/transformer.py``,
+for the dense attention-only architectures (global and sliding-window
+attention, dense MLP): the full-sequence forward and the sequence-chunked
+cross-entropy of training and prefill, and cached decoding.
 
 Parameters are a dict::
 
@@ -16,13 +17,22 @@ cycle ``i // len(pattern)``, and its kind is ``cfg.block_kind(i)``
 (``convert.lm_params_from_jax`` maps the stacked pytree onto this list).
 Caches are a matching list of ``{"k", "v"}``; a local layer's cache is
 ``min(cache_len, window)`` long, a ring buffer.
+
+The dense slice has no mixture-of-experts auxiliary loss, so ``hidden`` and
+``forward`` return the hidden states and the logits alone, where the
+reference returns them beside a zero aux term.  ``remat`` is a memory
+policy, not semantics: each layer is recomputed in the backward pass
+(``torch.utils.checkpoint``) where the reference checkpoints each scanned
+cycle; each loss chunk is recomputed either way, as in the reference.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -75,6 +85,24 @@ def init_block(gen: torch.Generator, kind: str, cfg: ArchConfig, dtype: torch.dt
     return p
 
 
+def apply_block_train(params: Dict, kind: str, x: torch.Tensor, positions: torch.Tensor,
+                      cfg: ArchConfig) -> torch.Tensor:
+    """Pre-norm residual block over whole sequences (causal)."""
+    h = apply_norm(cfg.norm, params["norm1"], x)
+    x = x + attn.attention_block(params["mixer"], h, positions, cfg, local=_is_local(kind))
+    if "mlp" in params:
+        h2 = apply_norm(cfg.norm, params["norm2"], x)
+        x = x + apply_mlp(params["mlp"], h2, cfg.act)
+    return x
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, recomputed in the backward pass instead of keeping its
+    activations.  No RNG runs inside, so none is saved (and a CUDA graph
+    capture reads no generator state)."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def init_block_cache(kind: str, cfg: ArchConfig, batch: int, cache_len: int, dtype: torch.dtype,
                      device: torch.device) -> Dict:
     length = min(cache_len, cfg.window) if (_is_local(kind) and cfg.window) else cache_len
@@ -102,10 +130,13 @@ class TransformerLM(nn.Module):
     """The port's decoder LM.  Stateless like the reference's: parameters and
     caches are passed in, so one module serves any number of parameter sets."""
 
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, remat: bool = True, loss_chunk: int = 256):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        self.remat = remat
+        # sequence-chunk size of the chunked cross-entropy
+        self.loss_chunk = loss_chunk
 
     @property
     def dtype(self) -> torch.dtype:
@@ -131,6 +162,55 @@ class TransformerLM(nn.Module):
             return h @ params["embed"].T
         return h @ params["unembed"]
 
+    # -- full-sequence forward (train / prefill) -----------------------------
+    def hidden(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Final-norm hidden states (B, S, D) of ``batch["tokens"]`` (B, S)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        h = params["embed"][tokens].to(self.dtype)
+        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        remat = self.remat and torch.is_grad_enabled()
+        for kind, layer in zip(cfg.layer_kinds(), params["layers"]):
+            if remat:
+                h = _remat(apply_block_train, layer, kind, h, positions, cfg)
+            else:
+                h = apply_block_train(layer, kind, h, positions, cfg)
+        return apply_norm(cfg.norm, params["final_norm"], h)
+
+    def forward(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Logits (B, S, V).  Materializes full logits; the training loss
+        uses the chunked path instead."""
+        return self.unembed(params, self.hidden(params, batch))
+
+    def nll_sums(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """(B,) each sequence's summed next-token NLL over its labelled
+        positions (labels -1 are not counted): the reference's
+        sequence-chunked cross-entropy, summed per sequence.  Each S-chunk's
+        logits are fp32; the gold logit is a row gather of the unembedding."""
+        cfg = self.cfg
+        h = self.hidden(params, batch)
+        labels = batch["labels"].long()
+        b, s, _ = h.shape
+        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+        chunk = min(self.loss_chunk, s)
+        pad = (-s) % chunk
+        if pad:
+            h = F.pad(h, (0, 0, 0, pad))
+            labels = F.pad(labels, (0, pad), value=-1)
+        remat = torch.is_grad_enabled()
+        total = torch.zeros((b,), dtype=torch.float32, device=h.device)
+        for c in range(0, s + pad, chunk):
+            hc, yc = h[:, c:c + chunk], labels[:, c:c + chunk]
+            total = total + (_remat(_chunk_nll, hc, yc, w) if remat else _chunk_nll(hc, yc, w))
+        return total
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token NLL: the summed NLL over ``b·s`` (the unpadded
+        sequence length)."""
+        b, s = batch["tokens"].shape
+        return torch.sum(self.nll_sums(params, batch)) / (b * s)
+
     # -- decode ---------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int, device: DeviceLike = "cuda") -> List[Dict]:
         dev = resolve_device(device)
@@ -153,3 +233,14 @@ class TransformerLM(nn.Module):
                                              length=length)
         x = apply_norm(cfg.norm, params["final_norm"], x)
         return self.unembed(params, x), cache
+
+
+def _chunk_nll(hc: torch.Tensor, yc: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B,) summed NLL of one sequence chunk: hc (B, C, D), labels yc (B, C),
+    unembedding w (D, V)."""
+    logits = (hc @ w).float()                                       # (B, C, V)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold_rows = w.T[torch.clamp(yc, 0, w.shape[1] - 1)]              # (B, C, D)
+    gold = torch.sum(hc.float() * gold_rows.float(), dim=-1)
+    valid = (yc >= 0).float()
+    return torch.sum((logz - gold) * valid, dim=-1)

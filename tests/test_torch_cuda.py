@@ -655,3 +655,87 @@ def test_quickstart_configuration_gpu_matches_cpu(cuda):
             assert abs(ra.accuracy - rb.accuracy) <= 2e-3
         if not use_es:
             assert a.rounds_run == 25
+
+
+def _reduced_lora(dtype, rank=4):
+    """A reduced gemma3 LMClassifier in ``dtype`` with rank-``rank`` LoRA on
+    each device (the same base weights, drawn on the CPU) and its data."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_federated_lm
+    from repro_torch.models import LMClassifier, LoRAClassifier
+
+    cfg = dataclasses.replace(get_arch("gemma3-4b", reduced=True), dtype=dtype)
+    base = LMClassifier(cfg, seq_len=16)
+    host = base.init(0, "cpu")
+    ds = make_federated_lm(num_clients=8, samples_per_client=8, seq_len=16,
+                           vocab_size=cfg.vocab_size, num_eval=16, seed=0)
+    models = {dev: LoRAClassifier(base, {k: v.to(dev) for k, v in host.items()}, rank=rank)
+              for dev in ("cuda", "cpu")}
+    return base, host, ds, models
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lora_lm_rounds_gpu_match_cpu(cuda, dtype):
+    """LoRA FLrce over a reduced gemma3 base (fp32 or bf16) on the card and
+    on the CPU: the same selections, exploit flags and ledger, accuracy
+    within 2e-3 and losses within 1e-4."""
+    from repro_torch.fl import FLrce, run_federated
+    from repro_torch.kernels import ops
+
+    _, _, ds, models = _reduced_lora(dtype)
+    dim = models["cpu"].adapter_dim()
+    runs = {}
+    for dev, model in models.items():
+        ops.reset_launch_counts()
+        runs[dev] = run_federated(model, ds, FLrce(8, 4, 1, dim=dim, explore_decay=0.5, seed=0),
+                                  max_rounds=3, learning_rate=0.01, batch_size=4,
+                                  torch_device=dev)
+        if dev == "cuda":
+            counts = ops.launch_counts()
+    a, b = runs["cuda"], runs["cpu"]
+    assert counts["cross_gram"] == 2 * a.rounds_run and counts["weighted_aggregate"] == a.rounds_run
+    for ra, rb in zip(a.records, b.records):
+        assert (ra.selected, ra.exploited, ra.stopped) == (rb.selected, rb.exploited, rb.stopped)
+        assert ra.energy_kj == rb.energy_kj and ra.bytes_gb == rb.bytes_gb
+        assert abs(ra.accuracy - rb.accuracy) <= 2e-3
+        assert abs(ra.mean_client_loss - rb.mean_client_loss) <= 1e-4
+    for k, v in a.final_params.items():
+        assert v.dtype == torch.float32 and bool(torch.isfinite(v).all())
+    for k, v in models["cuda"].base_params.items():
+        assert v.dtype == getattr(torch, dtype)            # the frozen base keeps its dtype
+
+
+def test_lora_lm_round_is_captured(cuda):
+    """A LoRA round over an LM (per-client autograd, remat) replays from a
+    captured graph and equals the same body run eagerly on the card."""
+    from repro_torch.fl.baselines import FedAvg
+    from repro_torch.fl.scan_driver import run_scan_driver
+
+    _, _, ds, models = _reduced_lora("float32")
+    kw = dict(max_rounds=4, learning_rate=0.01, batch_size=4, device="jetson_nano",
+              eval_every=1, seed=0, init_params=None, verbose=False, chunk_rounds=2)
+    graph = run_scan_driver(models["cuda"], ds, FedAvg(8, 4, 1, seed=0), torch_device=cuda,
+                            capture=True, **kw)
+    eager = run_scan_driver(models["cuda"], ds, FedAvg(8, 4, 1, seed=0), torch_device=cuda,
+                            capture=False, **kw)
+    st = graph.driver_stats
+    assert st["captures_chunk"] == st["programs"] >= 1 and st["replays"] == 4
+    assert st["host_syncs"] == st["chunks"]
+    for ra, rb in zip(graph.records, eager.records):
+        assert (ra.selected, ra.accuracy, ra.mean_client_loss) == \
+               (rb.selected, rb.accuracy, rb.mean_client_loss)
+    for k in graph.final_params:
+        assert torch.equal(graph.final_params[k], eager.final_params[k])
+
+
+@pytest.mark.parametrize("driver", ["loop", "scan"])
+def test_non_fp32_full_model_is_refused_on_the_card(cuda, driver):
+    from repro_torch.fl.baselines import FedAvg
+    from repro_torch.fl import run_federated
+
+    base, _, ds, _ = _reduced_lora("bfloat16")
+    with pytest.raises(ValueError, match="float32"):
+        run_federated(base, ds, FedAvg(8, 4, 1, seed=0), max_rounds=1, driver=driver,
+                      torch_device=cuda)

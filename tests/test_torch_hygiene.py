@@ -28,6 +28,10 @@ def _port_modules():
 def test_every_module_imports_without_jax_or_reference():
     mods = _port_modules()
     assert "repro_torch.kernels.ops" in mods and "repro_torch.fl.rounds" in mods
+    for new in ("repro_torch.models.lm", "repro_torch.models.lora", "repro_torch.data.lm",
+                "repro_torch.data.tokens", "repro_torch.optim", "repro_torch.optim.optimizers",
+                "repro_torch.optim.schedules", "repro_torch.launch.train"):
+        assert new in mods, new
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -144,3 +148,45 @@ def test_quickstart_example_defaults_to_cuda():
     assert proc.returncode == 0, proc.stderr
     assert "=== FLrce quickstart summary (cpu) ===" in proc.stdout
     assert "  strategy: flrce\n" in proc.stdout and "  final_accuracy: " in proc.stdout
+
+
+def test_training_entry_points_default_to_cuda():
+    """LMClassifier, LoRAClassifier and launch/train.py refuse without CUDA
+    unless asked for the CPU; train.py then runs pretrain mode."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the no-CUDA contract cannot be observed")
+    from repro_torch.configs import get_arch
+    from repro_torch.models import LMClassifier, LoRAClassifier
+
+    model = LMClassifier(get_arch("gemma3-4b", reduced=True), seq_len=8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        model.init(0)
+    lora = LoRAClassifier(model, model.init(0, "cpu"), rank=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        lora.init(0)
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="2")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--mode", "pretrain", "--arch",
+           "gemma3-4b", "--silos", "2", "--participants", "1", "--rounds", "1",
+           "--local-steps", "1", "--batch", "1", "--seq", "8"]
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and "torch.cuda.is_available() is False" in proc.stderr
+    proc = subprocess.run(cmd + ["--device", "cpu"], env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "[pretrain] gemma3-4b-reduced:" in proc.stdout and '"round": 0' in proc.stdout
+
+
+def test_lora_example_defaults_to_cuda():
+    """examples/lora_finetune_torch.py refuses without CUDA unless asked for
+    the CPU, and then runs a reduced gemma3 LoRA federation to its summary."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the no-CUDA contract cannot be observed")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="2")
+    cmd = [sys.executable, str(REPO / "examples" / "lora_finetune_torch.py")]
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and "torch.cuda.is_available() is False" in proc.stderr
+    proc = subprocess.run(cmd + ["--device", "cpu"], env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "rank-8 adapters D = 90,112" in proc.stdout
+    assert "=== LoRA fine-tuning summary (cpu) ===" in proc.stdout and "  rounds: 3" in proc.stdout
