@@ -7,13 +7,16 @@
    ``nvcc`` for ``sm_90a`` (one process per source, started together) and
    prints the build time and each kernel's registers, spills and stack
    frames; every instance of every kernel (``KERNEL_INSTANCES``: 48
-   ``decode_attention``, 4 ``gram_tri_kernel``, 12 ``topk_mask_kernel``, 12
-   ``xgram_partial_kernel``, 1 ``sum_splits_kernel``, 3 ``aggregate_kernel``)
+   ``decode_attention``, one per dtype, head_dim and 1..8 query heads a
+   block, as groups of 9..16 run as two sub-groups; 4 ``gram_tri_kernel``,
+   12 ``topk_mask_kernel``, 12 ``xgram_partial_kernel``, 1
+   ``sum_splits_kernel``, 3 ``aggregate_kernel``)
    must compile without a spill or a stack frame, and no other may appear.
    Kernel phase: holds each kernel against its plain PyTorch version on the
    card, at the main paths' shapes (K = P = 10, Q = M = 100, D = 595,914;
    gemma3-4b's decode attention at the serve run's last step and at a 32k
-   cache) and at edge shapes, and times the kernel, the plain version and one
+   cache, recurrentgemma-2b's ring layer at G = 10) and at edge shapes (G = 9,
+   10 and 16 among them), and times the kernel, the plain version and one
    PyTorch library call computing the same function (CUDA events, L2
    flushed before every launch), beside the least time the card could take.
    ``topk_mask_rows`` must equal its plain version bitwise, ties, NaN, ±inf,
@@ -86,9 +89,25 @@
    per-step wall time and peak memory; then 8 decode steps under
    ``torch.profiler``: device time by kernel and the busy share, with
    exactly one ``decode_attention_kernel`` launch per layer per step.
+   4b. Serving recurrentgemma-2b at full width (26 layers: 18 RG-LRU blocks
+   and 8 local attention layers with 10 query heads over one KV head; the
+   tree ``init`` builds holds 2,304,888,320 parameters, fp32 RG-LRU gates
+   and bf16 elsewhere; random weights from seed 0), the reference serve
+   CLI's default model: 8 requests × (2112 prompt + 64 generated) tokens,
+   cache_len 2176, so the 2,048-slot rings wrap.  ``decode_attention`` must
+   launch 8 × 2175 times; at the last step each attention layer's kernel
+   output on its own ring is held against the plain version.  Prints the
+   same serving numbers as phase 4; then 8 steps under ``torch.profiler``
+   by group (RG-LRU fp32 gate products, bf16 projections, conv and
+   recurrence work, q/k/v/o, MLP, decode attention, unembed, the rest) and
+   the busy share.  Then the model in fp32 (9.2 GB): decode-step logits
+   over 64 positions at B = 2 within 1e-3 of max|logit| of ``forward``'s.
 5. A small gemma3-family model (8 layers, window 8, fp32) teacher-forced over
    20 positions on the card and on the CPU: logits within 1e-4 of
    max|logit|, greedy tokens equal.
+   5b. The same for a small recurrentgemma-family model (the CPU tests'
+   config: 8 layers, 10 heads over one KV head, window 8) over 24
+   positions.
 6. Federated LoRA fine-tuning of gemma3-4b at full width (3.88 B bf16
    parameters, 34 layers, random weights from seed 0) through
    ``run_federated``: ``LMClassifier(cfg, seq_len=128)`` wrapped in
@@ -133,7 +152,8 @@ far the batched and sequential engines part by local step count, and what
 phase 2c's norm check reads for a sequential engine with a planted fault.
 
 The second-to-last line is the kernels' JSON record (the five kernels at
-their phase 1 shapes, then the four FL kernels at phase 6's as
+their phase 1 shapes, ``decode_attention@recurrentgemma-2b`` at its ring
+layer with phase 4b's launches, then the four FL kernels at phase 6's as
 ``<name>@gemma3-4b-lora``, with phase 6's launches); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the exit code is
 non-zero and no result line is printed.  Exits 1 when CUDA is absent or the
@@ -141,6 +161,8 @@ port's sources are not beside this file.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import gc
 import json
 import math
@@ -1257,18 +1279,32 @@ def quick_bench(torch) -> None:
 
 
 # ---------------------------------------------------------------------------
-# decode attention and the serving path (gemma3-4b)
+# decode attention and the serving path (gemma3-4b, recurrentgemma-2b)
 # ---------------------------------------------------------------------------
 # gemma3-4b at serving: 4 KV heads, groups of 2 query heads, head_dim 256
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 1536, 64
 SERVE_CACHE = SERVE_PROMPT + SERVE_GEN           # 1600
 SERVE_STEPS = SERVE_PROMPT + SERVE_GEN - 1       # 1599 decode steps
 GEMMA3_LAYERS, GEMMA3_PARAMS = 34, 3_879_907_840
+# recurrentgemma-2b at serving: 18 RG-LRU blocks and 8 local attention layers
+# (2,048-slot rings; 10 query heads over one KV head, head_dim 256)
+RG_ARCH = "recurrentgemma-2b"
+RG_B, RG_PROMPT, RG_GEN = 8, 2112, 64
+RG_CACHE = RG_PROMPT + RG_GEN                    # 2176: the rings wrap
+RG_STEPS = RG_CACHE - 1                          # 2175 decode steps
+RG_WINDOW, RG_GROUP = 2048, 10
+RG_ATTN_LAYERS = 8
+RG_PARAMS = 2_304_888_320          # the tree init builds (an RG-LRU block has no MLP)
+RG_CONFIG_PARAMS = 2_835_637_760   # ArchConfig.param_count(): the reference books one anyway
+RG_FP32_B, RG_FP32_POSITIONS = 2, 64
+RG_FP32_RTOL = 1e-3        # decode-step logits against forward's on the card, |Δ| / max|logit|:
+                           # fp32 through 26 layers, the scan against the step recurrence
 DECODE_FP32_RTOL = 1e-5    # |Δ| ≤ 1e-5·max|V|: fp32 sums reordered across splits
                            # (+ half a bf16 ulp for a bf16 output's rounding)
 SERVE_LOGIT_RTOL = 1e-4    # GPU vs CPU logits, |Δ| / max|logit|, fp32 end to end
 DECODE_KERNEL = "decode_attention_kernel"   # the one kernel a decode_attention call launches
-DECODE_INSTANCES = 2 * 3 * 8                # fp32/bf16 x hd 64/128/256 x G 1..8
+DECODE_INSTANCES = 2 * 3 * 8                # fp32/bf16 x hd 64/128/256 x a block's G 1..8
+                                            # (groups of 9..16 run as two sub-groups)
 GRAM_INSTANCES = 4                          # row tile 4/8/12/16
 TOPK_INSTANCES = 1 + 2 + 3 * 3              # (elements a thread, load width): 1 x 1, 2 x 1/2,
                                             # 4/8/16 x 1/2/4
@@ -1297,7 +1333,16 @@ DECODE_EDGES = [
     ("hd128 G1", 2, 515, 3, 1, 128, "bf16", [515, 514], 0, False),
     ("hd128 G3", 2, 515, 1, 3, 128, "fp32", [515, 1], 0, False),
     ("hd256 G8", 1, 2048, 1, 8, 256, "bf16", [2048], 0, False),
+    # groups over 8 (two sub-groups a KV head): recurrentgemma-2b's 10 heads over 1 KV head
+    ("G10 length 0 ring", 3, 2048, 1, 10, 256, "bf16", [0, 2175, 7], 2048, True),
+    ("G10 ragged", 4, 2176, 1, 10, 256, "bf16", [2176, 1, 1100, 2175], 0, False),
+    ("G10 fp32 ring", 3, 2048, 1, 10, 256, "fp32", [2175, 2048, 64], 2048, True),
+    ("G10 non-ring window", 2, 3000, 1, 10, 256, "bf16", [3000, 1500], 2048, False),
+    ("G10 length 0 one split", 2, 50, 1, 10, 256, "fp32", [0, 50], 0, False),
+    ("G9 a dummy head", 2, 515, 2, 9, 128, "bf16", [515, 3], 0, False),
+    ("G16 hd64", 2, 1000, 1, 16, 64, "fp32", [1000, 999], 0, False),
 ]
+RG_ROW = "ring@recurrentgemma-2b"   # phase 1's timed shape at recurrentgemma-2b's ring layer
 
 
 def decode_inputs(torch, gen, b, s, kv, g, hd, dtype, lengths):
@@ -1372,21 +1417,23 @@ def decode_kernel_phase(torch, timer, bandwidth) -> dict:
         print(f"  decode_attention edge {label:<28} B={b} S={s:5d} K={kv} G={g} hd={hd} {dtype}: "
               f"max |Δ| {err:.2e}")
     rows = {}
-    # (label, B, S, lengths, window, ring): the global layer at the serve run's
-    # last step, a local ring layer there, and decode_32k's cache (B cut to 16)
-    for label, b, s, length, window, ring in (
-            ("global", SERVE_B, SERVE_CACHE, SERVE_CACHE, 0, False),
-            ("ring", SERVE_B, 1024, SERVE_CACHE, 1024, True),
-            ("32k", 16, 32_768, 32_768, 0, False)):
-        q, k, v, lens = decode_inputs(torch, gen, b, s, 4, 2, 256, "bf16", [length] * b)
+    # (label, B, S, length, window, ring, K, G): gemma3-4b's global layer at the
+    # serve run's last step, a local ring layer there, decode_32k's cache (B
+    # cut to 16), and recurrentgemma-2b's ring layer at phase 4b's last step
+    for label, b, s, length, window, ring, kv, g in (
+            ("global", SERVE_B, SERVE_CACHE, SERVE_CACHE, 0, False, 4, 2),
+            ("ring", SERVE_B, 1024, SERVE_CACHE, 1024, True, 4, 2),
+            ("32k", 16, 32_768, 32_768, 0, False, 4, 2),
+            (RG_ROW, RG_B, RG_WINDOW, RG_STEPS, RG_WINDOW, True, 1, RG_GROUP)):
+        q, k, v, lens = decode_inputs(torch, gen, b, s, kv, g, 256, "bf16", [length] * b)
         kern = lambda: kdec.decode_attention_cuda(q, k, v, lens, window=window, ring=ring)  # noqa: E731
         plain = lambda: kdec.decode_attention_plain(q, k, v, lens, window=window, ring=ring)  # noqa: E731
         err = check_decode(f"decode_attention {label}", kern(),
                            kdec.decode_attention_plain(q.float(), k.float(), v.float(), lens,
                                                        window=window, ring=ring), v, torch)
         valid = min(length, s)
-        nbytes = 2 * b * valid * 4 * 256 * 2 + 2 * q.numel() * 2   # valid K/V + q + out
-        flops = 4 * b * 8 * valid * 256                             # QKᵀ and PV
+        nbytes = 2 * b * valid * kv * 256 * 2 + 2 * q.numel() * 2  # valid K/V + q + out
+        flops = 4 * b * kv * g * valid * 256                        # QKᵀ and PV
         t_bytes, t_ops = nbytes / bandwidth, flops / FP32_PEAK_FLOPS
         lib_fn, lib_name = sdpa_call(torch, q, k, v)
         rows[label] = dict(
@@ -1396,7 +1443,7 @@ def decode_kernel_phase(torch, timer, bandwidth) -> dict:
             ms=timer(kern), plain_ms=timer(plain),
             bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=timer(lib_fn), library_name=lib_name,
-            shape=f"{label} B={b} S={s} valid={valid} K=4 G=2 hd=256 bf16",
+            shape=f"{label} B={b} S={s} valid={valid} K={kv} G={g} hd=256 bf16",
         )
         r = rows[label]
         plan = kdec.launch_plan(q, k, window=window, ring=ring)
@@ -1406,10 +1453,11 @@ def decode_kernel_phase(torch, timer, bandwidth) -> dict:
         if per_call != 1:
             fail(f"decode_attention {label}: {per_call} launches for one call")
         print(f"  decode_attention {label}: grid {plan.grid} = {math.prod(plan.grid)} blocks of 128 "
-              f"threads on {plan.sms} SMs x {plan.blocks_per_sm} resident blocks (occupancy "
-              f"query), {plan.smem_bytes} B dynamic shared memory a block, {per_call} kernel "
-              f"launch per call")
-        print(f"  decode_attention {r['shape']:<44} max|Δ| {err:.3e}  kernel {r['ms']:.4f} ms  "
+              f"threads ({plan.n_sub} sub-group(s) of {plan.block_group} query heads a KV head) "
+              f"on {plan.sms} SMs x {plan.blocks_per_sm} resident blocks (occupancy query), "
+              f"{plan.smem_bytes} B dynamic shared memory a block, {per_call} kernel launch per "
+              f"call")
+        print(f"  decode_attention {r['shape']:<66} max|Δ| {err:.3e}  kernel {r['ms']:.4f} ms  "
               f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms ({lib_name})  "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes / 1e6:.1f} MB) "
               f"-> {100 * r['bound_ms'] / r['ms']:.1f}% of bound")
@@ -1418,69 +1466,132 @@ def decode_kernel_phase(torch, timer, bandwidth) -> dict:
     return rows
 
 
-def serve_phase(torch) -> tuple:
-    """gemma3-4b at full width through repro_torch.launch.serve.generate:
-    8 requests × (1536 prompt + 64 generated) tokens, every step timed."""
+def tensors(tree):
+    """Every tensor of a parameter or cache tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from tensors(v)
+    else:
+        yield tree
+
+
+def serve_phase(torch, arch, b, prompt_len, gen, want_params, want_config_params,
+                keep_calls=0) -> tuple:
+    """``arch`` at full width through repro_torch.launch.serve.generate: b
+    requests × (prompt_len prompt + gen generated) tokens, every step timed.
+    The tree ``init`` builds must hold ``want_params`` parameters, and the
+    config's analytic count must read ``want_config_params``.  The last
+    ``keep_calls`` decode_attention calls (operands and output) are kept for
+    a check.  Returns (model, params, launches, median step wall, calls)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import generate
     from repro_torch.models import TransformerLM
 
-    cfg = get_arch("gemma3-4b")
+    cfg = get_arch(arch)
     model = TransformerLM(cfg)
     t0 = time.perf_counter()
     params = model.init(0, "cuda")
     torch.cuda.synchronize()
-    n_params = params["embed"].numel() + params["final_norm"]["scale"].numel() + sum(
-        t.numel() for layer in params["layers"] for part in layer.values() for t in part.values())
-    if cfg.param_count() != GEMMA3_PARAMS or n_params != GEMMA3_PARAMS:
-        fail(f"gemma3-4b has {n_params} parameters (config {cfg.param_count()}), want {GEMMA3_PARAMS}")
-    if len(params["layers"]) != GEMMA3_LAYERS or params["embed"].dtype != torch.bfloat16:
-        fail("gemma3-4b: wrong depth or dtype")
-    print(f"  {cfg.name}: {n_params} parameters ({n_params * 2 / 1e9:.2f} GB bf16), "
-          f"{GEMMA3_LAYERS} layers ({cfg.layer_kinds().count('attn_local')} local ring of "
-          f"{cfg.window}, {cfg.layer_kinds().count('attn_global')} global), init on the card "
-          f"{time.perf_counter() - t0:.2f} s")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    prompt = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT), generator=gen, device="cuda")
+    leaves = list(tensors(params))
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    by_dtype = collections.Counter()
+    for t in leaves:
+        by_dtype[str(t.dtype).removeprefix("torch.")] += t.numel()
+    if n_params != want_params or cfg.param_count() != want_config_params:
+        fail(f"{arch}: the built tree has {n_params} parameters (want {want_params}), the "
+             f"config's count {cfg.param_count()} (want {want_config_params})")
+    kinds = cfg.layer_kinds()
+    if params["embed"].dtype != torch.bfloat16 or len(params["layers"]) != len(kinds):
+        fail(f"{arch}: embedding not bf16 or {len(params['layers'])} layers built")
+    n_attn = sum(kind.startswith("attn") for kind in kinds)
+    steps_total = prompt_len + gen - 1
+    print(f"  {cfg.name}: {n_params} parameters in the built tree ({n_bytes / 1e9:.2f} GB: "
+          + ", ".join(f"{n} {dt}" for dt, n in by_dtype.items()) + f"; the config's "
+          f"param_count() says {cfg.param_count()}), {len(kinds)} layers ("
+          + ", ".join(f"{kinds.count(k)} {k}" for k in sorted(set(kinds)))
+          + f"; window {cfg.window}), init on the card {time.perf_counter() - t0:.2f} s")
+    gen_ = torch.Generator(device="cuda").manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (b, prompt_len), generator=gen_, device="cuda")
     stamps = []
 
     def on_step(pos):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
 
+    calls = collections.deque(maxlen=keep_calls)
+    inner = ops.decode_attention
+
+    def recording(q, k, v, length, *, window=0, ring=False):
+        out = inner(q, k, v, length, window=window, ring=ring)
+        calls.append((q, k, v, length, window, ring, out))
+        return out
+
+    if keep_calls:
+        ops.decode_attention = recording
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    seq = generate(model, params, prompt, SERVE_GEN, SERVE_CACHE, on_step=on_step)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        seq = generate(model, params, prompt, gen, prompt_len + gen, on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        ops.decode_attention = inner
     want = {"cross_gram": 0, "gram": 0, "weighted_aggregate": 0, "topk_mask_rows": 0,
-            "decode_attention": GEMMA3_LAYERS * SERVE_STEPS}
+            "decode_attention": n_attn * steps_total}
     if launches != want:
-        fail(f"serve: launches {launches}, want {want}")
-    if tuple(seq.shape) != (SERVE_B, SERVE_CACHE) or not torch.equal(seq[:, :SERVE_PROMPT], prompt):
-        fail(f"serve: output {tuple(seq.shape)} does not extend the prompt")
-    if int(seq.min()) < 0 or int(seq.max()) >= cfg.vocab_size or len(stamps) != SERVE_STEPS:
-        fail("serve: tokens out of the vocabulary or steps missing")
-    steps = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
-    prefill_s = stamps[SERVE_PROMPT - 1] - t0             # the prompt's 1536 steps → 1st token
-    gen_s = stamps[-1] - stamps[SERVE_PROMPT - 1]          # the other 63 generated tokens
+        fail(f"serve {arch}: launches {launches}, want {want}")
+    if tuple(seq.shape) != (b, prompt_len + gen) or not torch.equal(seq[:, :prompt_len], prompt):
+        fail(f"serve {arch}: output {tuple(seq.shape)} does not extend the prompt")
+    if int(seq.min()) < 0 or int(seq.max()) >= cfg.vocab_size or len(stamps) != steps_total:
+        fail(f"serve {arch}: tokens out of the vocabulary or steps missing")
+    steps = [y - x for x, y in zip([t0] + stamps[:-1], stamps)]
+    prefill_s = stamps[prompt_len - 1] - t0             # the prompt's steps → 1st token
+    gen_s = stamps[-1] - stamps[prompt_len - 1]          # the other generated tokens
     step_med = sorted(steps)[len(steps) // 2]
-    print(f"  {SERVE_STEPS} decode steps in {wall:.2f} s, each step synchronised: prefill "
-          f"({SERVE_PROMPT} steps, to the first generated token) {prefill_s:.2f} s, generation "
-          f"({SERVE_GEN - 1} steps) {gen_s:.3f} s")
-    print(f"  tokens/s: {SERVE_B * SERVE_STEPS / wall:.1f} through the decode step, "
-          f"{SERVE_B * (SERVE_GEN - 1) / gen_s:.1f} generated; per-step wall median "
+    print(f"  {steps_total} decode steps in {wall:.2f} s, each step synchronised: prefill "
+          f"({prompt_len} steps, to the first generated token) {prefill_s:.2f} s, generation "
+          f"({gen - 1} steps) {gen_s:.3f} s")
+    print(f"  tokens/s: {b * steps_total / wall:.1f} through the decode step, "
+          f"{b * (gen - 1) / gen_s:.1f} generated; per-step wall median "
           f"{1e3 * step_med:.2f} ms (min {1e3 * min(steps):.2f}, max {1e3 * max(steps):.2f}; "
-          f"prefill median {1e3 * sorted(steps[:SERVE_PROMPT])[SERVE_PROMPT // 2]:.2f}, generation "
-          f"median {1e3 * sorted(steps[SERVE_PROMPT:])[(SERVE_GEN - 1) // 2]:.2f})")
+          f"prefill median {1e3 * sorted(steps[:prompt_len])[prompt_len // 2]:.2f}, generation "
+          f"median {1e3 * sorted(steps[prompt_len:])[(gen - 1) // 2]:.2f})")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
           f"{launches}")
-    print(f"  request 0, first generated tokens: {seq[0, SERVE_PROMPT:SERVE_PROMPT + 16].tolist()}")
-    return model, params, launches, step_med
+    print(f"  request 0, first generated tokens: {seq[0, prompt_len:prompt_len + 16].tolist()}")
+    return model, params, launches, step_med, list(calls)
+
+
+def rg_last_step_check(torch, cfg, calls) -> None:
+    """Each local attention layer's kernel output at phase 4b's last step,
+    on its own wrapped 2,048-slot ring, against the plain version."""
+    from repro_torch.kernels import decode_attention as kdec
+
+    if len(calls) != RG_ATTN_LAYERS or len({c[1].data_ptr() for c in calls}) != RG_ATTN_LAYERS:
+        fail(f"serve {RG_ARCH}: the last step's {len(calls)} attention calls are not "
+             f"{RG_ATTN_LAYERS} layers' own caches")
+    worst = 0.0
+    for i, (q, k, v, length, window, ring, out) in enumerate(calls):
+        if (not ring or window != RG_WINDOW or k.shape[1] != RG_WINDOW
+                or int(length.min()) != RG_STEPS or q.shape[1] != RG_GROUP * k.shape[2]):
+            fail(f"serve {RG_ARCH} attention layer {i}: not a wrapped {RG_WINDOW}-slot ring at "
+                 f"G = {RG_GROUP} (ring {ring}, window {window}, cache {tuple(k.shape)}, "
+                 f"length {int(length.min())})")
+        worst = max(worst, check_decode(
+            f"serve {RG_ARCH} last step, attention layer {i}", out,
+            kdec.decode_attention_plain(q.float(), k.float(), v.float(), length, window=window,
+                                        ring=ring), v, torch))
+    print(f"  last step: the {RG_ATTN_LAYERS} local layers' kernel outputs on their own wrapped "
+          f"rings (length {RG_STEPS} > {RG_WINDOW} slots, G = {RG_GROUP}) against the plain "
+          f"version: max |Δ| {worst:.3e}, within 1e-5·max|V| + half a bf16 ulp")
 
 
 def serve_profile(torch, model, params, step_wall_s: float, steps: int = 8) -> None:
@@ -1555,21 +1666,33 @@ def serve_profile(torch, model, params, step_wall_s: float, steps: int = 8) -> N
         print(f"  {us / 1e3 / steps:8.3f} ms/step  {100 * us / total_us:5.1f}%  {label}")
 
 
-def serve_reference_check(torch) -> None:
-    """A small gemma3-family model (8 layers, window 8, fp32) teacher-forced
-    over 20 positions with cache_len 20 on the card and on the CPU: the local
-    rings wrap; logits and greedy tokens must agree."""
+def small_config(arch):
+    """Phase 5's and 5b's small fp32 model of ``arch``'s family, the CPU
+    tests' config: ``reduce_config`` at 8 layers and window 8 (for
+    recurrentgemma-2b also its 10 query heads over one KV head), and how
+    many positions it is teacher-forced over, so that the rings of 8 wrap."""
     import dataclasses
 
+    from repro_torch.configs import get_arch, reduce_config
+
+    kw = dict(num_layers=8, window=8, dtype="float32")
+    if arch == RG_ARCH:
+        kw.update(num_heads=RG_GROUP, num_kv_heads=1)
+    return dataclasses.replace(reduce_config(get_arch(arch)), **kw), 24 if arch == RG_ARCH else 20
+
+
+def serve_reference_check(torch, arch) -> None:
+    """A small ``arch``-family model (``small_config``) teacher-forced with
+    cache_len = positions on the card and on the CPU: the local rings wrap;
+    logits and greedy tokens must agree, and the kernel must launch once per
+    attention layer per position."""
     import numpy as np
 
-    from repro_torch.configs import get_arch, reduce_config
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import build_serve_step
     from repro_torch.models import TransformerLM
 
-    cfg = dataclasses.replace(reduce_config(get_arch("gemma3-4b")), num_layers=8, window=8,
-                              dtype="float32")
+    cfg, positions = small_config(arch)
     model = TransformerLM(cfg)
     params = model.init(0, "cpu")
 
@@ -1580,27 +1703,171 @@ def serve_reference_check(torch) -> None:
             return [to(v, dev) for v in tree]
         return tree.to(dev)
 
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 20)))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (4, positions)))
     runs = {}
     ops.reset_launch_counts()
     for dev in ("cuda", "cpu"):
         serve = build_serve_step(model)
-        p, cache = to(params, dev), model.init_cache(4, 20, dev)
+        p, cache = to(params, dev), model.init_cache(4, positions, dev)
         out = []
-        for pos in range(20):
+        for pos in range(positions):
             nxt, logits, cache = serve(p, tokens[:, pos:pos + 1].to(dev), cache, pos)
             out.append((nxt.cpu(), logits.float().cpu()))
         runs[dev] = out
-    if ops.launch_counts()["decode_attention"] != 8 * 20:
-        fail(f"small serve: {ops.launch_counts()['decode_attention']} kernel launches, want 160")
+    n_attn = sum(kind.startswith("attn") for kind in cfg.layer_kinds())
+    if ops.launch_counts()["decode_attention"] != n_attn * positions:
+        fail(f"small {arch} serve: {ops.launch_counts()['decode_attention']} kernel launches, "
+             f"want {n_attn * positions}")
     worst = 0.0
     for pos, ((ta, la), (tb, lb)) in enumerate(zip(runs["cuda"], runs["cpu"])):
         rel = float((la - lb).abs().max() / lb.abs().max())
         worst = max(worst, rel)
         if rel > SERVE_LOGIT_RTOL or not torch.equal(ta, tb):
-            fail(f"small serve position {pos}: GPU/CPU logits |Δ|/max {rel:.2e} or tokens differ")
-    print(f"  small gemma3-family model ({cfg.num_layers} layers, window {cfg.window}, fp32) GPU == "
-          f"CPU over 20 positions: logits |Δ|/max|logit| ≤ {worst:.2e}, greedy tokens equal")
+            fail(f"small {arch} serve position {pos}: GPU/CPU logits |Δ|/max {rel:.2e} or tokens "
+                 f"differ")
+    kinds = cfg.layer_kinds()
+    print(f"  small {arch}-family model ({cfg.num_layers} layers: "
+          + ", ".join(f"{kinds.count(k)} {k}" for k in sorted(set(kinds)))
+          + f"; {cfg.num_heads} heads over {cfg.num_kv_heads} KV, window {cfg.window}, fp32) GPU == "
+          f"CPU over {positions} positions: logits |Δ|/max|logit| ≤ {worst:.2e}, greedy tokens "
+          f"equal, {n_attn * positions} kernel launches")
+
+
+@contextlib.contextmanager
+def annotated(targets):
+    """While the block runs, wrap each (owner, attribute, label) callable in
+    ``torch.profiler.record_function(label)``."""
+    from torch.profiler import record_function
+
+    saved = []
+    for owner, attr, label in targets:
+        inner = getattr(owner, attr)
+
+        def wrapper(*args, _inner=inner, _label=label, **kwargs):
+            with record_function(_label):
+                return _inner(*args, **kwargs)
+
+        saved.append((owner, attr, inner))
+        setattr(owner, attr, wrapper)
+    try:
+        yield
+    finally:
+        for owner, attr, inner in reversed(saved):
+            setattr(owner, attr, inner)
+
+
+RG_SPANS = ("rglru_block", "rglru_gates", "rglru_conv", "attention", "mlp", "unembed")
+
+
+def rg_group(name: str, label, op: str) -> str:
+    """Phase 4b's group of a kernel, from its innermost ``RG_SPANS`` label
+    and whether a product op (``aten::mm``, ``addmm``, ``bmm``) launched it."""
+    product = op.endswith("mm")
+    if DECODE_KERNEL in name:
+        return "decode attention (this port's kernel, G = 10)"
+    if label == "rglru_gates" and product:
+        return "RG-LRU fp32 gate products (w_a, w_x)"
+    if label == "rglru_block" and product:
+        return "RG-LRU bf16 projections (w_up, w_gate, w_down)"
+    if label in ("rglru_gates", "rglru_block", "rglru_conv"):
+        return "RG-LRU conv and recurrence elementwise work"
+    if label == "attention":
+        return "q/k/v/o projections" if product else "norms, RoPE, casts, residuals"
+    if label == "mlp":
+        return "MLP (gated, d_ff 7,680)"
+    if label == "unembed":
+        return "unembed (tied embedding, vocab 256,000)"
+    return "norms, RoPE, casts, residuals"
+
+
+def rg_serve_profile(torch, model, params, step_wall_s: float, steps: int = 8) -> None:
+    """Device time by group over ``steps`` decode steps at phase 4b's last
+    positions, through the same serve step on a fresh cache (the rings'
+    2,048 valid slots and the RG-LRU work are the run's last steps')."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import attention, rglru, transformer
+
+    serve = build_serve_step(model)
+    cache = model.init_cache(RG_B, RG_CACHE, "cuda")
+    tok = torch.zeros(RG_B, 1, dtype=torch.long, device="cuda")
+    first = RG_STEPS - steps
+    for pos in range(first - 2, first):                  # warm-up, not profiled
+        tok, logits, cache = serve(params, tok, cache, pos)
+        tok = tok[:, None]
+    torch.cuda.synchronize()
+    spans = [(rglru, "rglru_decode_step", "rglru_block"), (rglru, "_gates", "rglru_gates"),
+             (rglru, "conv1d_decode", "rglru_conv"),
+             (attention, "attention_decode_step", "attention"),
+             (transformer, "apply_mlp", "mlp"), (transformer.TransformerLM, "unembed", "unembed")]
+    with annotated(spans), profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for pos in range(first, RG_STEPS):
+            tok, logits, cache = serve(params, tok, cache, pos)
+            tok = tok[:, None]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if not torch.isfinite(logits.float()).all() or tuple(logits.shape) != (RG_B, 1, 256_000):
+        fail("recurrentgemma serve profile: logits not finite or of the wrong shape")
+    groups, busy_us, n_kernels, top = device_groups(prof, RG_SPANS, rg_group)
+    if not n_kernels:
+        fail("the profiler saw no device activity")
+    decode_launches = sum(n for name, (_, n) in top if DECODE_KERNEL in name)
+    if decode_launches != RG_ATTN_LAYERS * steps:
+        fail(f"recurrentgemma serve profile: {decode_launches} decode attention kernel launches "
+             f"in {steps} steps, want one per attention layer per step ({RG_ATTN_LAYERS * steps})")
+    total = sum(groups.values())
+    busy_step = busy_us / 1e6 / steps
+    print(f"  {steps} steps under the profiler: wall {wall:.3f} s, device busy {busy_us / 1e6:.4f} s "
+          f"({n_kernels} kernels, {n_kernels / steps:.0f} a step, {decode_launches / steps:.0f} "
+          f"{DECODE_KERNEL} a step); busy per step {1e3 * busy_step:.3f} ms = "
+          f"{100 * busy_step / step_wall_s:.1f}% of the unprofiled median step "
+          f"({1e3 * step_wall_s:.2f} ms)")
+    for label, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  {us / 1e3 / steps:8.3f} ms/step  {100 * us / total:5.1f}%  {label}")
+    for name, (us, n) in top[:10]:
+        print(f"    top kernel {us / 1e3 / steps:8.3f} ms/step  {n / steps:5.0f}/step  {name[:110]}")
+
+
+def rg_fp32_check(torch) -> None:
+    """recurrentgemma-2b at full width in fp32: decode-step logits over
+    RG_FP32_POSITIONS positions at B = RG_FP32_B against ``forward``'s (the
+    RG-LRU scan and chunked attention) on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import TransformerLM
+
+    cfg = dataclasses.replace(get_arch(RG_ARCH), dtype="float32")
+    model = TransformerLM(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, "cuda")
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors(params))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (RG_FP32_B, RG_FP32_POSITIONS), generator=gen,
+                           device="cuda")
+    with torch.no_grad():
+        full = model.forward(params, {"tokens": tokens})
+        cache = model.init_cache(RG_FP32_B, RG_FP32_POSITIONS, "cuda")
+        worst, same = 0.0, 0
+        for pos in range(RG_FP32_POSITIONS):
+            logits, cache = model.decode_step(params, tokens[:, pos:pos + 1], cache, pos)
+            want = full[:, pos]
+            worst = max(worst, float((logits[:, 0] - want).abs().max() / want.abs().max()))
+            same += int((logits[:, 0].argmax(-1) == want.argmax(-1)).sum())
+    torch.cuda.synchronize()
+    if not torch.isfinite(full).all() or tuple(full.shape) != (RG_FP32_B, RG_FP32_POSITIONS,
+                                                               cfg.vocab_size):
+        fail(f"{RG_ARCH} fp32 forward: logits not finite or of the wrong shape")
+    if worst > RG_FP32_RTOL:
+        fail(f"{RG_ARCH} fp32: decode-step logits |Δ|/max {worst:.2e} from forward's "
+             f"(limit {RG_FP32_RTOL:.0e})")
+    print(f"  {cfg.name} fp32 ({n_bytes / 1e9:.2f} GB of parameters): decode-step logits against "
+          f"forward's over {RG_FP32_POSITIONS} positions at B={RG_FP32_B}: |Δ|/max|logit| ≤ "
+          f"{worst:.3e} (limit {RG_FP32_RTOL:.0e}), argmax equal at {same} of "
+          f"{RG_FP32_B * RG_FP32_POSITIONS}; {time.perf_counter() - t0:.1f} s")
 
 
 # ``--decode-variants``: csrc/decode_attention.cu with these substitutions,
@@ -1625,12 +1892,13 @@ DECODE_VARIANTS = {
     "2 x 4 KB, one thread fences": [(
         "  __threadfence();\n  __syncthreads();\n  if (threadIdx.x == 0) *last_flag",
         "  __syncthreads();\n  if (threadIdx.x == 0) __threadfence();\n  if (threadIdx.x == 0) *last_flag")],
+    "2 x 4 KB, one row a rescale at G = 5": [("g <= 5 ? 2 : 1;", "g <= 4 ? 2 : 1;")],
     "2 x 4 KB, __expf": [("const float alpha = expf(", "const float alpha = __expf("),
                          ("const float p = expf(", "const float p = __expf(")],
     "2 x 4 KB, split only": [("  if (!*last_flag) return;", "  return;")],
-    "2 x 4 KB, empty": [("  const int split = blockIdx.x, k = blockIdx.y, b = blockIdx.z;",
+    "2 x 4 KB, empty": [("  const int split = blockIdx.x, k = blockIdx.y / n_sub, b = blockIdx.z;",
                          "  if (S > 0) return;\n"
-                         "  const int split = blockIdx.x, k = blockIdx.y, b = blockIdx.z;")],
+                         "  const int split = blockIdx.x, k = blockIdx.y / n_sub, b = blockIdx.z;")],
 }
 
 
@@ -1934,23 +2202,27 @@ def topk_route(torch, padded, k: int):
 
 
 def decode_variants(torch, timer, bandwidth) -> None:
-    """Time each of DECODE_VARIANTS at the three decode shapes and an S sweep
-    (B = 8, K = 4, G = 2, hd = 256, bf16), beside SDPA; the variants that
-    compute the function are held against the plain version first."""
+    """Time each of DECODE_VARIANTS at the three decode shapes, an S sweep
+    (B = 8, K = 4, G = 2, hd = 256, bf16) and recurrentgemma-2b's ring layer
+    (K = 1, G = 10), beside SDPA; the variants that compute the function
+    are held against the plain version first."""
     import ctypes
 
     from repro_torch.kernels import build, grid
     from repro_torch.kernels import decode_attention as kdec
 
-    libs = build_variants([("decode_attention.cu", subs) for subs in DECODE_VARIANTS.values()])
+    libs = build_variants([("decode_attention.cu", subs) for subs in DECODE_VARIANTS.values()],
+                          show=("decode_attention_kernel<13__nv_bfloat16Li256ELi2>",
+                                "decode_attention_kernel<13__nv_bfloat16Li256ELi5>"))
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    shapes = [("global", SERVE_B, SERVE_CACHE, SERVE_CACHE, 0, False),
-              ("ring", SERVE_B, 1024, SERVE_CACHE, 1024, True),
-              ("32k", 16, 32_768, 32_768, 0, False)]
-    shapes += [(f"S={s}", SERVE_B, s, s, 0, False) for s in (64, 256, 512, 3200, 6400)]
-    inputs = {label: decode_inputs(torch, gen, b, s, 4, 2, 256, "bf16", [length] * b)
-              for label, b, s, length, _, _ in shapes}
+    shapes = [("global", SERVE_B, SERVE_CACHE, SERVE_CACHE, 0, False, 4, 2),
+              ("ring", SERVE_B, 1024, SERVE_CACHE, 1024, True, 4, 2),
+              ("32k", 16, 32_768, 32_768, 0, False, 4, 2),
+              ("rg ring", RG_B, RG_WINDOW, RG_STEPS, RG_WINDOW, True, 1, RG_GROUP)]
+    shapes += [(f"S={s}", SERVE_B, s, s, 0, False, 4, 2) for s in (64, 256, 512, 3200, 6400)]
+    inputs = {label: decode_inputs(torch, gen, b, s, kv, g, 256, "bf16", [length] * b)
+              for label, b, s, length, _, _, kv, g in shapes}
     sdpa = {label: timer(sdpa_call(torch, *inputs[label][:3])[0]) for label, *_ in shapes}
     lib, min_rows = build.library(), kdec._MIN_ROWS
     try:
@@ -1963,7 +2235,7 @@ def decode_variants(torch, timer, bandwidth) -> None:
             for counters in grid.ARRIVALS.values():
                 counters.zero_()
             print(f"  variant {name}")
-            for label, b, s, length, window, ring in shapes:
+            for label, b, s, length, window, ring, kv, g in shapes:
                 q, k, v, lens = inputs[label]
                 fn = lambda: kdec.decode_attention_cuda(q, k, v, lens, window=window, ring=ring)  # noqa: E731
                 if "split only" not in name and "empty" not in name:
@@ -1971,7 +2243,7 @@ def decode_variants(torch, timer, bandwidth) -> None:
                         q.float(), k.float(), v.float(), lens, window=window, ring=ring), v, torch)
                 plan = kdec.launch_plan(q, k, window=window, ring=ring)
                 ms = timer(fn)
-                bound = (2 * b * min(length, s) * 4 * 256 * 2 + 2 * q.numel() * 2) / bandwidth * 1e3
+                bound = (2 * b * min(length, s) * kv * 256 * 2 + 2 * q.numel() * 2) / bandwidth * 1e3
                 print(f"    {label:<7} grid {plan.grid}, {plan.blocks_per_sm} blocks/SM, "
                       f"{plan.smem_bytes} B: {ms:.4f} ms, bound {bound:.4f} ms "
                       f"({100 * bound / ms:.1f}%), SDPA {sdpa[label]:.4f} ms")
@@ -2224,40 +2496,25 @@ def lora_profile(torch, lora, ds, adapters, dim, main_records, rounds: int = 2) 
     profiled run's own wall (a lower bound, since the profiler's host
     overhead is in that wall) and against the same rounds' unprofiled walls
     in ``main_records`` (whose round 0 also paid first-call costs)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.fl import FLrce, run_federated
     from repro_torch.models import attention, lora as lora_mod, transformer
 
-    patched = []
-
-    def annotate(module, attr, label):
-        inner = getattr(module, attr)
-
-        def wrapper(*args, **kwargs):
-            with record_function(label):
-                return inner(*args, **kwargs)
-
-        patched.append((module, attr, inner))
-        setattr(module, attr, wrapper)
-
-    annotate(attention, "chunked_attention", "chunked_attention")
-    annotate(transformer, "_chunk_nll", "cross_entropy")
-    annotate(lora_mod.LoRAClassifier, "merge", "lora_merge")
+    spans = [(attention, "chunked_attention", "chunked_attention"),
+             (transformer, "_chunk_nll", "cross_entropy"),
+             (lora_mod.LoRAClassifier, "merge", "lora_merge")]
     strategy = FLrce(LORA_M, LORA_P, 1, dim=dim, explore_decay=0.5, seed=0)
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            res = run_federated(lora, ds, strategy, max_rounds=rounds, learning_rate=LORA_LR,
-                                batch_size=LORA_BATCH, seed=0, init_params=adapters,
-                                torch_device="cuda")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        for module, attr, inner in patched:
-            setattr(module, attr, inner)
+    with annotated(spans), profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = run_federated(lora, ds, strategy, max_rounds=rounds, learning_rate=LORA_LR,
+                            batch_size=LORA_BATCH, seed=0, init_params=adapters,
+                            torch_device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     t0 = time.perf_counter()
-    groups, busy_us, n_kernels, top = device_groups(prof)
+    groups, busy_us, n_kernels, top = device_groups(prof, LORA_GROUPS, lora_group)
     total = sum(groups.values())
     main_walls = [r.wall_s for r in main_records[:rounds]]
     same = [r.selected for r in res.records] == [r.selected for r in main_records[:rounds]]
@@ -2275,36 +2532,57 @@ def lora_profile(torch, lora, ds, adapters, dim, main_records, rounds: int = 2) 
         print(f"    top kernel {us / 1e3 / rounds:9.2f} ms/round  {n / rounds:7.0f}/round  {name[:120]}")
 
 
-def device_groups(prof) -> tuple:
+def lora_group(name: str, label, op: str) -> str:
+    """Phase 6's group of a kernel: the FL kernels by name, copies by kind,
+    then its ``LORA_GROUPS`` label; unlabelled GEMMs are the model's
+    projections and unembedding."""
+    low = name.lower()
+    if any(kernel in name for kernel in PROFILED_KERNEL.values()) or "sum_splits" in name:
+        return "FL server kernels (this port's)"
+    if "memcpy htod" in low:
+        return "H2D copies"
+    if "memcpy" in low or "memset" in low:
+        return "other copies and sets"
+    if label is not None:
+        return {"lora_merge": "LoRA merges (forward and backward)",
+                "chunked_attention": "chunked attention (fp32; forward, recompute, backward)",
+                "cross_entropy": "chunked cross-entropy (forward, recompute, backward)"}[label]
+    if "gemm" in low or "xmma" in low or "nvjet" in low or "cutlass" in low:
+        return "projection and unembedding GEMMs (forward, recompute, backward)"
+    return "other kernels (norms, RoPE, MLP activations, residuals, gathers, SGD)"
+
+
+def device_groups(prof, labels: tuple, group_of) -> tuple:
     """(device µs by group, busy µs, kernel count, top kernels) from the
     profiler's raw records.  A kernel belongs to the CPU op that launched it
     (its linked correlation id); the op to the innermost span around it on
-    its thread that carries a label: an annotation of ``LORA_GROUPS``
+    its thread that carries a label: an annotation named in ``labels``
     (forward, or recomputed under remat), or a backward node whose
     forward op (same creating thread and sequence number) ran inside one.
-    Unlabelled GEMMs are the model's projections and unembedding; the FL
-    kernels go by name, copies by kind.  The annotations' own device-side
-    ranges are not kernels and are left out."""
+    ``group_of(kernel name, label or None, launching op's name)`` names
+    each kernel's group.  The annotations' own device-side ranges are not
+    kernels and are left out."""
     import torch
 
-    ops, kernels = [], []
+    ops, kernels, op_name = [], [], {}
     annotations, evaluate = [], []
     for e in prof.profiler.kineto_results.events():
         name = e.name()
         if e.device_type() == torch.autograd.DeviceType.CUDA:
-            if name not in LORA_GROUPS:
+            if name not in labels:
                 kernels.append((name, e.start_ns(), e.duration_ns(), e.linked_correlation_id()))
             continue
         if e.linked_correlation_id() > 0:
             continue           # a runtime call (the launch); it links to its op
         start, tid = e.start_ns(), e.start_thread_id()
         end = start + e.duration_ns()
-        if name in LORA_GROUPS:
+        if name in labels:
             annotations.append((tid, start, end, name))
         elif name.startswith("autograd::engine::evaluate_function"):
             evaluate.append((tid, start, end, (e.fwd_thread_id(), e.sequence_nr())))
         else:
             ops.append((tid, start, end, e.correlation_id(), e.sequence_nr()))
+            op_name[e.correlation_id()] = name
 
     def innermost(spans, items):
         """For items (tid, start, end, key) the label of the innermost span
@@ -2340,22 +2618,7 @@ def device_groups(prof) -> tuple:
         us = dur / 1e3
         t_us, t_n = top.get(name, (0.0, 0))
         top[name] = (t_us + us, t_n + 1)
-        low = name.lower()
-        label = op_label.get(corr)
-        if any(kernel in name for kernel in PROFILED_KERNEL.values()) or "sum_splits" in name:
-            group = "FL server kernels (this port's)"
-        elif "memcpy htod" in low:
-            group = "H2D copies"
-        elif "memcpy" in low or "memset" in low:
-            group = "other copies and sets"
-        elif label is not None:
-            group = {"lora_merge": "LoRA merges (forward and backward)",
-                     "chunked_attention": "chunked attention (fp32; forward, recompute, backward)",
-                     "cross_entropy": "chunked cross-entropy (forward, recompute, backward)"}[label]
-        elif "gemm" in low or "xmma" in low or "nvjet" in low or "cutlass" in low:
-            group = "projection and unembedding GEMMs (forward, recompute, backward)"
-        else:
-            group = "other kernels (norms, RoPE, MLP activations, residuals, gathers, SGD)"
+        group = group_of(name, op_label.get(corr), op_name.get(corr, ""))
         groups[group] = groups.get(group, 0.0) + us
     busy_ns, last_end = 0, float("-inf")
     for start, end in sorted((k[1], k[1] + k[2]) for k in kernels):
@@ -2487,6 +2750,7 @@ def main() -> int:
     rows = kernel_phase(torch, timer, bandwidth)
     decode_rows = decode_kernel_phase(torch, timer, bandwidth)
     rows["decode_attention"] = decode_rows["global"]
+    rows[f"decode_attention@{RG_ARCH}"] = decode_rows[RG_ROW]
     del timer
     torch.cuda.empty_cache()
 
@@ -2522,15 +2786,37 @@ def main() -> int:
 
     print(f"phase 4: serve gemma3-4b at full width, {SERVE_B} requests x ({SERVE_PROMPT} prompt + "
           f"{SERVE_GEN} generated) tokens")
-    model, params, serve_launches, step_wall_s = serve_phase(torch)
+    model, params, serve_launches, step_wall_s, _ = serve_phase(
+        torch, "gemma3-4b", SERVE_B, SERVE_PROMPT, SERVE_GEN, GEMMA3_PARAMS, GEMMA3_PARAMS)
     launches["decode_attention"] = serve_launches["decode_attention"]
     print("profile: device time by kernel of the serve step")
     serve_profile(torch, model, params, step_wall_s)
     del model, params
     torch.cuda.empty_cache()
 
+    print(f"phase 4b: serve {RG_ARCH} at full width, {RG_B} requests x ({RG_PROMPT} prompt + "
+          f"{RG_GEN} generated) tokens")
+    model, params, rg_launches, rg_step_s, calls = serve_phase(
+        torch, RG_ARCH, RG_B, RG_PROMPT, RG_GEN, RG_PARAMS, RG_CONFIG_PARAMS,
+        keep_calls=RG_ATTN_LAYERS)
+    launches[f"decode_attention@{RG_ARCH}"] = rg_launches["decode_attention"]
+    rg_last_step_check(torch, model.cfg, calls)
+    del calls
+    print(f"profile: device time by group of the {RG_ARCH} serve step")
+    rg_serve_profile(torch, model, params, rg_step_s)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{RG_ARCH} at full width in fp32, {RG_FP32_POSITIONS} positions at B={RG_FP32_B}: "
+          f"decode steps against forward")
+    rg_fp32_check(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     print("phase 5: a small gemma3-family model served on the GPU and on the CPU")
-    serve_reference_check(torch)
+    serve_reference_check(torch, "gemma3-4b")
+    print(f"phase 5b: a small {RG_ARCH}-family model served on the GPU and on the CPU")
+    serve_reference_check(torch, RG_ARCH)
     torch.cuda.empty_cache()
 
     print(f"phase 6: federated LoRA (rank {LORA_RANK}) on {LORA_ARCH} at full width, M={LORA_M}, "
@@ -2544,12 +2830,13 @@ def main() -> int:
     lora_reference_check(torch)
 
     kernels = []
-    for name in ("cross_gram", "gram", "weighted_aggregate", "topk_mask_rows", "decode_attention"):
+    for name in ("cross_gram", "gram", "weighted_aggregate", "topk_mask_rows", "decode_attention",
+                 f"decode_attention@{RG_ARCH}"):
         r = rows[name]
         kernels.append({
             "name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
             # topk_mask_rows: its path is the Fedcom run; decode_attention: the
-            # gemma3-4b serve run; the others: FLrce's
+            # gemma3-4b serve run (@recurrentgemma-2b: phase 4b's); the others: FLrce's
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

@@ -1,8 +1,9 @@
 """Config registry of the port: ``get_arch(name)``, ``list_archs()`` and
 ``reduce_config``, copied from the reference's ``src/repro/configs``.
 
-The registry holds the dense attention-only architectures, the ones whose
-blocks the port has (global and sliding-window attention with a dense MLP).
+The registry holds the architectures whose blocks the port has: the dense
+attention-only ones (global and sliding-window attention with a dense MLP)
+and the hybrid recurrentgemma-2b (RG-LRU blocks beside local attention).
 Every other architecture of the reference raises ``KeyError`` until the
 slice that ports its blocks.
 """
@@ -20,6 +21,7 @@ _ARCH_MODULES = {
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
     "minitron-4b": "repro_torch.configs.minitron_4b",
     "deepseek-7b": "repro_torch.configs.deepseek_7b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 
 # the reference's other architectures and the blocks they wait for
@@ -28,7 +30,6 @@ _LATER = {
     "phi-3-vision-4.2b": "image tokens",
     "dbrx-132b": "mixture-of-experts blocks",
     "mixtral-8x22b": "mixture-of-experts blocks",
-    "recurrentgemma-2b": "the RG-LRU block",
     "whisper-medium": "the encoder and cross-attention",
 }
 

@@ -123,7 +123,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flrce_topk_mask_occupancy.argtypes = [i64, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
     lib.flrce_topk_mask_occupancy.restype = i32
     lib.flrce_decode_attention.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64,
-                                           i64, i32, i32, ctypes.c_float, p]
+                                           i64, i64, i32, i32, ctypes.c_float, p]
     lib.flrce_decode_attention.restype = i32
     lib.flrce_decode_attention_occupancy.argtypes = [i32, i64, i64, ctypes.POINTER(i32),
                                                      ctypes.POINTER(i32)]

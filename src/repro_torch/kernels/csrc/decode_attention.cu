@@ -6,7 +6,7 @@
 // decode_attention (_decode_attn_kernel), and covers the window / ring masks of
 // decode_attention_jnp (src/repro/models/attention.py:176), the function the
 // reference's serving path calls.  For q (B, H, hd), caches (B, S, K, hd) and
-// length (B,), with G = H / K query heads per KV head:
+// length (B,), with G = H / K query heads per KV head (any G up to 16):
 //   * valid slots: ring: s < min(length, S); otherwise s < length, and with
 //     window > 0 also s >= length - window.  Either way a contiguous range
 //     [lo, hi) of slots;
@@ -27,7 +27,16 @@
 // gap.  What the design does about it:
 //   * split-S: one 128-thread block per (split of the valid range, KV head,
 //     sequence); the G query heads of a KV head share the block, so each K/V
-//     row is read once for all of them.  The wrapper plans the split count
+//     row is read once for all of them.  A block holds its heads' q and
+//     accumulators in registers, G·hd/32 floats a lane each, and at hd 256
+//     an instance takes 126 registers at G = 4 and 218 at G = 8: a ninth
+//     head would pass the 255-register ceiling and spill.  So a group of
+//     9..16 heads (recurrentgemma-2b's MQA has 10) is cut into n_sub = 2
+//     sub-groups of GS = ceil(G / 2) heads, each a block of its own on a
+//     grid axis K·n_sub (the last sub-group of an odd G carries one dummy
+//     head with q = 0, whose output is not written); such a KV head's rows
+//     are read by both blocks, the second time mostly from L2.  A group of
+//     at most 8 is one sub-group, as before.  The wrapper plans the split count
 //     from the occupancy this kernel really gets (flrce_decode_attention_
 //     occupancy): B·K·n_splits blocks fill at most one wave of resident
 //     blocks, so no block waits for a second wave;
@@ -58,6 +67,7 @@
 //     then atomicAdd, as in the CUDA samples' threadFenceReduction) combines
 //     the partials in split order 0..n-1, divides by max(l, 1e-30) as the
 //     Pallas kernel does, writes the output and sets the counter back to 0.
+//     The counters and partials are kept per (sequence, KV head, sub-group).
 //     With one split the block writes the output itself.  The order of every
 //     sum is fixed, whichever block comes last: the result is bitwise
 //     repeatable.
@@ -78,12 +88,16 @@ constexpr int kWarpRingBytes = 8 * 1024;   // K and V bytes of one warp's ring
 constexpr int kHeaderBytes = 128 * ((kWarps * kStages * 8 + 16 + 127) / 128);
 constexpr int kMinRows = 64;               // fewest rows a split takes
 constexpr int kMaxSplits = 512;            // splits the last block combines at most
+constexpr int kMaxBlockGroup = 8;          // query heads a block holds at most (instances G 1..8)
+constexpr int kMaxGroup = 16;              // query heads per KV head at most: two sub-groups
 
 constexpr int max3(int a, int b, int c) { return a > b ? (a > c ? a : c) : (b > c ? b : c); }
 
-// rows between two rescales: the x[RS][G] logits stay in registers
+// rows between two rescales: the x[RS][G] logits stay in registers.  Two at
+// G = 5, the sub-groups of recurrentgemma-2b's 10 heads: faster than one at
+// its ring layer's shape (chip_smoke.py --decode-variants, PERF.md)
 constexpr int rows_per_step(int g, int r) {
-  const int s = g == 1 ? 8 : g == 2 ? 4 : g <= 4 ? 2 : 1;
+  const int s = g == 1 ? 8 : g == 2 ? 4 : g <= 5 ? 2 : 1;
   return s < r ? s : r;
 }
 
@@ -178,13 +192,15 @@ __device__ __forceinline__ void valid_range(int len, int S, int window, int ring
 // every logit masked: the reference's softmax is uniform over all S slots,
 // so each of the G heads gets the mean of V over the whole cache
 template <typename T, int HD, int G>
-__device__ __forceinline__ void mean_of_v(const T* __restrict__ vb, int S, int64_t row_stride, T* __restrict__ outp) {
+__device__ __forceinline__ void mean_of_v(const T* __restrict__ vb, int S, int64_t row_stride, int gn,
+                                          T* __restrict__ outp) {
   for (int d = threadIdx.x; d < HD; d += kThreads) {
     float sum = 0.0f;
     for (int s = 0; s < S; ++s) sum += to_float(vb[(int64_t)s * row_stride + d]);
     const T r = from_float<T>(sum / (float)S);
 #pragma unroll
-    for (int g = 0; g < G; ++g) outp[g * HD + d] = r;
+    for (int g = 0; g < G; ++g)
+      if (g < gn) outp[g * HD + d] = r;
   }
 }
 
@@ -193,8 +209,8 @@ __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
                         const int* __restrict__ length, float* __restrict__ part_acc,
                         float* __restrict__ part_ml, int* __restrict__ arrivals,
-                        T* __restrict__ out, int S, int K, int n_splits, int window, int ring,
-                        float scale) {
+                        T* __restrict__ out, int S, int K, int group, int n_sub, int n_splits,
+                        int window, int ring, float scale) {
   using Sh = Shape<T, HD, G>;
   constexpr int R = Sh::R, EPL = Sh::EPL, VEC = Sh::VEC, CHUNKS = Sh::CHUNKS, RS = Sh::RS;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -203,8 +219,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc, const
   T* rings = reinterpret_cast<T*>(smem + kHeaderBytes);          // [kWarps][kStages][2][R][HD]
   float* scratch = reinterpret_cast<float*>(smem + kHeaderBytes);  // the rings, once drained
 
-  const int split = blockIdx.x, k = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, k = blockIdx.y / n_sub, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // this block's sub-group: query heads g0 .. g0 + gn - 1 of the KV head's group
+  const int sub = blockIdx.y - k * n_sub, g0 = sub * G, gn = min(G, group - g0);
 
   int lo, hi;
   valid_range(length[b], S, window, ring, lo, hi);
@@ -219,7 +237,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc, const
   uint64_t* bar = bars + warp * kStages;
   T* wring = rings + (int64_t)warp * kStages * 2 * R * HD;
   const int64_t row_stride = (int64_t)K * HD;
-  const int64_t pair = (int64_t)b * K + k;
+  const int64_t pair = (int64_t)b * K + k;      // (sequence, KV head)
+  const int64_t unit = pair * n_sub + sub;      // (sequence, KV head, sub-group): partials, counter
   const T* __restrict__ kb = kc + ((int64_t)b * S * K + k) * HD;
   const T* __restrict__ vb = vc + ((int64_t)b * S * K + k) * HD;
 
@@ -249,12 +268,18 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc, const
   };
   for (int j = 0; j < kStages && j < mine; ++j) issue(j);
 
-  // this block's G query heads, scaled in fp32 as the reference does
+  // this block's query heads, scaled in fp32 as the reference does; a
+  // dummy head past the group's end has q = 0
   float qr[G][EPL];
-  const T* qp = q + pair * G * HD;
+  const T* qp = q + (pair * group + g0) * HD;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    load_lane<T, VEC, CHUNKS>(qp + g * HD, lane, qr[g]);
+    if (g < gn) {
+      load_lane<T, VEC, CHUNKS>(qp + g * HD, lane, qr[g]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) qr[g][e] = 0.0f;
+    }
 #pragma unroll
     for (int e = 0; e < EPL; ++e) qr[g][e] *= scale;
   }
@@ -343,12 +368,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc, const
   }
   __syncthreads();
 
-  T* outp = out + pair * G * HD;
+  T* outp = out + (pair * group + g0) * HD;
   if (n_splits == 1 && len == 0) {
-    mean_of_v<T, HD, G>(vb, S, row_stride, outp);
+    mean_of_v<T, HD, G>(vb, S, row_stride, gn, outp);
     return;
   }
-  const int64_t part = pair * n_splits + split;  // part_acc and part_ml are null with one split
+  const int64_t part = unit * n_splits + split;  // part_acc and part_ml are null with one split
   for (int idx = threadIdx.x; idx < G * HD; idx += kThreads) {
     const int g = idx / HD;
     float M = -INFINITY;
@@ -364,7 +389,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc, const
       }
     }
     if (n_splits == 1) {
-      outp[idx] = from_float<T>(a / fmaxf(lsum, 1e-30f));
+      if (g < gn) outp[idx] = from_float<T>(a / fmaxf(lsum, 1e-30f));
     } else {
       part_acc[part * G * HD + idx] = a;
       if (idx % HD == 0) {
@@ -375,15 +400,15 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc, const
   }
   if (n_splits == 1) return;
 
-  // the last block of this (sequence, KV head) to arrive combines the splits
+  // the last block of this (sequence, KV head, sub-group) to arrive combines the splits
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) *last_flag = atomicAdd(arrivals + pair, 1) == n_splits - 1;
+  if (threadIdx.x == 0) *last_flag = atomicAdd(arrivals + unit, 1) == n_splits - 1;
   __syncthreads();
   if (!*last_flag) return;
   __threadfence();
   if (len == 0) {
-    mean_of_v<T, HD, G>(vb, S, row_stride, outp);
+    mean_of_v<T, HD, G>(vb, S, row_stride, gn, outp);
   } else {
     // Partials are read through L2 (__ldcg): other blocks wrote them.  The
     // first kChunk splits of this thread's accumulators are loaded together
@@ -393,13 +418,13 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc, const
     float* sm_w = scratch;                  // [n][G]: m, then exp(m - M)
     float* sm_lp = scratch + n_splits * G;  // [n][G]: l
     float* sm_den = sm_lp + n_splits * G;   // [G]
-    const float* ml = part_ml + pair * n_splits * G * 2;
-    const float* pa = part_acc + pair * n_splits * G * HD;
+    const float* ml = part_ml + unit * n_splits * G * 2;
+    const float* pa = part_acc + unit * n_splits * G * HD;
     float4 a[kChunk];
-    int i4 = threadIdx.x;  // this thread's first 4 outputs
+    int i4 = threadIdx.x;  // this thread's first 4 outputs (of the block's gn real heads)
 #pragma unroll
     for (int u = 0; u < kChunk; ++u)
-      if (u < n_splits && i4 < G * HD / 4)
+      if (u < n_splits && i4 < gn * HD / 4)
         a[u] = __ldcg(reinterpret_cast<const float4*>(pa + (int64_t)u * G * HD) + i4);
     for (int i = threadIdx.x; i < n_splits * G; i += kThreads) {
       sm_w[i] = __ldcg(ml + 2 * i);
@@ -419,7 +444,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc, const
       sm_den[g] = fmaxf(den, 1e-30f);
     }
     __syncthreads();
-    for (; i4 < G * HD / 4; i4 += kThreads) {
+    for (; i4 < gn * HD / 4; i4 += kThreads) {
       const int idx = i4 * 4, g = idx / HD;
       float num[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       for (int s0 = 0; s0 < n_splits; s0 += kChunk) {
@@ -444,7 +469,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc, const
       for (int e = 0; e < 4; ++e) outp[idx + e] = from_float<T>(num[e] / sm_den[g]);
     }
   }
-  if (threadIdx.x == 0) arrivals[pair] = 0;  // zero at rest for the next call
+  if (threadIdx.x == 0) arrivals[unit] = 0;  // zero at rest for the next call
 }
 
 // sets the instance's dynamic shared memory limit, once per device
@@ -508,23 +533,28 @@ extern "C" {
 
 // out (B, K·G, HD) = decode attention of q (B, K·G, HD) over the caches
 // (B, S, K, HD), all contiguous and 16-byte aligned, of one type: dtype 0 is
-// fp32, 1 is bf16.  length is (B,) int32 on the card.  With n_splits > 1,
-// part_acc holds B·K·n_splits·G·HD floats, part_ml B·K·n_splits·G·2 and
-// arrivals B·K int32 zeros, which the launch leaves at zero; with one split
-// all three may be null.  HD is 64, 128 or 256; 1 <= G <= 8; window >= 0;
+// fp32, 1 is bf16.  length is (B,) int32 on the card.  A block holds GS of
+// the G heads of a KV head, so each KV head has n_sub = ceil(G / GS)
+// sub-groups.  With n_splits > 1, part_acc holds B·K·n_sub·n_splits·GS·HD
+// floats, part_ml B·K·n_sub·n_splits·GS·2 and arrivals B·K·n_sub int32
+// zeros, which the launch leaves at zero; with one split all three may be
+// null.  HD is 64, 128 or 256; 1 <= G <= 16; 1 <= GS <= 8; window >= 0;
 // ring is 0 or 1; 1 <= n_splits <= 512.  One launch on `stream`.
 int flrce_decode_attention(const void* q, const void* kc, const void* vc, const int* length,
                            float* part_acc, float* part_ml, int* arrivals, void* out, int64_t B,
-                           int64_t S, int64_t K, int64_t G, int64_t HD, int64_t n_splits,
-                           int64_t window, int32_t ring, int32_t dtype, float scale,
-                           cudaStream_t stream) {
-  if (B < 1 || S < 1 || K < 1 || G < 1 || G > 8 || n_splits < 1 || n_splits > kMaxSplits ||
-      window < 0 || B > 65535 || K > 65535 || S > 0x7FFFFFFFLL || window > 0x7FFFFFFFLL ||
+                           int64_t S, int64_t K, int64_t G, int64_t GS, int64_t HD,
+                           int64_t n_splits, int64_t window, int32_t ring, int32_t dtype,
+                           float scale, cudaStream_t stream) {
+  if (B < 1 || S < 1 || K < 1 || G < 1 || G > kMaxGroup || GS < 1 || GS > kMaxBlockGroup ||
+      n_splits < 1 || n_splits > kMaxSplits || window < 0 || B > 65535 ||
+      K * ((G + GS - 1) / GS) > 65535 || S > 0x7FFFFFFFLL || window > 0x7FFFFFFFLL ||
       (n_splits > 1 && (part_acc == nullptr || part_ml == nullptr || arrivals == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((unsigned)n_splits, (unsigned)K, (unsigned)B);
-  const int s = (int)S, k = (int)K, ns = (int)n_splits, w = (int)window, r = ring ? 1 : 0;
+  const int n_sub = (int)((G + GS - 1) / GS);
+  const dim3 grid((unsigned)n_splits, (unsigned)(K * n_sub), (unsigned)B);
+  const int s = (int)S, k = (int)K, group = (int)G, ns = (int)n_splits, w = (int)window,
+            r = ring ? 1 : 0;
   auto launch = [&](auto t, auto hd, auto g) -> cudaError_t {
     using T = typename decltype(t)::type;
     constexpr int kHd = decltype(hd)::value, kG = decltype(g)::value;
@@ -532,13 +562,13 @@ int flrce_decode_attention(const void* q, const void* kc, const void* vc, const 
     if (err != cudaSuccess) return err;
     decode_attention_kernel<T, kHd, kG><<<grid, kThreads, Shape<T, kHd, kG>::kSmemBytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), length,
-        part_acc, part_ml, arrivals, static_cast<T*>(out), s, k, ns, w, r, scale);
+        part_acc, part_ml, arrivals, static_cast<T*>(out), s, k, group, n_sub, ns, w, r, scale);
     return cudaGetLastError();
   };
-  return static_cast<int>(visit((int)dtype, (int)HD, (int)G, launch));
+  return static_cast<int>(visit((int)dtype, (int)HD, (int)GS, launch));
 }
 
-// Blocks of the (dtype, HD, G) instance an SM holds at once
+// Blocks of the (dtype, HD, G) instance (G heads a block, 1..8) an SM holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current device, at
 // the instance's dynamic shared memory, written to *smem_bytes).
 int flrce_decode_attention_occupancy(int32_t dtype, int64_t HD, int64_t G, int* blocks_per_sm,

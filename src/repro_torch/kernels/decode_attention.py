@@ -26,7 +26,11 @@ heads of its group, the rows streamed by bulk copies into a shared-memory
 ring per warp, and the last block of each (sequence, KV head) to finish
 combining the splits in a fixed order (bitwise repeatable).  Slots outside
 the valid range are never read; masked logits contribute exactly 0 in the
-reference, so this changes nothing.
+reference, so this changes nothing.  A block holds at most 8 query heads in
+registers; a group of 9..16 (recurrentgemma-2b's 10 heads over one KV head)
+runs as two sub-groups of ``ceil(G / 2)`` heads, each a block of its own
+(``subgroups``), as the Pallas kernel's one block per KV head takes any
+group.
 
 The wrapper plans the grid from the occupancy the kernel really gets
 (``plan_splits``): at most one wave of resident blocks, no split under
@@ -54,7 +58,8 @@ from repro_torch.kernels.grid import arrival_counters, device_index, sm_count
 DECODE_ATTENTION_LAUNCHES = 0
 
 HEAD_DIMS = (64, 128, 256)
-MAX_GROUP = 8
+MAX_GROUP = 16          # query heads per KV head
+MAX_BLOCK_GROUP = 8     # query heads one block holds: the instances G 1..8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
 _MIN_ROWS = 64          # csrc/decode_attention.cu kMinRows
@@ -100,6 +105,17 @@ def _occupancy(index: int, dtype_code: int, hd: int, group: int) -> Tuple[int, i
     return per_sm.value, smem.value
 
 
+def subgroups(group: int) -> Tuple[int, int]:
+    """(sub-groups per KV head, query heads a block holds) for ``group``
+    query heads per KV head: one sub-group up to ``MAX_BLOCK_GROUP``, else
+    the fewest equal sub-groups that fit (the last may hold one dummy head)."""
+    if not 1 <= group <= MAX_GROUP:
+        raise ValueError(f"decode_attention: a group of {group} query heads is not in "
+                         f"1..{MAX_GROUP}")
+    n_sub = -(-group // MAX_BLOCK_GROUP)
+    return n_sub, -(-group // n_sub)
+
+
 def plan_splits(b: int, k: int, rows: int, sms: int, per_sm: int) -> int:
     """Splits of the valid range per (sequence, KV head): as many as one wave
     of the card's ``sms · per_sm`` resident blocks holds for the ``b · k``
@@ -112,13 +128,16 @@ def plan_splits(b: int, k: int, rows: int, sms: int, per_sm: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """How a call is launched: one kernel, grid (n_splits, K, B) of 128-thread
-    blocks, ``blocks_per_sm`` of them resident on each of ``sms`` SMs."""
+    """How a call is launched: one kernel, grid (n_splits, K·n_sub, B) of
+    128-thread blocks of ``block_group`` query heads, ``blocks_per_sm`` of
+    them resident on each of ``sms`` SMs."""
     n_splits: int
     grid: Tuple[int, int, int]
     blocks_per_sm: int
     sms: int
     smem_bytes: int
+    n_sub: int
+    block_group: int
 
 
 def launch_plan(q: torch.Tensor, k_cache: torch.Tensor, *, window: int = 0,
@@ -134,11 +153,12 @@ def launch_plan(q: torch.Tensor, k_cache: torch.Tensor, *, window: int = 0,
 @functools.lru_cache(maxsize=1024)
 def _plan(index: int, dtype_code: int, b: int, kvh: int, group: int, hd: int,
           rows: int) -> LaunchPlan:
-    per_sm, smem = _occupancy(index, dtype_code, hd, group)
+    n_sub, block_group = subgroups(group)
+    per_sm, smem = _occupancy(index, dtype_code, hd, block_group)
     sms = sm_count(index)
-    n = plan_splits(b, kvh, rows, sms, per_sm)
-    return LaunchPlan(n_splits=n, grid=(n, kvh, b), blocks_per_sm=per_sm, sms=sms,
-                      smem_bytes=smem)
+    n = plan_splits(b, kvh * n_sub, rows, sms, per_sm)
+    return LaunchPlan(n_splits=n, grid=(n, kvh * n_sub, b), blocks_per_sm=per_sm, sms=sms,
+                      smem_bytes=smem, n_sub=n_sub, block_group=block_group)
 
 
 def _check_operand(name: str, t: torch.Tensor, ndim: int, dtype: torch.dtype) -> None:
@@ -160,7 +180,7 @@ def _check_operand(name: str, t: torch.Tensor, ndim: int, dtype: torch.dtype) ->
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                           length: torch.Tensor, *, window: int = 0,
                           ring: bool = False) -> torch.Tensor:
-    """(B, H, hd) on the card; bf16 or fp32, hd ∈ {64, 128, 256}, H/K ≤ 8."""
+    """(B, H, hd) on the card; bf16 or fp32, hd ∈ {64, 128, 256}, H/K ≤ 16."""
     global DECODE_ATTENTION_LAUNCHES
     if q.dtype not in _DTYPES:
         raise ValueError(f"decode_attention: dtype {q.dtype} not in {list(_DTYPES)}")
@@ -183,20 +203,20 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
         raise ValueError(f"decode_attention: B={b}, S={s}, window={window}")
     group = h // kvh
     plan = launch_plan(q, k_cache, window=window, ring=ring)
-    n = plan.n_splits
+    n, units, width = plan.n_splits, kvh * plan.n_sub, plan.block_group
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device)
     if n > 1:
-        part_acc = torch.empty((b, kvh, n, group, hd), dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((b, kvh, n, group, 2), dtype=torch.float32, device=q.device)
+        part_acc = torch.empty((b, units, n, width, hd), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((b, units, n, width, 2), dtype=torch.float32, device=q.device)
         ptrs = (part_acc.data_ptr(), part_ml.data_ptr(),
-                arrival_counters(q.device, stream, b * kvh).data_ptr())
+                arrival_counters(q.device, stream, b * units).data_ptr())
     else:
         ptrs = (None, None, None)
     rc = build.library().flrce_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), length.data_ptr(), *ptrs,
-        out.data_ptr(), b, s, kvh, group, hd, n, int(window), int(bool(ring)), _DTYPES[q.dtype],
-        ctypes.c_float(1.0 / math.sqrt(hd)), stream.cuda_stream)
+        out.data_ptr(), b, s, kvh, group, width, hd, n, int(window), int(bool(ring)),
+        _DTYPES[q.dtype], ctypes.c_float(1.0 / math.sqrt(hd)), stream.cuda_stream)
     build.check(rc, "decode_attention")
     DECODE_ATTENTION_LAUNCHES += 1
     return out

@@ -1,14 +1,15 @@
 """Batched greedy generation with the cached serve step, on one GPU.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b --full-config \\
-        --batch 8 --prompt-len 1536 --gen 64 [--device cuda|cpu] [--seed 0]
+    PYTHONPATH=src python -m repro_torch.launch.serve [--arch recurrentgemma-2b] [--full-config] \\
+        [--batch 4] [--prompt-len 16] [--gen 32] [--device cuda|cpu] [--seed 0]
 
-The same loop as the reference's ``src/repro/launch/serve.py``: the prompt is
-fed one token at a time through the decode step (prefill is decode), then the
-greedy tokens.  Architectures: the dense attention-only ones of
-``repro_torch.configs`` (``--arch``), reduced unless ``--full-config``.
-Parameters are random, drawn from ``--seed`` on the device.  Runs on CUDA
-unless ``--device cpu`` is given.
+The same loop and defaults as the reference's ``src/repro/launch/serve.py``:
+the prompt is fed one token at a time through the decode step (prefill is
+decode), then the greedy tokens.  Architectures: those of
+``repro_torch.configs`` (``--arch``; the default recurrentgemma-2b is the
+RG-LRU hybrid, the others dense attention-only), reduced unless
+``--full-config``.  Parameters are random, drawn from ``--seed`` on the
+device.  Runs on CUDA unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ def generate(model: TransformerLM, params, prompt: torch.Tensor, gen: int, cache
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", choices=list_archs(), default="gemma3-4b")
+    ap.add_argument("--arch", choices=list_archs(), default="recurrentgemma-2b")
     ap.add_argument("--full-config", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

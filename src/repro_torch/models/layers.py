@@ -111,3 +111,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# temporal conv (RG-LRU block frontend; width-4 causal depthwise conv)
+# ---------------------------------------------------------------------------
+def init_conv1d(gen: torch.Generator, d: int, width: int, dtype: torch.dtype) -> Params:
+    w = torch.randn((width, d), generator=gen, dtype=torch.float32, device=gen.device)
+    return {"w": (w / math.sqrt(width)).to(dtype),
+            "b": torch.zeros((d,), dtype=dtype, device=gen.device)}
+
+
+def apply_conv1d(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise conv over (B, S, D): taps summed in fp32 in the
+    reference's order, cast back to x's dtype."""
+    width = params["w"].shape[0]
+    pad = F.pad(x, (0, 0, width - 1, 0))
+    w = params["w"].float()
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(width):
+        out = out + pad[:, i:i + x.shape[1], :].float() * w[i]
+    return (out + params["b"].float()).to(x.dtype)
+
+
+def conv1d_decode(params: Params, x_t: torch.Tensor, tail: torch.Tensor) -> torch.Tensor:
+    """One-step causal conv.  x_t: (B, 1, D); tail: (B, width−1, D), the last
+    inputs, shifted in place to end with x_t (the reference returns a new
+    tail).  Returns (B, 1, D) in x_t's dtype."""
+    window = torch.cat([tail, x_t], dim=1)                      # (B, width, D)
+    out = torch.einsum("bwd,wd->bd", window.float(), params["w"].float())
+    tail.copy_(window[:, 1:, :])
+    return (out + params["b"].float()).to(x_t.dtype)[:, None, :]

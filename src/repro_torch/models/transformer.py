@@ -1,7 +1,8 @@
 """Decoder-only LM, from the reference's ``src/repro/models/transformer.py``,
 for the dense attention-only architectures (global and sliding-window
-attention, dense MLP): the full-sequence forward and the sequence-chunked
-cross-entropy of training and prefill, and cached decoding.
+attention, dense MLP) and the RG-LRU hybrid (recurrentgemma-2b: Griffin
+recurrent blocks beside local attention): the full-sequence forward and the
+sequence-chunked cross-entropy of training and prefill, and cached decoding.
 
 Parameters are a dict::
 
@@ -15,8 +16,15 @@ cycle c's positions 0…len(pattern)−1 before cycle c+1, then the ``rest``
 layers; flat layer i is therefore pattern position ``i % len(pattern)`` of
 cycle ``i // len(pattern)``, and its kind is ``cfg.block_kind(i)``
 (``convert.lm_params_from_jax`` maps the stacked pytree onto this list).
-Caches are a matching list of ``{"k", "v"}``; a local layer's cache is
-``min(cache_len, window)`` long, a ring buffer.
+Each block is a pre-norm residual: ``norm1`` and the ``mixer`` (attention or
+RG-LRU), then, for attention blocks of a model with ``d_ff > 0``, ``norm2``
+and the MLP; an RG-LRU block has no MLP, as in the reference (its
+``ArchConfig.param_count()`` books one anyway: recurrentgemma-2b's built tree
+has 2,304,888,320 parameters, the config's count says 2,835,637,760).
+Caches are a matching list: ``{"k", "v"}`` for an attention layer, where a
+local layer's cache is ``min(cache_len, window)`` long, a ring buffer;
+``{"h", "conv_tail"}`` (fp32 state, the conv's last inputs) for an RG-LRU
+layer.
 
 The dense slice has no mixture-of-experts auxiliary loss, so ``hidden`` and
 ``forward`` return the hidden states and the logits alone, where the
@@ -34,12 +42,14 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ArchConfig
+from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, RGLRU, ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru
 from repro_torch.models.layers import apply_mlp, apply_norm, embed_init, init_mlp, init_norm
 
 _ATTN_KINDS = (ATTN_GLOBAL, ATTN_LOCAL)
+_KINDS = _ATTN_KINDS + (RGLRU,)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 Params = Dict[str, object]
@@ -48,7 +58,7 @@ Params = Dict[str, object]
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice of the port lacks."""
     later = []
-    kinds = sorted(set(cfg.layer_kinds()) - set(_ATTN_KINDS))
+    kinds = sorted(set(cfg.layer_kinds()) - set(_KINDS))
     if kinds:
         later.append(f"block kinds {kinds}")
     if cfg.moe is not None:
@@ -60,26 +70,45 @@ def check_supported(cfg: ArchConfig) -> None:
     if later:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(later)} wait for a later slice of the port; this one runs "
-            f"the dense attention-only architectures"
+            f"the dense attention-only architectures and the RG-LRU hybrid"
         )
+
+
+def check_trainable(cfg: ArchConfig, who: str) -> None:
+    """Raise ``NotImplementedError`` for a model with RG-LRU blocks where the
+    federated and launch-level training paths would take it: this slice
+    serves RG-LRU models (and runs their full-sequence forward and loss);
+    their training waits for ROADMAP A.7.2."""
+    if RGLRU in cfg.layer_kinds():
+        raise NotImplementedError(
+            f"{who}: {cfg.name} has RG-LRU blocks, whose training waits for ROADMAP A.7.2 "
+            f"(RG-LRU training); this slice of the port serves them")
 
 
 # ===========================================================================
 # blocks
 # ===========================================================================
 def _is_local(kind: str) -> bool:
-    """Whether an attention block is local; raises for the other block kinds."""
-    if kind not in _ATTN_KINDS:
+    """Whether a block is local attention; raises for the block kinds this
+    slice lacks."""
+    if kind not in _KINDS:
         raise NotImplementedError(f"block kind {kind!r} waits for a later slice of the port")
     return kind == ATTN_LOCAL
+
+
+def _has_mlp(kind: str, cfg: ArchConfig) -> bool:
+    return kind in _ATTN_KINDS and cfg.d_ff > 0
 
 
 def init_block(gen: torch.Generator, kind: str, cfg: ArchConfig, dtype: torch.dtype) -> Dict:
     _is_local(kind)
     dev = gen.device
-    p: Dict = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, dev),
-               "mixer": attn.init_attention(gen, cfg, dtype)}
-    if cfg.d_ff > 0:
+    if kind == RGLRU:
+        mixer = rglru.init_rglru(gen, cfg, dtype)
+    else:
+        mixer = attn.init_attention(gen, cfg, dtype)
+    p: Dict = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, dev), "mixer": mixer}
+    if _has_mlp(kind, cfg):
         p["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, dev)
         p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype)
     return p
@@ -89,7 +118,10 @@ def apply_block_train(params: Dict, kind: str, x: torch.Tensor, positions: torch
                       cfg: ArchConfig) -> torch.Tensor:
     """Pre-norm residual block over whole sequences (causal)."""
     h = apply_norm(cfg.norm, params["norm1"], x)
-    x = x + attn.attention_block(params["mixer"], h, positions, cfg, local=_is_local(kind))
+    if kind == RGLRU:
+        x = x + rglru.apply_rglru(params["mixer"], h, cfg)
+    else:
+        x = x + attn.attention_block(params["mixer"], h, positions, cfg, local=_is_local(kind))
     if "mlp" in params:
         h2 = apply_norm(cfg.norm, params["norm2"], x)
         x = x + apply_mlp(params["mlp"], h2, cfg.act)
@@ -105,6 +137,8 @@ def _remat(fn, *args):
 
 def init_block_cache(kind: str, cfg: ArchConfig, batch: int, cache_len: int, dtype: torch.dtype,
                      device: torch.device) -> Dict:
+    if kind == RGLRU:
+        return rglru.init_rglru_cache(cfg, batch, dtype, device)
     length = min(cache_len, cfg.window) if (_is_local(kind) and cfg.window) else cache_len
     return attn.init_kv_cache(cfg, batch, length, dtype, device)
 
@@ -114,8 +148,11 @@ def apply_block_decode(params: Dict, kind: str, x_t: torch.Tensor, cache: Dict, 
                        length: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
     """Pre-norm residual block for one token; ``cache`` is updated in place."""
     h = apply_norm(cfg.norm, params["norm1"], x_t)
-    mix, cache = attn.attention_decode_step(params["mixer"], h, cache, position, cfg,
-                                            local=_is_local(kind), length=length)
+    if kind == RGLRU:
+        mix, cache = rglru.rglru_decode_step(params["mixer"], h, cache, cfg)
+    else:
+        mix, cache = attn.attention_decode_step(params["mixer"], h, cache, position, cfg,
+                                                local=_is_local(kind), length=length)
     x_t = x_t + mix
     if "mlp" in params:
         h2 = apply_norm(cfg.norm, params["norm2"], x_t)

@@ -472,6 +472,15 @@ def _assert_decode_close(got, want32, v):
     (2, 515, 3, 1, 128, torch.bfloat16, [515, 514], 0, False),
     (2, 515, 1, 3, 128, torch.float32, [515, 1], 0, False),
     (1, 64, 1, 8, 256, torch.float32, [64], 0, False),
+    # groups over 8 run as two sub-groups: recurrentgemma-2b's 10 heads over 1 KV head
+    (8, 2048, 1, 10, 256, torch.bfloat16, [2175] * 8, 2048, True),     # its ring layer, wrapped
+    (3, 2048, 1, 10, 256, torch.float32, [2048, 5, 1000], 2048, True),
+    (2, 100, 1, 10, 256, torch.bfloat16, [0, 7], 16, True),             # length 0 in a ring
+    (3, 700, 1, 10, 256, torch.bfloat16, [1, 699, 350], 0, False),      # ragged
+    (2, 3000, 1, 10, 256, torch.bfloat16, [3000, 1500], 1024, False),   # non-ring window
+    (2, 50, 1, 10, 256, torch.float32, [50, 0], 0, False),              # one split, length 0
+    (2, 515, 2, 9, 128, torch.bfloat16, [515, 3], 0, False),            # a dummy head
+    (2, 257, 1, 16, 64, torch.float32, [257, 100], 0, False),
 ])
 def test_decode_attention_kernel_matches_plain(cuda, b, s, kv, g, hd, dtype, lengths, window,
                                                ring):
@@ -560,7 +569,7 @@ def test_decode_attention_rejects_bad_operands(cuda):
     with pytest.raises(ValueError):
         ops.decode_attention(q, k, v, length.long())
     with pytest.raises(ValueError):
-        ops.decode_attention(q.repeat(1, 5, 1), k, v, length)          # group 10
+        ops.decode_attention(q.repeat(1, 9, 1), k, v, length)          # group 18
     with pytest.raises(ValueError):
         ops.decode_attention(q, k.transpose(1, 2), v, length)
     assert ops.launch_counts()["decode_attention"] == 0
@@ -583,6 +592,29 @@ def test_generate_on_the_card_launches_the_kernel_and_matches_cpu(cuda):
     ops.reset_launch_counts()
     got = generate(model, {k: _to(v, cuda) for k, v in params.items()}, prompt.to(cuda), 8, 20)
     assert ops.launch_counts()["decode_attention"] == 8 * 19
+    assert torch.equal(got.cpu(), want)
+
+
+def test_hybrid_generate_on_the_card_matches_cpu(cuda):
+    """A small recurrentgemma-family model (8 layers, 10 heads over one KV
+    head, window 8, fp32): RG-LRU blocks and the kernel at G = 10 over
+    wrapping rings, on the card against the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduce_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import TransformerLM
+
+    cfg = dataclasses.replace(reduce_config(get_arch("recurrentgemma-2b")), num_layers=8,
+                              num_heads=10, num_kv_heads=1, window=8, dtype="float32")
+    model = TransformerLM(cfg)
+    params = model.init(0, "cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 14), generator=torch.Generator().manual_seed(0))
+    want = generate(model, params, prompt, 10, 24)
+    ops.reset_launch_counts()
+    got = generate(model, {k: _to(v, cuda) for k, v in params.items()}, prompt.to(cuda), 10, 24)
+    assert ops.launch_counts()["decode_attention"] == 2 * 23       # two attention layers
     assert torch.equal(got.cpu(), want)
 
 

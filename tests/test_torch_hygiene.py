@@ -30,7 +30,8 @@ def test_every_module_imports_without_jax_or_reference():
     assert "repro_torch.kernels.ops" in mods and "repro_torch.fl.rounds" in mods
     for new in ("repro_torch.models.lm", "repro_torch.models.lora", "repro_torch.data.lm",
                 "repro_torch.data.tokens", "repro_torch.optim", "repro_torch.optim.optimizers",
-                "repro_torch.optim.schedules", "repro_torch.launch.train"):
+                "repro_torch.optim.schedules", "repro_torch.launch.train",
+                "repro_torch.models.rglru", "repro_torch.configs.recurrentgemma_2b"):
         assert new in mods, new
     code = (
         "import sys, importlib\n"
@@ -131,7 +132,8 @@ def test_serving_entry_points_default_to_cuda():
     proc = subprocess.run(cmd + ["--device", "cpu"], env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert "[serve] gemma3-4b-reduced on cpu: generated 4 tokens" in proc.stdout
+    # the reference's default arch: reduced recurrentgemma-2b
+    assert "[serve] recurrentgemma-2b-reduced on cpu: generated 4 tokens" in proc.stdout
 
 
 def test_quickstart_example_defaults_to_cuda():
@@ -174,6 +176,33 @@ def test_training_entry_points_default_to_cuda():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "[pretrain] gemma3-4b-reduced:" in proc.stdout and '"round": 0' in proc.stdout
+
+
+def test_training_entry_points_refuse_rglru_models():
+    """RG-LRU training waits for a later slice: LMClassifier, LoRAClassifier
+    (over any base that carries such a config) and launch/train.py's
+    pretrain mode raise NotImplementedError naming the ROADMAP item, while
+    TransformerLM runs the hybrid's forward and loss."""
+    import types
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.models import LMClassifier, LoRAClassifier, TransformerLM
+
+    cfg = get_arch("recurrentgemma-2b", reduced=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7.2"):
+        LMClassifier(cfg, seq_len=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7.2"):
+        LoRAClassifier(types.SimpleNamespace(cfg=cfg, name="lm"), {}, rank=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7.2"):
+        train.main(["--mode", "pretrain", "--arch", "recurrentgemma-2b", "--device", "cpu",
+                    "--rounds", "1"])
+    model = TransformerLM(cfg)
+    params = model.init(0, "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 6), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        loss = model.loss(params, {"tokens": tokens, "labels": tokens})
+    assert bool(torch.isfinite(loss))
 
 
 def test_lora_example_defaults_to_cuda():

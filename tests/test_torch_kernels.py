@@ -154,6 +154,7 @@ def test_decode_attention_plain_matches_jnp(case, s, lengths, window, ring):
     (2, 8, 4, 128, 1024),
     (1, 4, 4, 64, 300),      # MHA, S not a multiple of 512
     (3, 6, 2, 64, 700),
+    (2, 10, 1, 64, 600),     # recurrentgemma-2b's MQA group, G = 10
 ])
 def test_decode_attention_plain_matches_pallas_and_oracle(b, h, kv, hd, s):
     """The Pallas kernel in interpret mode and the reference's oracle, at
@@ -166,6 +167,39 @@ def test_decode_attention_plain_matches_pallas_and_oracle(b, h, kv, hd, s):
     for want in (jops.decode_attention(*args), jref.decode_attention_ref(*args)):
         np.testing.assert_allclose(got, np.asarray(want), atol=DECODE_BLOCKED_TOL,
                                    rtol=DECODE_BLOCKED_TOL)
+
+
+@pytest.mark.parametrize("case,s,lengths,window,ring", [
+    ("ring", 16, [40, 16, 5], 16, True),          # recurrentgemma's local layers: a wrapped ring
+    ("length0-ring", 16, [0, 9, 16], 16, True),
+    ("global", 48, [48, 1, 30], 0, False),
+    ("window", 48, [48, 20, 7], 16, False),       # a window masked on a full-length cache
+])
+def test_decode_attention_plain_matches_jnp_at_group_10(case, s, lengths, window, ring):
+    """10 query heads over one KV head (recurrentgemma-2b), ring and not."""
+    q, k, v = _decode_inputs(s + len(case), 3, 10, 1, 32, s)
+    want = np.asarray(decode_attention_jnp(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                           jnp.asarray(lengths, jnp.int32), window=window,
+                                           ring=ring))
+    got = _plain(q, k, v, lengths, window=window, ring=ring)
+    assert got.shape == want.shape == (3, 10, 32)
+    np.testing.assert_allclose(got, want, atol=DECODE_TOL, rtol=DECODE_TOL)
+
+
+@pytest.mark.parametrize("group,want", [
+    (1, (1, 1)), (2, (1, 2)), (8, (1, 8)),          # one block holds the group
+    (9, (2, 5)), (10, (2, 5)), (15, (2, 8)), (16, (2, 8)),   # two sub-groups
+])
+def test_decode_attention_subgroups(group, want):
+    assert tdec.subgroups(group) == want
+    n_sub, width = want
+    assert width <= tdec.MAX_BLOCK_GROUP and (n_sub - 1) * width < group <= n_sub * width
+
+
+@pytest.mark.parametrize("group", [0, 17])
+def test_decode_attention_subgroups_refuse_a_group(group):
+    with pytest.raises(ValueError):
+        tdec.subgroups(group)
 
 
 def test_decode_attention_plain_bf16_keeps_dtype():

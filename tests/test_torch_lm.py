@@ -1,6 +1,8 @@
 """The port's serving path (configs, layers, decode attention, TransformerLM,
 generate) against the JAX package on the CPU, on the same numpy inputs and on
-the reference's parameters carried across with ``lm_params_from_jax``."""
+the reference's parameters carried across with ``lm_params_from_jax``: the
+dense attention-only configs and the recurrentgemma-2b hybrid (RG-LRU blocks
+beside local attention)."""
 import dataclasses
 
 import pytest
@@ -29,6 +31,7 @@ LAYER_RTOL = 1e-6       # one fp32 op chain in the same order
 LOGIT_RTOL = 1e-5       # |Δ| / max|logit|: fp32 matmuls and softmax sums reordered
 BF16_LOGIT_RTOL = 3e-2  # bf16 rounds at other places in the two frameworks
 DENSE_ARCHS = ["gemma3-4b", "qwen1.5-4b", "minitron-4b", "deepseek-7b"]
+PORTED_ARCHS = DENSE_ARCHS + ["recurrentgemma-2b"]
 
 
 def _np_tree(tree):
@@ -41,6 +44,18 @@ def _gemma_family(dtype="float32"):
     kw = dict(num_layers=8, window=8, dtype=dtype)
     return (dataclasses.replace(jconfigs.reduce_config(jconfigs.get_arch("gemma3-4b")), **kw),
             dataclasses.replace(tconfigs.reduce_config(tconfigs.get_arch("gemma3-4b")), **kw))
+
+
+def _hybrid(dtype="float32"):
+    """reduce_config(recurrentgemma-2b) with 8 layers (2 cycles of rglru,
+    rglru, attn_local, then 2 rest layers, both rglru), 10 query heads over
+    one KV head (recurrentgemma-2b's MQA group) and window 8, in both
+    packages."""
+    kw = dict(num_layers=8, num_heads=10, num_kv_heads=1, window=8, dtype=dtype)
+    cfgs = tuple(dataclasses.replace(pkg.reduce_config(pkg.get_arch("recurrentgemma-2b")), **kw)
+                 for pkg in (jconfigs, tconfigs))
+    assert cfgs[1].layer_kinds() == ("rglru", "rglru", "attn_local") * 2 + ("rglru", "rglru")
+    return cfgs
 
 
 def _models(jcfg, tcfg, seed=0):
@@ -196,6 +211,65 @@ def test_bf16_decode_matches_reference():
     assert worst <= BF16_LOGIT_RTOL, worst
 
 
+# --- the recurrentgemma-2b hybrid -------------------------------------------------
+def test_hybrid_decode_teacher_forced_matches_reference():
+    """24 positions through 8 layers: 6 RG-LRU blocks and 2 local attention
+    layers at G = 10, whose rings of 8 wrap twice."""
+    jcfg, tcfg = _hybrid()
+    jm, jp, tm, tp = _models(jcfg, tcfg, seed=4)
+    tokens = np.random.default_rng(12).integers(0, tcfg.vocab_size, (2, 24))
+    ops.reset_launch_counts()
+    worst, jtok, ttok = _teacher_forced(jm, jp, tm, tp, tokens, cache_len=24)
+    assert worst <= LOGIT_RTOL, worst
+    np.testing.assert_array_equal(ttok, jtok)
+    assert ops.launch_counts()["decode_attention"] == 0      # CPU tensors: the plain version
+
+
+def test_hybrid_forward_and_loss_match_reference():
+    """The full-sequence forward (the RG-LRU scan over 24 positions) and the
+    chunked loss."""
+    jcfg, tcfg = _hybrid()
+    jm, jp, tm, tp = _models(jcfg, tcfg, seed=5)
+    rng = np.random.default_rng(13)
+    tokens = rng.integers(0, tcfg.vocab_size, (2, 24))
+    labels = rng.integers(0, tcfg.vocab_size, (2, 24))
+    jbatch = {"tokens": jnp.asarray(tokens, jnp.int32), "labels": jnp.asarray(labels, jnp.int32)}
+    tbatch = {"tokens": torch.from_numpy(tokens), "labels": torch.from_numpy(labels)}
+    want, _ = jm.forward(jp, jbatch)
+    want = np.asarray(want)
+    with torch.no_grad():
+        got = tm.forward(tp, tbatch).numpy()
+        loss = float(tm.loss(tp, tbatch))
+    assert np.abs(got - want).max() / np.abs(want).max() <= LOGIT_RTOL
+    want_loss = float(jm.loss(jp, jbatch))
+    assert abs(loss - want_loss) <= LOGIT_RTOL * abs(want_loss)
+
+
+def test_hybrid_generate_matches_reference_tokens():
+    jcfg, tcfg = _hybrid()
+    jm, jp, tm, tp = _models(jcfg, tcfg, seed=6)
+    prompt = np.random.default_rng(14).integers(0, tcfg.vocab_size, (3, 14))
+    want = np.asarray(jserve.generate(jm, jp, jnp.asarray(prompt, jnp.int32), 10, 24))
+    got = tserve.generate(tm, tp, torch.from_numpy(prompt), 10, 24)
+    assert got.shape == (3, 24)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_hybrid_bf16_decode_matches_reference():
+    """bf16 activations, projections and caches beside fp32 RG-LRU gates,
+    decay and state, in both packages."""
+    jcfg, tcfg = _hybrid("bfloat16")
+    jm, jp, tm, tp = _models(jcfg, tcfg, seed=7)
+    assert tp["embed"].dtype == torch.bfloat16
+    assert tp["layers"][0]["mixer"]["w_a"].dtype == torch.float32
+    caches = tm.init_cache(1, 4, "cpu")
+    assert caches[0]["h"].dtype == torch.float32 and caches[0]["conv_tail"].dtype == torch.bfloat16
+    assert caches[2]["k"].dtype == torch.bfloat16
+    tokens = np.random.default_rng(15).integers(0, tcfg.vocab_size, (2, 12))
+    worst, _, _ = _teacher_forced(jm, jp, tm, tp, tokens, cache_len=12)
+    assert worst <= BF16_LOGIT_RTOL, worst
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_lm_params_round_trip_is_bitwise(dtype):
     jcfg, tcfg = _gemma_family(dtype)
@@ -213,6 +287,25 @@ def test_lm_params_round_trip_is_bitwise(dtype):
         assert want_leaves[0].dtype == ml_dtypes.bfloat16
 
 
+def test_hybrid_params_round_trip_is_bitwise_with_mixed_dtypes():
+    """recurrentgemma's tree in bf16: the RG-LRU gates, decay and biases stay
+    fp32, every other leaf bf16, and the round trip keeps every bit."""
+    jcfg, tcfg = _hybrid("bfloat16")
+    tree = _np_tree(JaxLM(jcfg).init(jax.random.PRNGKey(8)))
+    tp = lm_params_from_jax(tcfg, tree, "cpu")
+    assert len(tp["layers"]) == 8 and "mlp" not in tp["layers"][0] and "mlp" in tp["layers"][2]
+    assert tp["layers"][6]["mixer"]["lam"].dtype == torch.float32
+    assert tp["layers"][6]["mixer"]["conv"]["w"].dtype == torch.bfloat16
+    back = lm_params_to_jax(tcfg, tp)
+    want_leaves, want_def = jax.tree_util.tree_flatten(tree)
+    got_leaves, got_def = jax.tree_util.tree_flatten(back)
+    assert got_def == want_def
+    assert {w.dtype for w in want_leaves} == {np.dtype(np.float32), np.dtype(ml_dtypes.bfloat16)}
+    for g, w in zip(got_leaves, want_leaves):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert g.tobytes() == w.tobytes()
+
+
 def test_port_layer_order_is_the_references():
     """Flat layer i is cycle i // len(pattern) of pattern position i % len(pattern)."""
     jcfg, tcfg = _gemma_family()
@@ -227,7 +320,7 @@ def test_port_layer_order_is_the_references():
 
 
 # --- configs -----------------------------------------------------------------
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_configs_equal_reference(arch):
     for reduced in (False, True):
         want = dataclasses.asdict(jconfigs.get_arch(arch, reduced=reduced))
@@ -246,15 +339,16 @@ def test_gemma3_4b_is_3_88b_parameters():
 
 
 def test_unported_archs_raise():
-    assert tconfigs.list_archs() == sorted(DENSE_ARCHS)
-    with pytest.raises(KeyError, match="later slice"):
-        tconfigs.get_arch("mixtral-8x22b")
+    assert tconfigs.list_archs() == sorted(PORTED_ARCHS)
+    for arch in ("mixtral-8x22b", "xlstm-1.3b"):
+        with pytest.raises(KeyError, match="later slice"):
+            tconfigs.get_arch(arch)
     with pytest.raises(KeyError, match="unknown"):
         tconfigs.get_arch("no-such-model")
     moe = dataclasses.replace(tconfigs.get_arch("gemma3-4b", reduced=True),
                               moe=tconfigs.MoEConfig(num_experts=4, top_k=2))
     with pytest.raises(NotImplementedError, match="later slice"):
         TransformerLM(moe)
-    rglru = dataclasses.replace(tconfigs.get_arch("gemma3-4b", reduced=True), pattern=("rglru",))
-    with pytest.raises(NotImplementedError, match="rglru"):
-        TransformerLM(rglru)
+    mlstm = dataclasses.replace(tconfigs.get_arch("gemma3-4b", reduced=True), pattern=("mlstm",))
+    with pytest.raises(NotImplementedError, match="mlstm"):
+        TransformerLM(mlstm)
