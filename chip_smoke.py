@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py
 
-1. Builds the five CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-   ``nvcc`` for ``sm_90a`` (one process per source, started together) and
-   prints the build time and each kernel's registers, spills and stack
-   frames; every instance of every kernel (``KERNEL_INSTANCES``: 48
-   ``decode_attention``, one per dtype, head_dim and 1..8 query heads a
-   block, as groups of 9..16 run as two sub-groups; 4 ``gram_tri_kernel``,
-   12 ``topk_mask_kernel``, 12 ``xgram_partial_kernel``, 1
-   ``sum_splits_kernel``, 3 ``aggregate_kernel``)
+1. Builds the CUDA kernels from the six sources of
+   ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one
+   process per source, started together) and prints the build time and each
+   kernel's registers, spills and stack frames; every instance of every
+   kernel (``KERNEL_INSTANCES``: 48 ``decode_attention``, one per dtype,
+   head_dim and 1..8 query heads a block, as groups of 9..16 run as two
+   sub-groups; 4 ``gram_tri_kernel``, 12 ``topk_mask_kernel``, 12
+   ``xgram_partial_kernel``, 1 ``sum_splits_kernel``, 3 ``aggregate_kernel``,
+   1 ``threefry_normal_kernel``, 1 ``threefry_rounding_kernel``)
    must compile without a spill or a stack frame, and no other may appear.
    Kernel phase: holds each kernel against its plain PyTorch version on the
    card, at the main paths' shapes (K = P = 10, Q = M = 100, D = 595,914;
@@ -26,6 +27,11 @@
    and registers; ``decode_attention`` within 1e-5·max|V| in fp32 and
    one ulp in bf16, in one kernel launch per call, with its planned grid,
    resident blocks per SM and shared memory printed at each timed shape.
+   The Threefry kernels (``jax.random`` on the card) must equal their plain
+   version bitwise: normals at edge keys and odd tails and 16 M whole,
+   QuantizedFL's rounding uniforms at edge leaf layouts and at the CIFAR
+   round (P = 10, D = 595,914), there also against the host draw; they are
+   timed beside ``torch.rand`` / ``torch.randn`` and the INT32 units' bound.
 2. Main path: the paper's CIFAR-10 model (§4.1 2conv+3fc, D = 595,914,
    ``init(0)``, the JAX package's initial weights) in a 100-client
    federation, 6 FLrce rounds through ``run_federated`` on the card.  Every
@@ -38,8 +44,9 @@
    2b. Baselines (§4.1) on the same federation at full width: 4 Fedcom rounds
    (``topk_mask_rows`` once per round), 4 FedAvg rounds and 2 rounds each
    of Fedprox, Dropout, TimelyFL, PyramidFL and QuantizedFL, each with the
-   launch counts reset just before and read just after, and the time of
-   QuantizedFL's host-drawn rounding uniforms.
+   launch counts reset just before and read just after (QuantizedFL: one
+   Threefry launch a round), and the time of a round's rounding uniforms
+   drawn by the kernel, bitwise the host draw, beside the host draw's.
    2c. The sequential engine (one client and one batch a Python step) for 2
    rounds from phase 2's params and seed: selections and exploit flags
    equal to phase 2's first two rounds, accuracy within 2e-3, each client's
@@ -63,8 +70,9 @@
    ledger, accuracy within 2e-3, the final params' max |Δ| printed), paged
    and resident with ``candidates_per_chunk=40`` (equal to each other
    bitwise); the pipelined run again with the round body eager on the card
-   (no capture; bitwise the graph's); FedAvg and Fedcom for 4 rounds against
-   the loop; then ``benchmarks/common.py``'s quick ``BenchConfig`` (MLP
+   (no capture; bitwise the graph's); FedAvg, Fedcom and QuantizedFL for 4
+   rounds against the loop (QuantizedFL bitwise: the chunk draws its
+   rounding uniforms with the Threefry kernel from device tensors); then ``benchmarks/common.py``'s quick ``BenchConfig`` (MLP
    16→24→10, M = 30, P = 6, 50 rounds) on the loop driver, the graph and the
    eager chunks.  Each scan run runs under a device-only ``torch.profiler``
    and must show one capture per key, one host sync per chunk (dispatch runs
@@ -74,14 +82,18 @@
    rounds'; it
    prints per-round wall, device busy share, capture time, store, page and
    schedule bytes, peak device memory and real against run local steps.
-3. Reference check: small federations (FLrce, Fedcom) and
+3. Reference check: small federations (FLrce, Fedcom, QuantizedFL) and
    ``examples/quickstart.py``'s configuration (FLrce with and without early
    stopping, from ``init(0)``) run on the card and on the CPU (the kernels'
    plain versions) must make the same selections, exploit flags, stop
    decision and ledger charges, with accuracies and losses within fp32
    tolerance; the no-ES run must run all 25 rounds as ``flrce_no_es``.
 4. Serving: gemma3-4b at full width (3.88 B parameters, bf16, 34 layers,
-   random weights from seed 0) through ``repro_torch.launch.serve.generate``:
+   the reference's ``init(PRNGKey(0))`` drawn on the card by the Threefry
+   kernel, one launch a leaf: every leaf at 4,096 sampled indices, the
+   embedding's last row among them, bitwise the plain version's draw under
+   the reference's key; init time printed) through
+   ``repro_torch.launch.serve.generate``:
    8 requests × (1536 prompt + 64 generated) tokens, cache_len 1600, so the
    29 local layers' 1024-slot rings wrap.  ``decode_attention`` must launch
    34 times per decode step (34 × 1599), with the counts reset just before
@@ -92,7 +104,8 @@
    4b. Serving recurrentgemma-2b at full width (26 layers: 18 RG-LRU blocks
    and 8 local attention layers with 10 query heads over one KV head; the
    tree ``init`` builds holds 2,304,888,320 parameters, fp32 RG-LRU gates
-   and bf16 elsewhere; random weights from seed 0), the reference serve
+   and bf16 elsewhere; seed 0's weights drawn and checked as in phase 4,
+   fp32 RG-LRU gates and Λ included), the reference serve
    CLI's default model: 8 requests × (2112 prompt + 64 generated) tokens,
    cache_len 2176, so the 2,048-slot rings wrap.  ``decode_attention`` must
    launch 8 × 2175 times; at the last step each attention layer's kernel
@@ -109,7 +122,9 @@
    config: 8 layers, 10 heads over one KV head, window 8) over 24
    positions.
 6. Federated LoRA fine-tuning of gemma3-4b at full width (3.88 B bf16
-   parameters, 34 layers, random weights from seed 0) through
+   parameters, 34 layers, seed 0's weights drawn and checked as in phase 4;
+   the adapters drawn on the card too, each A at 4,096 sampled indices
+   against the plain version) through
    ``run_federated``: ``LMClassifier(cfg, seq_len=128)`` wrapped in
    ``LoRAClassifier(rank=8)`` (D = 14,901,248 over 70 target leaves), 16
    clients of 32 sequences from ``make_federated_lm`` (vocab 262,144) and 64
@@ -153,8 +168,10 @@ phase 2c's norm check reads for a sequential engine with a planted fault.
 
 The second-to-last line is the kernels' JSON record (the five kernels at
 their phase 1 shapes, ``decode_attention@recurrentgemma-2b`` at its ring
-layer with phase 4b's launches, then the four FL kernels at phase 6's as
-``<name>@gemma3-4b-lora``, with phase 6's launches); the last line is
+layer with phase 4b's launches, the two Threefry kernels at their phase 1
+shapes with phase 2b's QuantizedFL and phase 4's init launches, then the
+four FL kernels at phase 6's as ``<name>@gemma3-4b-lora``, with phase 6's
+launches), after the seconds of each phase and the total; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the exit code is
 non-zero and no result line is printed.  Exits 1 when CUDA is absent or the
 port's sources are not beside this file.  Imports nothing of JAX.
@@ -181,6 +198,12 @@ AGG_ATOL = AGG_RTOL = 1e-6
 GRAM_KERNEL = "gram_tri_kernel"         # the one kernel a gram call at P <= 16 launches
 TOPK_KERNEL = "topk_mask_kernel"
 FP32_PEAK_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores (data sheet)
+# H100 SXM: 132 SMs x 64 INT32 units x 1.98 GHz (Hopper white paper); the
+# rotations and xors of Threefry's rounds run there and nowhere else
+INT32_PEAK_OPS = 132 * 64 * 1.98e9
+# a Threefry uniform's operations that only the INT32 units run: 20 rounds
+# of a funnel rotation and an xor, then the words' xor, the shift and the or
+THREEFRY_INT_OPS = 43
 # read before every timed launch: far more than the 50 MB L2, and long
 # enough (about 0.3 ms) that the host has queued the timed call before the
 # card reaches it, on a slow host too
@@ -466,6 +489,126 @@ def kernel_phase(torch, timer, bandwidth) -> dict:
     return {r["name"]: r for r in rows}
 
 
+def sass_census(match: str) -> dict:
+    """Opcode counts of each built kernel whose name holds ``match``, from
+    ``cuobjdump -sass`` of the library (beside ``nvcc``); empty without it."""
+    import re
+
+    from repro_torch.kernels import build
+
+    tool = Path(build.find_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        print(f"  {tool} not found: no SASS census")
+        return {}
+    out = subprocess.run([str(tool), "-sass", build.BUILD_INFO["path"]], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    census, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = short_kernel_name(m.group(1)) if match in m.group(1) else None
+            if name:
+                census[name] = collections.Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if name and m:
+            census[name][m.group(1)] += 1
+    return census
+
+
+def threefry_phase(torch, timer, bandwidth) -> dict:
+    """The Threefry kernels against their plain version, bitwise: normals
+    at edge keys and odd tails and 16 M whole; QuantizedFL's rounding
+    uniforms at edge leaf layouts and at the CIFAR round (P = 10 clients,
+    PaperCNN's leaves, D = 595,914), also against the host draw.  Each is
+    timed beside its plain version, ``torch.rand`` / ``torch.randn`` of the
+    same shape and its bound: the operations of the rounds' rotations and
+    xors on the INT32 units, or the bytes written."""
+    import numpy as np
+
+    from repro_torch import random as prng
+    from repro_torch.fl.baselines import QuantizedFL
+    from repro_torch.kernels import threefry as ktf
+    from repro_torch.models import PaperCNN
+
+    for name, a in ktf.kernel_attributes().items():
+        print(f"  threefry {name} plan: {a['threads']} threads a block, {a['items']} counts a "
+              f"thread, {a['registers']} registers, {a['local_bytes']} B local memory, "
+              f"{a['blocks_per_sm']} resident blocks per SM (occupancy query)")
+        if a["local_bytes"]:
+            fail(f"threefry {name}: {a['local_bytes']} B of local memory")
+    for name, ops in sass_census("threefry").items():
+        alu = {op: ops[op] for op in ("SHF", "LOP3", "IADD3", "IMAD") if ops[op]}
+        print(f"  SASS of {name}: {sum(ops.values())} instructions, integer "
+              + ", ".join(f"{op} {n}" for op, n in alu.items())
+              + f" ({sum(alu.values()) / ktf.ITEMS:.1f} a draw over its {ktf.ITEMS} unrolled "
+              f"draws, every path counted); the bound counts the {THREEFRY_INT_OPS} a draw that "
+              f"only the INT32 units run")
+    for words in [(0, 0), (0, 1), (0xFFFFFFFF, 0xFFFFFFFF), (0x1BD11BDA, 7)]:
+        key = np.array(words, np.uint32)
+        for n in (1, 255, 1025, 4097, (1 << 20) + 3):
+            check_bitwise(f"threefry normal key {words} n={n}", ktf.normal_cuda(key, n),
+                          ktf.normal_plain(key, n, device="cuda"), torch)
+    print("  threefry normal: bitwise its plain version at 4 edge keys x n = 1, 255, 1025, "
+          "4097, 2^20 + 3")
+    i64 = dict(dtype=torch.int64, device="cuda")
+    for sizes in [(1,), (7, 3, 0, 129, 1), (1,) * 300 + (2000,), (0, 1025, 0, 0, 3)]:
+        offsets = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]), **i64)
+        for p in (1, 10):
+            args = (7, torch.tensor(5, **i64), torch.arange(3, 3 + 7 * p, 7, **i64), offsets,
+                    int(offsets[-1]))
+            check_bitwise(f"threefry rounding leaves {sizes[:6]} P={p}",
+                          ktf.rounding_uniforms_cuda(*args), ktf.rounding_uniforms_plain(*args),
+                          torch)
+    print("  threefry rounding uniforms: bitwise its plain version at 4 leaf layouts (zero-size "
+          "leaves, 301 leaves in a block) x P = 1, 10")
+
+    rows = {}
+    sizes = [p.numel() for p in PaperCNN(side=32, channels=3, num_classes=10,
+                                         num_fc=3).init(0, "cpu").values()]
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    d, p = int(offsets[-1]), K_MAIN
+    ids = np.arange(0, 100, 10)
+    args = (0, torch.tensor(3, **i64), torch.tensor(ids, **i64), torch.tensor(offsets, **i64), d)
+    got = ktf.rounding_uniforms_cuda(*args)
+    check_bitwise("threefry rounding main", got, ktf.rounding_uniforms_plain(*args), torch)
+    check_bitwise("threefry rounding main against the host", got.cpu(),
+                  torch.from_numpy(QuantizedFL(100, p, 2, seed=0).rounding_uniforms(3, ids, offsets)),
+                  torch)
+
+    def bound(nbytes, ops):
+        t_bytes, t_ops = nbytes / bandwidth, ops / INT32_PEAK_OPS
+        return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+    b_ms, b_by = bound(4 * p * d + 8 * (1 + p + len(offsets)), THREEFRY_INT_OPS * p * d)
+    rows["threefry_rounding"] = dict(
+        name="threefry_rounding", route="cuda", source="src/repro_torch/kernels/csrc/threefry.cu",
+        replaces="src/repro/fl/baselines/quantized.py:77", max_abs_err=0.0,
+        ms=timer(lambda: ktf.rounding_uniforms_cuda(*args)),
+        plain_ms=timer(lambda: ktf.rounding_uniforms_plain(*args)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=timer(lambda: torch.rand(p, d, device="cuda")),
+        shape=f"P={p} D={d} ({len(sizes)} leaves), grid {ktf.grid_blocks(d)} x {p} blocks")
+    n = 1 << 24
+    key = prng.split(prng.PRNGKey(0))[1]
+    check_bitwise(f"threefry normal n={n}", ktf.normal_cuda(key, n),
+                  ktf.normal_plain(key, n, device="cuda"), torch)
+    b_ms, b_by = bound(4 * n, THREEFRY_INT_OPS * n)
+    rows["threefry_normal"] = dict(
+        name="threefry_normal", route="cuda", source="src/repro_torch/kernels/csrc/threefry.cu",
+        replaces="src/repro/models/layers.py:21", max_abs_err=0.0,
+        ms=timer(lambda: ktf.normal_cuda(key, n)),
+        plain_ms=timer(lambda: ktf.normal_plain(key, n, device="cuda")),
+        bound_ms=b_ms, bound_by=b_by, library_ms=timer(lambda: torch.randn(n, device="cuda")),
+        shape=f"n={n}, grid {ktf.grid_blocks(n)} blocks")
+    for r in rows.values():
+        print(f"  {r['name']:<18} {r['shape']}: bitwise; kernel {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  torch.{'rand' if 'rounding' in r['name'] else 'randn'} "
+              f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  -> "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+    torch.cuda.empty_cache()
+    return rows
+
+
 def launch_plans(torch, kgram, ktopk, u) -> None:
     """The planned grids of gram and topk_mask_rows at the main shape, and a
     profiled gram call, which must be one kernel launch."""
@@ -572,7 +715,8 @@ def check_launches(label, launches, res) -> None:
     once a round, gram once per exploit round, nothing else."""
     rounds, exploit = res.rounds_run, sum(r.exploited for r in res.records)
     want = {"cross_gram": 2 * rounds, "gram": exploit, "weighted_aggregate": rounds,
-            "topk_mask_rows": 0, "decode_attention": 0}
+            "topk_mask_rows": 0, "decode_attention": 0, "threefry_normal": 0,
+            "threefry_rounding": 0}
     if launches != want:
         fail(f"{label}: launches {launches}, want {want}")
 
@@ -920,7 +1064,8 @@ def run_baseline(torch, name, rounds, ds, model, params, **kw):
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     want = {"cross_gram": 0, "gram": 0, "weighted_aggregate": rounds,
-            "topk_mask_rows": rounds if name == "Fedcom" else 0, "decode_attention": 0}
+            "topk_mask_rows": rounds if name == "Fedcom" else 0, "decode_attention": 0,
+            "threefry_normal": 0, "threefry_rounding": rounds if name == "QuantizedFL" else 0}
     if launches != want:
         fail(f"{name}: launches {launches}, want {want}")
     if res.rounds_run != rounds:
@@ -942,27 +1087,36 @@ def run_baseline(torch, name, rounds, ds, model, params, **kw):
 
 
 def baselines_phase(torch, ds, model, params) -> dict:
-    """Every §4.1 baseline at full width; Fedcom is the top-k kernel's path."""
+    """Every §4.1 baseline at full width; Fedcom is the top-k kernel's path,
+    QuantizedFL the rounding uniforms'."""
     import numpy as np
+
+    from repro_torch.kernels import ops
 
     runs = {}
     for name, rounds, kw in [("Fedcom", 4, dict(keep_frac=0.1)), ("FedAvg", 4, {}),
                              ("Fedprox", 2, {}), ("Dropout", 2, dict(keep_rate=0.5)),
                              ("TimelyFL", 2, {}), ("PyramidFL", 2, {}), ("QuantizedFL", 2, {})]:
         runs[name] = run_baseline(torch, name, rounds, ds, model, params, **kw)
-    # QuantizedFL's stochastic-rounding uniforms are drawn on the host
+    # QuantizedFL's stochastic-rounding uniforms: one Threefry kernel launch
+    # a round; the host draw the CPU loop makes, for comparison
     strategy = runs["QuantizedFL"][2]
     sizes = [p.numel() for p in params.values()]
-    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(int)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
     ids = np.asarray(runs["QuantizedFL"][0].records[-1].selected)
+    dev = dict(dtype=torch.int64, device="cuda")
+    args = (strategy.seed, torch.tensor(1, **dev), torch.tensor(ids, **dev),
+            torch.tensor(offsets, **dev), int(offsets[-1]))
+    kernel_ms = Timer(torch)(lambda: ops.rounding_uniforms(*args))
+    got = ops.rounding_uniforms(*args)
     t0 = time.perf_counter()
     unif = strategy.rounding_uniforms(1, ids, offsets)
     draw_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    torch.from_numpy(unif).to("cuda")
-    torch.cuda.synchronize()
-    print(f"  QuantizedFL host Threefry uniforms: {unif.size} draws in {draw_s:.3f} s, "
-          f"copy to the card {time.perf_counter() - t0:.3f} s (per round)")
+    check_bitwise("QuantizedFL rounding uniforms, kernel against the host draw", got.cpu(),
+                  torch.from_numpy(unif), torch)
+    print(f"  QuantizedFL rounding uniforms: {unif.size} draws a round by the Threefry kernel "
+          f"in {1e3 * kernel_ms:.1f} µs (CUDA events, one launch), bitwise the host draw, which "
+          f"takes {draw_s:.3f} s")
 
     def steady(name):
         walls = sorted(r.wall_s for r in runs[name][0].records[1:])
@@ -970,14 +1124,14 @@ def baselines_phase(torch, ds, model, params) -> dict:
 
     print(f"  steady round wall (median after round 0): Fedcom {steady('Fedcom'):.3f} s, "
           f"FedAvg {steady('FedAvg'):.3f} s")
-    return runs["Fedcom"][1]
+    return {name: run[1] for name, run in runs.items()}
 
 
 def reference_check(torch) -> None:
     """The same small federations on the card (kernels) and on the CPU (plain)."""
     from repro_torch.data import make_federated_classification
     from repro_torch.fl import FLrce, run_federated
-    from repro_torch.fl.baselines import Fedcom
+    from repro_torch.fl.baselines import Fedcom, QuantizedFL
     from repro_torch.models import MLPClassifier
 
     ds = make_federated_classification(num_clients=8, alpha=0.1, num_samples=600, num_eval=200,
@@ -988,6 +1142,8 @@ def reference_check(torch) -> None:
     for label, make in (
         ("FLrce", lambda: FLrce(8, 3, 2, dim=dim, es_threshold=10.0, explore_decay=0.5, seed=0)),
         ("Fedcom", lambda: Fedcom(8, 3, 2, seed=0, keep_frac=0.1)),
+        # the card's rounding uniforms from the Threefry kernel, the CPU's from the host
+        ("QuantizedFL", lambda: QuantizedFL(8, 3, 2, seed=0)),
     ):
         runs = {dev: run_federated(model, ds, make(), max_rounds=6, learning_rate=0.1, batch_size=16,
                                    seed=0, init_params=init, torch_device=dev)
@@ -1038,7 +1194,8 @@ SCAN_ROUNDS, SCAN_CHUNK = 8, 4
 # the kernel whose launches stand for a wrapper's call under the profiler
 # (cross_gram: its split pass; at P = 10, gram takes the one-launch kernel)
 PROFILED_KERNEL = {"cross_gram": "xgram_partial_kernel", "gram": GRAM_KERNEL,
-                   "weighted_aggregate": "aggregate_kernel", "topk_mask_rows": TOPK_KERNEL}
+                   "weighted_aggregate": "aggregate_kernel", "topk_mask_rows": TOPK_KERNEL,
+                   "threefry_rounding": "threefry_rounding_kernel"}
 
 
 def device_busy(prof) -> tuple:
@@ -1094,7 +1251,8 @@ def scan_run(torch, label, ds, model, params, make, rounds, **kw):
     flrce = strategy.name.startswith("flrce")
     want = {"cross_gram": 2 * n if flrce else 0, "gram": n if flrce else 0,
             "weighted_aggregate": n, "topk_mask_rows": n if strategy.name == "fedcom" else 0,
-            "decode_attention": 0}
+            "decode_attention": 0, "threefry_normal": 0,
+            "threefry_rounding": n if strategy.name == "quantized8" else 0}
     if st["replay_launches"] != want:
         fail(f"{label}: launches in the replays {st['replay_launches']}, want {want}")
     if st["captures_chunk"] != st["programs"] or st["captures_chunk"] < 1:
@@ -1130,9 +1288,10 @@ def scan_run(torch, label, ds, model, params, make, rounds, **kw):
     return res, strategy
 
 
-def compare_scan(label, loop, scan, torch) -> None:
+def compare_scan(label, loop, scan, torch, bitwise: bool = False) -> None:
     """A scan run against the loop run from the same params: discrete
-    results and ledger equal, accuracy within 2e-3."""
+    results and ledger equal, accuracy within 2e-3; with ``bitwise``,
+    accuracies, losses and final params equal."""
     if (loop.rounds_run, loop.stopped_early) != (scan.rounds_run, scan.stopped_early):
         fail(f"{label}: loop ran {loop.rounds_run} rounds (stop {loop.stopped_early}), scan "
              f"{scan.rounds_run} (stop {scan.stopped_early})")
@@ -1149,6 +1308,11 @@ def compare_scan(label, loop, scan, torch) -> None:
         fail(f"{label}: accuracy {acc_gap:.2e} from the loop's")
     param_gap = max(float((loop.final_params[k] - scan.final_params[k]).abs().max())
                     for k in loop.final_params)
+    if bitwise and (acc_gap or loss_gap or any(
+            not torch.equal(loop.final_params[k], scan.final_params[k])
+            for k in loop.final_params)):
+        fail(f"{label}: not bitwise the loop (accuracy {acc_gap:.2e}, loss {loss_gap:.2e}, "
+             f"params {param_gap:.3e})")
     print(f"  {label} == loop over {scan.rounds_run} rounds: selections "
           f"{[r.selected for r in scan.records][:3]}..., exploited "
           f"{[r.exploited for r in scan.records]}; max |Δ| accuracy {acc_gap:.2e}, loss "
@@ -1202,14 +1366,15 @@ def scan_phase(torch, ds, model, params) -> None:
         fail("candidates_per_chunk=40: paged and resident final params differ")
     print(f"  FLrce candidates_per_chunk=40: paged == resident bitwise over {a.rounds_run} rounds; "
           f"selections {[r.selected for r in a.records][:3]}...")
-    for name, kw in (("FedAvg", {}), ("Fedcom", dict(keep_frac=0.1))):
+    for name, kw in (("FedAvg", {}), ("Fedcom", dict(keep_frac=0.1)), ("QuantizedFL", {})):
         make = lambda: getattr(baselines, name)(100, 10, 2, seed=0, **kw)  # noqa: E731
         loop = run_federated(model, ds, make(), max_rounds=4, **loop_kw)
         print(f"  loop {name}: per-round wall " + ", ".join(f"{r.wall_s:.3f}" for r in loop.records)
               + " s")
         res, _ = scan_run(torch, f"{name} resident", ds, model, params, make, 4,
                           scan_chunk_rounds=SCAN_CHUNK)
-        compare_scan(name, loop, res, torch)
+        # QuantizedFL: the chunk draws the loop's uniforms on the card
+        compare_scan(name, loop, res, torch, bitwise=name == "QuantizedFL")
     quick_bench(torch)
 
 
@@ -1317,6 +1482,8 @@ KERNEL_INSTANCES = {
     "xgram_partial_kernel": 3 * 4,          # load width 1/2/4 x U row tile 4/8/12/16
     "sum_splits_kernel": 1,
     "aggregate_kernel": 3,                  # load width 1/2/4
+    "threefry_normal_kernel": 1,
+    "threefry_rounding_kernel": 1,
 }
 
 # (label, B, S, K, G, hd, dtype, lengths, window, ring): edge cases
@@ -1493,9 +1660,12 @@ def serve_phase(torch, arch, b, prompt_len, gen, want_params, want_config_params
 
     cfg = get_arch(arch)
     model = TransformerLM(cfg)
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
     params = model.init(0, "cuda")
     torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_launches = ops.launch_counts()
     leaves = list(tensors(params))
     n_params = sum(t.numel() for t in leaves)
     n_bytes = sum(t.numel() * t.element_size() for t in leaves)
@@ -1514,7 +1684,8 @@ def serve_phase(torch, arch, b, prompt_len, gen, want_params, want_config_params
           + ", ".join(f"{n} {dt}" for dt, n in by_dtype.items()) + f"; the config's "
           f"param_count() says {cfg.param_count()}), {len(kinds)} layers ("
           + ", ".join(f"{kinds.count(k)} {k}" for k in sorted(set(kinds)))
-          + f"; window {cfg.window}), init on the card {time.perf_counter() - t0:.2f} s")
+          + f"; window {cfg.window}), init on the card {init_s:.2f} s")
+    init_leaf_check(torch, cfg, params, 0, init_launches)
     gen_ = torch.Generator(device="cuda").manual_seed(0)
     prompt = torch.randint(0, cfg.vocab_size, (b, prompt_len), generator=gen_, device="cuda")
     stamps = []
@@ -1545,9 +1716,11 @@ def serve_phase(torch, arch, b, prompt_len, gen, want_params, want_config_params
     finally:
         ops.decode_attention = inner
     want = {"cross_gram": 0, "gram": 0, "weighted_aggregate": 0, "topk_mask_rows": 0,
-            "decode_attention": n_attn * steps_total}
+            "decode_attention": n_attn * steps_total, "threefry_normal": 0,
+            "threefry_rounding": 0}
     if launches != want:
         fail(f"serve {arch}: launches {launches}, want {want}")
+    launches["threefry_normal"] = init_launches["threefry_normal"]
     if tuple(seq.shape) != (b, prompt_len + gen) or not torch.equal(seq[:, :prompt_len], prompt):
         fail(f"serve {arch}: output {tuple(seq.shape)} does not extend the prompt")
     if int(seq.min()) < 0 or int(seq.max()) >= cfg.vocab_size or len(stamps) != steps_total:
@@ -1568,6 +1741,80 @@ def serve_phase(torch, arch, b, prompt_len, gen, want_params, want_config_params
           f"{launches}")
     print(f"  request 0, first generated tokens: {seq[0, prompt_len:prompt_len + 16].tolist()}")
     return model, params, launches, step_med, list(calls)
+
+
+INIT_SAMPLES = 4096
+
+
+def init_leaf_check(torch, cfg, params, seed, launches) -> None:
+    """ROADMAP C.8 at full width: every drawn leaf of ``init(seed)`` (one
+    Threefry launch each, nothing else launched) at 4,096 sampled indices,
+    the embedding's last row among them, bitwise against the plain
+    version's index-set draw under the reference's key for that leaf,
+    scaled and rounded as the reference's ``dense_init``, ``embed_init`` and
+    ``init_conv1d`` do; Λ whole against the reference's linspace."""
+    import numpy as np
+
+    from repro_torch import random as prng
+    from repro_torch.kernels import threefry as ktf
+    from repro_torch.models.rglru import decay_init
+    from repro_torch.models.transformer import layer_key
+
+    t0 = time.perf_counter()
+    r_emb, r_dec, _, r_un = prng.split(prng.PRNGKey(seed), 4)
+    d = cfg.d_model
+    checks = [("embed", params["embed"], r_emb, 0.02, None)]
+    if "unembed" in params:
+        checks.append(("unembed", params["unembed"].T, r_un, 0.02, None))
+    for i, (kind, layer) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
+        r1, _, r3, _, _ = prng.split(layer_key(r_dec, i, cfg), 5)
+        mix = layer["mixer"]
+        if kind == "rglru":
+            inner = mix["w_a"].shape[0]
+            ru, rg, ro, rc, ra, rx, _ = prng.split(r1, 7)
+            checks += [(f"{i}.w_up", mix["w_up"], ru, 1.0 / math.sqrt(d), None),
+                       (f"{i}.w_gate", mix["w_gate"], rg, 1.0 / math.sqrt(d), None),
+                       (f"{i}.w_down", mix["w_down"], ro, 1.0 / math.sqrt(inner), None),
+                       (f"{i}.w_a", mix["w_a"], ra, 0.01, None),
+                       (f"{i}.w_x", mix["w_x"], rx, 0.01, None),
+                       (f"{i}.conv.w", mix["conv"]["w"], rc, None, 2.0)]
+            if not torch.equal(mix["lam"].cpu(), torch.from_numpy(decay_init(inner))):
+                fail(f"init {cfg.name}: layer {i}'s Λ is not the reference's linspace")
+        else:
+            for name, key in zip(("wq", "wk", "wv", "wo"), prng.split(r1, 4)):
+                checks.append((f"{i}.{name}", mix[name], key, 1.0 / math.sqrt(mix[name].shape[0]),
+                               None))
+        if "mlp" in layer:
+            for name, key in zip(("wi", "wo", "wg"), prng.split(r3, 3)):
+                if name in layer["mlp"]:
+                    w = layer["mlp"][name]
+                    checks.append((f"{i}.mlp.{name}", w, key, 1.0 / math.sqrt(w.shape[0]), None))
+    rng = np.random.default_rng(seed)
+    kinds = collections.Counter()
+    for label, leaf, key, scale, divisor in checks:
+        n = leaf.numel()
+        idx = rng.choice(n, size=min(n, INIT_SAMPLES), replace=False)
+        if label in ("embed", "unembed"):         # the last row of the vocabulary
+            idx = np.concatenate([idx, np.arange(n - leaf.shape[-1], n)])
+        index = torch.from_numpy(idx).cuda()
+        z = ktf.normal_plain(key, index=index, device="cuda")
+        z = z / torch.tensor(divisor, device="cuda") if divisor else z * float(np.float32(scale))
+        got = leaf.reshape(-1)[index]
+        view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+        if not torch.equal(got.view(view), z.to(got.dtype).view(view)):
+            fail(f"init {cfg.name}: leaf {label} differs from the reference's draw")
+        kinds[f"{tuple(leaf.shape)} {str(leaf.dtype).removeprefix('torch.')}"] += 1
+    drawn = sum(t.dim() == 2 for t in tensors(params))
+    want = {k: 0 for k in launches}
+    want["threefry_normal"] = drawn
+    if launches != want or len(checks) != drawn:
+        fail(f"init {cfg.name}: launches {launches} for {drawn} drawn leaves ({len(checks)} "
+             f"checked)")
+    print(f"  init {cfg.name}: {drawn} leaves drawn in {drawn} Threefry launches; each leaf at "
+          f"{INIT_SAMPLES} sampled indices (the embedding's last row too) bitwise the plain "
+          f"version's draw under the reference's key, Λ whole the reference's linspace; leaf "
+          f"kinds " + ", ".join(f"{v} x {k}" for k, v in kinds.items())
+          + f" ({time.perf_counter() - t0:.1f} s)")
 
 
 def rg_last_step_check(torch, cfg, calls) -> None:
@@ -2281,29 +2528,50 @@ def lora_phase(torch, timer, bandwidth) -> tuple:
     from repro_torch.fl import FLrce, run_federated
     from repro_torch.fl.baselines import FedAvg, Fedcom
     from repro_torch.kernels import ops
+    from repro_torch.kernels import threefry as ktf
     from repro_torch.models import LMClassifier, LoRAClassifier
     from repro_torch.models.lm import lm_from_flat
 
     t_phase = time.perf_counter()
     cfg = get_arch(LORA_ARCH)
     base = LMClassifier(cfg, seq_len=LORA_SEQ)
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
     base_params = base.init(0, "cuda")
     torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     n_base = sum(p.numel() for p in base_params.values())
     print(f"  base {cfg.name}: {n_base:,} parameters ({cfg.dtype}), {cfg.num_layers} layers, "
           f"d_model {cfg.d_model}, {len(base_params)} leaves, drawn on the card in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{init_s:.1f} s")
+    init_leaf_check(torch, cfg, lm_from_flat(cfg, base_params), 0, ops.launch_counts())
     lora = LoRAClassifier(base, base_params, rank=LORA_RANK)
     dim = lora.adapter_dim()
     n_targets = len({base for _, base, factor in lora.adapter_leaves() if factor is not None})
     if dim != LORA_D:
         fail(f"LoRA adapter dim {dim} != {LORA_D}")
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
     adapters = lora.init(0, "cuda")
+    torch.cuda.synchronize()
+    adapter_s = time.perf_counter() - t0
+    adapter_launches = ops.launch_counts()["threefry_normal"]
+    a_keys = lora.a_keys(0)
+    rng = np.random.default_rng(0)
+    for name, key in a_keys.items():
+        a = adapters[name].reshape(-1)
+        index = torch.from_numpy(rng.choice(a.numel(), min(a.numel(), INIT_SAMPLES),
+                                            replace=False)).cuda()
+        root = torch.tensor(float(np.sqrt(np.float32(adapters[name].shape[-2]))), device="cuda")
+        want = ktf.normal_plain(key, index=index, device="cuda") / root
+        if not torch.equal(a[index].view(torch.int32), want.view(torch.int32)):
+            fail(f"LoRA init: adapter {name} differs from the reference's draw")
+    if adapter_launches != len(a_keys):
+        fail(f"LoRA init: {adapter_launches} Threefry launches for {len(a_keys)} A factors")
     print(f"  LoRA rank {LORA_RANK}: D = {dim:,} over {n_targets} target leaves; adapters drawn "
-          f"on the host (the reference's generator) in {time.perf_counter() - t0:.1f} s; "
-          f"V and A {LORA_M * dim * 4 / 1e9:.2f} GB each")
+          f"on the card ({adapter_launches} Threefry launches) in {adapter_s:.3f} s, each A at "
+          f"{INIT_SAMPLES} sampled indices bitwise the plain version's draw of its key; V and A "
+          f"{LORA_M * dim * 4 / 1e9:.2f} GB each")
     t0 = time.perf_counter()
     ds = make_federated_lm(num_clients=LORA_M, samples_per_client=LORA_N, seq_len=LORA_SEQ,
                            vocab_size=cfg.vocab_size, num_eval=LORA_EVAL, seed=0)
@@ -2380,7 +2648,8 @@ def lora_phase(torch, timer, bandwidth) -> tuple:
         torch.cuda.synchronize()
         got = ops.launch_counts()
         want = {"cross_gram": 0, "gram": 0, "weighted_aggregate": r.rounds_run,
-                "topk_mask_rows": r.rounds_run if name == "Fedcom" else 0, "decode_attention": 0}
+                "topk_mask_rows": r.rounds_run if name == "Fedcom" else 0, "decode_attention": 0,
+                "threefry_normal": 0, "threefry_rounding": 0}
         if got != want:
             fail(f"LoRA {name}: launches {got}, want {want}")
         lora_checks(f"LoRA {name}", r, strat, dim, need_exploit=False)
@@ -2745,56 +3014,66 @@ def main() -> int:
         kernel_variants(torch, Timer(torch), bandwidth)
         return 0
 
-    print("phase 1: kernels against their plain versions")
+    starts = []
+
+    def phase(header: str) -> None:
+        """Print a phase's header and note when it started."""
+        starts.append((header.split(":")[0].removeprefix("phase "), time.perf_counter()))
+        print(header)
+
+    phase("phase 1: kernels against their plain versions")
     timer = Timer(torch)
     rows = kernel_phase(torch, timer, bandwidth)
     decode_rows = decode_kernel_phase(torch, timer, bandwidth)
     rows["decode_attention"] = decode_rows["global"]
     rows[f"decode_attention@{RG_ARCH}"] = decode_rows[RG_ROW]
+    rows.update(threefry_phase(torch, timer, bandwidth))
     del timer
     torch.cuda.empty_cache()
 
-    print("phase 2: main path, CIFAR-10 PaperCNN, M=100, P=10, 6 FLrce rounds")
+    phase("phase 2: main path, CIFAR-10 PaperCNN, M=100, P=10, 6 FLrce rounds")
     launches, (ds, model, params, round_wall_s), (main_res, main_u0) = main_path(torch)
     print("profile: the main path's device time by kernel")
     profile_phase(torch, ds, model, params, round_wall_s)
 
-    print("phase 2b: the §4.1 baselines at full width, M=100, P=10")
-    topk_launches = baselines_phase(torch, ds, model, params)
-    launches["topk_mask_rows"] = topk_launches["topk_mask_rows"]
+    phase("phase 2b: the §4.1 baselines at full width, M=100, P=10")
+    baseline_launches = baselines_phase(torch, ds, model, params)
+    launches["topk_mask_rows"] = baseline_launches["Fedcom"]["topk_mask_rows"]
+    launches["threefry_rounding"] = baseline_launches["QuantizedFL"]["threefry_rounding"]
 
-    print("phase 2c: the sequential engine at full width, M=100, P=10, 2 FLrce rounds")
+    phase("phase 2c: the sequential engine at full width, M=100, P=10, 2 FLrce rounds")
     sequential_phase(torch, ds, model, params, main_res, main_u0)
 
-    print(f"phase 2e: the compiled round driver (driver='scan'), CIFAR-10 PaperCNN, M=100, P=10, "
-          f"{SCAN_ROUNDS} FLrce rounds in chunks of {SCAN_CHUNK}, FedAvg and Fedcom")
+    phase(f"phase 2e: the compiled round driver (driver='scan'), CIFAR-10 PaperCNN, M=100, P=10, "
+          f"{SCAN_ROUNDS} FLrce rounds in chunks of {SCAN_CHUNK}, FedAvg, Fedcom and QuantizedFL")
     scan_phase(torch, ds, model, params)
     del ds, model, params, main_res, main_u0
     gc.collect()
     torch.cuda.empty_cache()
 
-    print(f"phase 2d: FLrce at a {FLEET_M}-client fleet, CIFAR-10 PaperCNN, P=10, "
+    phase(f"phase 2d: FLrce at a {FLEET_M}-client fleet, CIFAR-10 PaperCNN, P=10, "
           f"{FLEET_ROUNDS} rounds: exact maps, va_rows=40 and va_rows=20")
     timer = Timer(torch)
     fleet_phase(torch, timer, bandwidth)
     del timer
     torch.cuda.empty_cache()
 
-    print("phase 3: small federations, GPU against CPU")
+    phase("phase 3: small federations, GPU against CPU")
     reference_check(torch)
     torch.cuda.empty_cache()
 
-    print(f"phase 4: serve gemma3-4b at full width, {SERVE_B} requests x ({SERVE_PROMPT} prompt + "
+    phase(f"phase 4: serve gemma3-4b at full width, {SERVE_B} requests x ({SERVE_PROMPT} prompt + "
           f"{SERVE_GEN} generated) tokens")
     model, params, serve_launches, step_wall_s, _ = serve_phase(
         torch, "gemma3-4b", SERVE_B, SERVE_PROMPT, SERVE_GEN, GEMMA3_PARAMS, GEMMA3_PARAMS)
     launches["decode_attention"] = serve_launches["decode_attention"]
+    launches["threefry_normal"] = serve_launches["threefry_normal"]
     print("profile: device time by kernel of the serve step")
     serve_profile(torch, model, params, step_wall_s)
     del model, params
     torch.cuda.empty_cache()
 
-    print(f"phase 4b: serve {RG_ARCH} at full width, {RG_B} requests x ({RG_PROMPT} prompt + "
+    phase(f"phase 4b: serve {RG_ARCH} at full width, {RG_B} requests x ({RG_PROMPT} prompt + "
           f"{RG_GEN} generated) tokens")
     model, params, rg_launches, rg_step_s, calls = serve_phase(
         torch, RG_ARCH, RG_B, RG_PROMPT, RG_GEN, RG_PARAMS, RG_CONFIG_PARAMS,
@@ -2813,30 +3092,32 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    print("phase 5: a small gemma3-family model served on the GPU and on the CPU")
+    phase("phase 5: a small gemma3-family model served on the GPU and on the CPU")
     serve_reference_check(torch, "gemma3-4b")
-    print(f"phase 5b: a small {RG_ARCH}-family model served on the GPU and on the CPU")
+    phase(f"phase 5b: a small {RG_ARCH}-family model served on the GPU and on the CPU")
     serve_reference_check(torch, RG_ARCH)
     torch.cuda.empty_cache()
 
-    print(f"phase 6: federated LoRA (rank {LORA_RANK}) on {LORA_ARCH} at full width, M={LORA_M}, "
+    phase(f"phase 6: federated LoRA (rank {LORA_RANK}) on {LORA_ARCH} at full width, M={LORA_M}, "
           f"P={LORA_P}, {LORA_N} sequences of {LORA_SEQ} tokens a client: FLrce, FedAvg, Fedcom")
     timer = Timer(torch)
     lora_rows, lora_launches = lora_phase(torch, timer, bandwidth)
     del timer
     torch.cuda.empty_cache()
 
-    print("phase 6b: a reduced gemma3 config, LoRA and full-model federations, GPU against CPU")
+    phase("phase 6b: a reduced gemma3 config, LoRA and full-model federations, GPU against CPU")
     lora_reference_check(torch)
 
     kernels = []
     for name in ("cross_gram", "gram", "weighted_aggregate", "topk_mask_rows", "decode_attention",
-                 f"decode_attention@{RG_ARCH}"):
+                 f"decode_attention@{RG_ARCH}", "threefry_rounding", "threefry_normal"):
         r = rows[name]
         kernels.append({
             "name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
             # topk_mask_rows: its path is the Fedcom run; decode_attention: the
-            # gemma3-4b serve run (@recurrentgemma-2b: phase 4b's); the others: FLrce's
+            # gemma3-4b serve run (@recurrentgemma-2b: phase 4b's); threefry_rounding:
+            # phase 2b's QuantizedFL run; threefry_normal: phase 4's gemma3-4b init;
+            # the others: FLrce's
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
@@ -2849,6 +3130,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    ends = [t for _, t in starts[1:]] + [time.perf_counter()]
+    print("phase seconds: " + ", ".join(f"{name} {end - t:.1f}"
+                                        for (name, t), end in zip(starts, ends)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,14 @@ finite) — becomes exactly 0; a zero-size leaf is passed through; columns
 beyond the template's D are kept.
 
 The rounding uniforms are the reference's ``jax.random.uniform`` draws
-keyed by ``fold_in(fold_in(fold_in(PRNGKey(seed), t), cid), leaf)``, bitwise
-(``repro_torch.random``).  They are drawn on the host and copied to the
-device: about P · D draws per round.
+keyed by ``fold_in(fold_in(fold_in(PRNGKey(seed), t), cid), leaf)``, bitwise:
+P · D draws a round.  On the card both drivers draw them with one launch of
+the Threefry kernel (``kernels.ops.rounding_uniforms``), which reads the
+round index and the client ids from device tensors, so the compiled round
+driver (``driver="scan"``) captures the draw with the round and replays it
+with no host read.  On the CPU the loop draws them on the host
+(:meth:`rounding_uniforms`, ``repro_torch.random``) and a chunk's round body
+with the kernel's plain version.
 """
 from __future__ import annotations
 
@@ -24,11 +29,12 @@ import torch
 
 from repro_torch import random as prng
 from repro_torch.fl.strategy import LocalConfig, TorchStrategy
+from repro_torch.kernels import ops as kops
 
 
 class TorchQuantizedFL(TorchStrategy):
     name = "quantized8"
-    supports_scan = True     # as the reference declares; see scan_program
+    supports_scan = True     # the rounding uniforms are drawn inside the chunk
 
     def __init__(self, *args, bits: int = 8, **kwargs):
         super().__init__(*args, **kwargs)
@@ -49,21 +55,26 @@ class TorchQuantizedFL(TorchStrategy):
                     out[row, lo:hi] = prng.uniform(prng.fold_in(key_c, i), (int(hi - lo),))
         return out
 
-    def scan_program(self):
-        raise NotImplementedError(
-            "QuantizedFL under driver='scan' needs its rounding uniforms drawn inside the "
-            "chunk, by a device Threefry bitwise the host's (ROADMAP A.6); they are a host "
-            "draw today. Run it with driver='loop'."
-        )
-
     def update_transform(self, template) -> Callable:
         levels = 2 ** (self.bits - 1) - 1
         sizes = [int(leaf.numel()) for leaf in template.values()]
         offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(int)
         d = int(offsets[-1])
+        device = next(iter(template.values())).device if template else torch.device("cpu")
+        offsets_dev = torch.from_numpy(offsets.astype(np.int64)).to(device)
 
-        def apply(t: int, ids: np.ndarray, u: torch.Tensor) -> torch.Tensor:
-            unif = torch.from_numpy(self.rounding_uniforms(t, ids, offsets)).to(u.device)
+        def uniforms(t, ids, u: torch.Tensor) -> torch.Tensor:
+            """``t`` and ``ids`` as host values (the loop driver) or device
+            tensors (a chunk's round body)."""
+            if not isinstance(t, torch.Tensor):
+                if u.device.type != "cuda":
+                    return torch.from_numpy(self.rounding_uniforms(t, ids, offsets))
+                t = torch.tensor(int(t), dtype=torch.int64).to(u.device)
+                ids = torch.from_numpy(np.asarray(ids, np.int64)).to(u.device)
+            return kops.rounding_uniforms(self.seed, t, ids, offsets_dev, d)
+
+        def apply(t, ids, u: torch.Tensor) -> torch.Tensor:
+            unif = uniforms(t, ids, u)
             segs = []
             for lo, hi in zip(offsets[:-1], offsets[1:]):
                 seg = u[:, lo:hi]

@@ -22,7 +22,7 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("gram.cu", "aggregate.cu", "topk_mask.cu", "decode_attention.cu")
+SOURCES = ("gram.cu", "aggregate.cu", "topk_mask.cu", "decode_attention.cu", "threefry.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libflrce_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -130,6 +130,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flrce_decode_attention_occupancy.restype = i32
     lib.flrce_xgram_plan.argtypes = [i64, i64, i64, i32, ctypes.POINTER(i64), ctypes.POINTER(i64)]
     lib.flrce_xgram_plan.restype = i32
+    u32 = ctypes.c_uint32
+    lib.flrce_threefry_normal.argtypes = [u32, u32, p, i64, i64, p]
+    lib.flrce_threefry_normal.restype = i32
+    lib.flrce_threefry_rounding.argtypes = [u32, u32, p, p, p, i64, p, i64, i64, i64, p]
+    lib.flrce_threefry_rounding.restype = i32
+    lib.flrce_threefry_attributes.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32),
+                                              ctypes.POINTER(i32)]
+    lib.flrce_threefry_attributes.restype = i32
     lib.flrce_error_string.argtypes = [i32]
     lib.flrce_error_string.restype = ctypes.c_char_p
 

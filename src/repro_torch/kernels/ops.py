@@ -13,9 +13,11 @@ import torch
 from repro_torch.kernels import aggregate as _aggregate
 from repro_torch.kernels import decode_attention as _decode_attention
 from repro_torch.kernels import gram as _gram
+from repro_torch.kernels import threefry as _threefry
 from repro_torch.kernels import topk_mask as _topk_mask
 
-KERNELS = ("cross_gram", "gram", "weighted_aggregate", "topk_mask_rows", "decode_attention")
+KERNELS = ("cross_gram", "gram", "weighted_aggregate", "topk_mask_rows", "decode_attention",
+           "threefry_normal", "threefry_rounding")
 
 
 def _device_type(name: str, *tensors: torch.Tensor) -> str:
@@ -79,6 +81,28 @@ def decode_attention(
                                                     window=window, ring=ring)
 
 
+def random_normal(key, n: int, device) -> torch.Tensor:
+    """Elements ``range(n)`` of ``jax.random.normal(key, ·)`` (float32, a
+    host key) on ``device``: the kernel on a CUDA device, the plain version
+    on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return _threefry.normal_cuda(key, n, dev)
+    if dev.type != "cpu":
+        raise ValueError(f"random_normal: unsupported device type {dev.type!r}")
+    return _threefry.normal_plain(key, n, device=dev)
+
+
+def rounding_uniforms(seed: int, t: torch.Tensor, ids: torch.Tensor, offsets: torch.Tensor,
+                      width: int) -> torch.Tensor:
+    """QuantizedFL's (P, width) float32 rounding uniforms of round ``t`` for
+    clients ``ids``, leaves at ``offsets`` (L + 1 int64 values, the last one
+    ``width``, which the host passes so that a CUDA call reads nothing back)."""
+    if _device_type("rounding_uniforms", t, ids, offsets) == "cuda":
+        return _threefry.rounding_uniforms_cuda(seed, t, ids, offsets, width)
+    return _threefry.rounding_uniforms_plain(seed, t, ids, offsets, width)
+
+
 def launch_counts() -> Dict[str, int]:
     """How many times each kernel's wrapper launched it since the last reset."""
     return {
@@ -87,6 +111,8 @@ def launch_counts() -> Dict[str, int]:
         "weighted_aggregate": _aggregate.AGGREGATE_LAUNCHES,
         "topk_mask_rows": _topk_mask.TOPK_MASK_LAUNCHES,
         "decode_attention": _decode_attention.DECODE_ATTENTION_LAUNCHES,
+        "threefry_normal": _threefry.NORMAL_LAUNCHES,
+        "threefry_rounding": _threefry.ROUNDING_LAUNCHES,
     }
 
 
@@ -96,3 +122,5 @@ def reset_launch_counts() -> None:
     _aggregate.AGGREGATE_LAUNCHES = 0
     _topk_mask.TOPK_MASK_LAUNCHES = 0
     _decode_attention.DECODE_ATTENTION_LAUNCHES = 0
+    _threefry.NORMAL_LAUNCHES = 0
+    _threefry.ROUNDING_LAUNCHES = 0

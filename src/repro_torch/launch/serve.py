@@ -8,8 +8,9 @@ the prompt is fed one token at a time through the decode step (prefill is
 decode), then the greedy tokens.  Architectures: those of
 ``repro_torch.configs`` (``--arch``; the default recurrentgemma-2b is the
 RG-LRU hybrid, the others dense attention-only), reduced unless
-``--full-config``.  Parameters are random, drawn from ``--seed`` on the
-device.  Runs on CUDA unless ``--device cpu`` is given.
+``--full-config``.  Parameters are the reference's ``init(PRNGKey(seed))``
+for ``--seed``, drawn on the device.  Runs on CUDA unless ``--device cpu``
+is given.
 """
 from __future__ import annotations
 

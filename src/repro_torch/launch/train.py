@@ -19,8 +19,8 @@ Examples::
         --silos 8 --rounds 20
 
 Runs on CUDA unless ``--device cpu`` is given.  Pretrain mode draws the model
-from ``--seed`` with ``TransformerLM.init`` (not the reference's
-``jax.random`` values); a bf16 model trains in bf16, each round's flat fp32
+from ``--seed`` with ``TransformerLM.init``, the reference's weights for that
+seed; a bf16 model trains in bf16, each round's flat fp32
 mean cast back to every leaf's dtype, as the reference's ``flatten_pytree``
 inverse does.
 """

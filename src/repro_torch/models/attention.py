@@ -15,8 +15,10 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch import random as prng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense_init
@@ -27,17 +29,19 @@ _NEG_INF = -1e30
 DEFAULT_KV_CHUNK = 1024
 
 
-def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
+def init_attention(key: np.ndarray, cfg: ArchConfig, dtype: torch.dtype,
+                   device: torch.device) -> Params:
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    rq, rk, rv, ro = prng.split(key, 4)
     p = {
-        "wq": dense_init(gen, d, h * hd, dtype),
-        "wk": dense_init(gen, d, kv * hd, dtype),
-        "wv": dense_init(gen, d, kv * hd, dtype),
-        "wo": dense_init(gen, h * hd, d, dtype),
+        "wq": dense_init(rq, d, h * hd, dtype, device),
+        "wk": dense_init(rk, d, kv * hd, dtype, device),
+        "wv": dense_init(rv, d, kv * hd, dtype, device),
+        "wo": dense_init(ro, h * hd, d, dtype, device),
     }
     if cfg.qkv_bias:
         for name, n in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
-            p[name] = torch.zeros((n,), dtype=dtype, device=gen.device)
+            p[name] = torch.zeros((n,), dtype=dtype, device=device)
     return p
 
 

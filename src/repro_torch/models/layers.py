@@ -2,17 +2,25 @@
 ``src/repro/models/layers.py``.
 
 Parameters are nested dicts of tensors, as in the reference; every ``init_*``
-takes an explicit ``torch.Generator`` (its device is where the tensors are
-made) and every ``apply`` is a plain function.  Activations run in the config
-dtype; norms and RoPE compute in fp32 and cast back to the input's dtype.
+takes a host ``jax.random``-style key (``repro_torch.random``) and the device
+the tensors are made on, and draws the reference's values bitwise: each
+normal comes from ``kernels.ops.random_normal`` (the Threefry kernel on the
+card, its plain version on the CPU), scaled in float32 and rounded to the
+leaf's dtype as the reference rounds it.  Every ``apply`` is a plain
+function.  Activations run in the config dtype; norms and RoPE compute in
+fp32 and cast back to the input's dtype.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch import random as prng
+from repro_torch.kernels import ops
 
 Params = Dict[str, torch.Tensor]
 
@@ -20,16 +28,27 @@ Params = Dict[str, torch.Tensor]
 # ---------------------------------------------------------------------------
 # initializers
 # ---------------------------------------------------------------------------
-def dense_init(gen: torch.Generator, fan_in: int, fan_out: int, dtype: torch.dtype,
-               scale: Optional[float] = None) -> torch.Tensor:
+def normal(key: np.ndarray, shape: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` (float32) on ``device``."""
+    return ops.random_normal(key, math.prod(shape), device).reshape(shape)
+
+
+def _scaled(w: torch.Tensor, scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """``(f32(scale) · w).astype(dtype)``: the Python scale is a weak-typed
+    float32 in the reference; the product rounds once, the cast to nearest
+    even."""
+    return w.mul_(float(np.float32(scale))).to(dtype)
+
+
+def dense_init(key: np.ndarray, fan_in: int, fan_out: int, dtype: torch.dtype,
+               device: torch.device, scale: Optional[float] = None) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    w = torch.randn((fan_in, fan_out), generator=gen, dtype=torch.float32, device=gen.device)
-    return (scale * w).to(dtype)
+    return _scaled(normal(key, (fan_in, fan_out), device), scale, dtype)
 
 
-def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype) -> torch.Tensor:
-    w = torch.randn((vocab, d), generator=gen, dtype=torch.float32, device=gen.device)
-    return (0.02 * w).to(dtype)
+def embed_init(key: np.ndarray, vocab: int, d: int, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    return _scaled(normal(key, (vocab, d), device), 0.02, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -77,10 +96,12 @@ def activation(name: str, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # MLP (gated / plain)
 # ---------------------------------------------------------------------------
-def init_mlp(gen: torch.Generator, d: int, f: int, gated: bool, dtype: torch.dtype) -> Params:
-    params = {"wi": dense_init(gen, d, f, dtype), "wo": dense_init(gen, f, d, dtype)}
+def init_mlp(key: np.ndarray, d: int, f: int, gated: bool, dtype: torch.dtype,
+             device: torch.device) -> Params:
+    r1, r2, r3 = prng.split(key, 3)
+    params = {"wi": dense_init(r1, d, f, dtype, device), "wo": dense_init(r2, f, d, dtype, device)}
     if gated:
-        params["wg"] = dense_init(gen, d, f, dtype)
+        params["wg"] = dense_init(r3, d, f, dtype, device)
     return params
 
 
@@ -116,10 +137,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # ---------------------------------------------------------------------------
 # temporal conv (RG-LRU block frontend; width-4 causal depthwise conv)
 # ---------------------------------------------------------------------------
-def init_conv1d(gen: torch.Generator, d: int, width: int, dtype: torch.dtype) -> Params:
-    w = torch.randn((width, d), generator=gen, dtype=torch.float32, device=gen.device)
-    return {"w": (w / math.sqrt(width)).to(dtype),
-            "b": torch.zeros((d,), dtype=dtype, device=gen.device)}
+def init_conv1d(key: np.ndarray, d: int, width: int, dtype: torch.dtype,
+                device: torch.device) -> Params:
+    # normal / f32(sqrt(width)), correctly rounded: divided by a tensor, as a
+    # CUDA division by a Python scalar multiplies by its reciprocal instead
+    root = torch.tensor(float(np.float32(math.sqrt(width))), device=device)
+    return {"w": (normal(key, (width, d), device) / root).to(dtype),
+            "b": torch.zeros((d,), dtype=dtype, device=device)}
 
 
 def apply_conv1d(params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -116,10 +116,8 @@ class LMClassifier:
         return TransformerLM(self.cfg, remat=self.remat)
 
     def init(self, seed: int = 0, device: DeviceLike = "cuda") -> Params:
-        """Random parameters drawn on ``device`` from ``seed`` by
-        ``TransformerLM.init`` (not the reference's ``jax.random`` values:
-        comparisons carry the reference's parameters across with
-        ``convert.lm_flat_from_jax``)."""
+        """The reference's ``init(PRNGKey(seed))``, bitwise, drawn on
+        ``device`` by ``TransformerLM.init`` and flattened."""
         return flat_from_lm(self.cfg, self.lm.init(seed, device))
 
     def _batch(self, x: torch.Tensor, y: torch.Tensor = None) -> Dict[str, torch.Tensor]:

@@ -41,6 +41,7 @@ entries.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,6 +49,7 @@ import torch
 
 from repro_torch import random
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models.transformer import check_trainable
 
 Params = Dict[str, torch.Tensor]
@@ -132,12 +134,26 @@ class LoRAClassifier:
         return {n: adapters[n] for n, _, _ in self.adapter_leaves()}
 
     # -- the classifier protocol -------------------------------------------------
+    def a_keys(self, seed: int) -> Dict[str, np.ndarray]:
+        """Each drawn A factor's key, in the base's leaf order: one ``split``
+        of the chain from ``PRNGKey(seed)`` each, as the reference draws them."""
+        key, out = random.PRNGKey(seed), {}
+        if self.exact:
+            return out
+        for name, kind, shape in self._plan:
+            if kind != "rest":
+                for n, _ in self._entries(name, kind, shape):
+                    if n.endswith(".a"):
+                        key, out[n] = random.split(key)
+        return out
+
     def init(self, seed: int = 0, device: DeviceLike = "cuda") -> Params:
-        """The reference's ``init(PRNGKey(seed))``: A from a chain of
-        ``split``s in the base's leaf order, scaled by 1/sqrt(d_in) in fp32,
-        B zero; drawn on the host and moved to ``device``."""
+        """The reference's ``init(PRNGKey(seed))``: A from :meth:`a_keys`,
+        scaled by 1/sqrt(d_in) in fp32, B zero.  The keys are host work;
+        each A's normals are drawn on ``device`` (``ops.random_normal``: the
+        Threefry kernel on the card)."""
         dev = resolve_device(device)
-        key = random.PRNGKey(seed)
+        keys = self.a_keys(seed)
         out: Params = {}
         for name, kind, shape in self._plan:
             if kind == "rest":
@@ -145,11 +161,11 @@ class LoRAClassifier:
                     out[name] = self.base_params[name].detach().clone().to(dev)
                 continue
             for n, s in self._entries(name, kind, shape):
-                if n.endswith(".a") and not self.exact:
-                    key, sub = random.split(key)
-                    d_in = shape[-2]
-                    a = random.normal(sub, s) / np.sqrt(np.float32(d_in))
-                    out[n] = torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+                if n in keys:
+                    # divided by a tensor: a CUDA division by a Python
+                    # scalar multiplies by its reciprocal instead
+                    root = torch.tensor(float(np.sqrt(np.float32(shape[-2]))), device=dev)
+                    out[n] = ops.random_normal(keys[n], math.prod(s), dev).reshape(s) / root
                 else:
                     out[n] = torch.zeros(s, dtype=torch.float32, device=dev)
         return self._sorted(out)

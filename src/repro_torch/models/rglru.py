@@ -30,9 +30,11 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import random as prng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (activation, apply_conv1d, conv1d_decode, dense_init,
                                        init_conv1d)
@@ -47,19 +49,48 @@ def _inner(cfg: ArchConfig) -> int:
     return (3 * cfg.d_model) // 2
 
 
-def init_rglru(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
-    d, inner, dev = cfg.d_model, _inner(cfg), gen.device
+# XLA's CPU code fully unrolls a linspace of up to this many steps and folds
+# 1 − i·r into constants; a longer one runs a loop of 16-lane vectors that
+# fuses it, and the unrolled remainder folds it as the short form does
+_LINSPACE_UNROLLED = 352
+_LINSPACE_LANES = 16
+
+
+def decay_init(n: int) -> np.ndarray:
+    """Λ: ``jnp.linspace(0.7, 5.0, n)`` in float32 as the reference's CPU
+    code computes it (bitwise at the widths the port builds; the tests hold
+    them).  The compiled HLO multiplies by r = f32(1)/f32(n − 1): out_i =
+    fma(i, f32(5·r), f32(0.7·s_i)), with s_i = 1 − i·r rounded twice where
+    the loop is unrolled and fused (one rounding) in the vector loop; the
+    last element is 5.0."""
+    f32 = np.float32
+    if n == 1:
+        return np.array([0.7], f32)
+    i = np.arange(n - 1, dtype=f32)
+    r = f32(1) / f32(n - 1)
+    folded = f32(1) - i * r
+    fused = prng._fma(-i, r, f32(1))
+    body = 0 if n - 1 <= _LINSPACE_UNROLLED else _LINSPACE_LANES * ((n - 1) // _LINSPACE_LANES)
+    s = np.concatenate([fused[:body], folded[body:]])
+    out = prng._fma(i, f32(5) * r, f32(0.7) * s)
+    return np.concatenate([out, [f32(5.0)]]).astype(f32)
+
+
+def init_rglru(key: np.ndarray, cfg: ArchConfig, dtype: torch.dtype,
+               device: torch.device) -> Params:
+    d, inner = cfg.d_model, _inner(cfg)
+    ru, rg, ro, rc, ra, rx, _ = prng.split(key, 7)
     return {
-        "w_up": dense_init(gen, d, inner, dtype),
-        "w_gate": dense_init(gen, d, inner, dtype),
-        "conv": init_conv1d(gen, inner, CONV_WIDTH, dtype),
-        "w_a": dense_init(gen, inner, inner, torch.float32, scale=0.01),
-        "w_x": dense_init(gen, inner, inner, torch.float32, scale=0.01),
-        "b_a": torch.zeros((inner,), dtype=torch.float32, device=dev),
-        "b_x": torch.zeros((inner,), dtype=torch.float32, device=dev),
+        "w_up": dense_init(ru, d, inner, dtype, device),
+        "w_gate": dense_init(rg, d, inner, dtype, device),
+        "conv": init_conv1d(rc, inner, CONV_WIDTH, dtype, device),
+        "w_a": dense_init(ra, inner, inner, torch.float32, device, scale=0.01),
+        "w_x": dense_init(rx, inner, inner, torch.float32, device, scale=0.01),
+        "b_a": torch.zeros((inner,), dtype=torch.float32, device=device),
+        "b_x": torch.zeros((inner,), dtype=torch.float32, device=device),
         # Λ so that the decay a is about 0.9..0.999 at r = 1 (Griffin's init)
-        "lam": torch.linspace(0.7, 5.0, inner, dtype=torch.float32, device=dev),
-        "w_down": dense_init(gen, inner, d, dtype),
+        "lam": torch.from_numpy(decay_init(inner)).to(device),
+        "w_down": dense_init(ro, inner, d, dtype, device),
     }
 
 

@@ -37,11 +37,13 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import random as prng
 from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, RGLRU, ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
@@ -100,18 +102,31 @@ def _has_mlp(kind: str, cfg: ArchConfig) -> bool:
     return kind in _ATTN_KINDS and cfg.d_ff > 0
 
 
-def init_block(gen: torch.Generator, kind: str, cfg: ArchConfig, dtype: torch.dtype) -> Dict:
+def init_block(key: np.ndarray, kind: str, cfg: ArchConfig, dtype: torch.dtype,
+               device: torch.device) -> Dict:
+    """The reference's ``init_block``: of its five subkeys the mixer draws
+    from the first and the MLP from the third."""
     _is_local(kind)
-    dev = gen.device
+    r1, _, r3, _, _ = prng.split(key, 5)
     if kind == RGLRU:
-        mixer = rglru.init_rglru(gen, cfg, dtype)
+        mixer = rglru.init_rglru(r1, cfg, dtype, device)
     else:
-        mixer = attn.init_attention(gen, cfg, dtype)
-    p: Dict = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, dev), "mixer": mixer}
+        mixer = attn.init_attention(r1, cfg, dtype, device)
+    p: Dict = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, device), "mixer": mixer}
     if _has_mlp(kind, cfg):
-        p["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, dev)
-        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype)
+        p["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, device)
+        p["mlp"] = init_mlp(r3, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype, device)
     return p
+
+
+def layer_key(r_dec: np.ndarray, i: int, cfg: ArchConfig) -> np.ndarray:
+    """Flat layer i's key: the reference folds ``pos·1000 + cycle`` into the
+    decoder's key for the scanned cycles and ``99_000 + r`` for rest layer r."""
+    plen = len(cfg.pattern)
+    nc = cfg.num_layers // plen
+    if i < nc * plen:
+        return prng.fold_in(r_dec, (i % plen) * 1000 + i // plen)
+    return prng.fold_in(r_dec, 99_000 + i - nc * plen)
 
 
 def apply_block_train(params: Dict, kind: str, x: torch.Tensor, positions: torch.Tensor,
@@ -181,17 +196,20 @@ class TransformerLM(nn.Module):
 
     # -- params -------------------------------------------------------------
     def init(self, seed: int = 0, device: DeviceLike = "cuda") -> Params:
-        """Random parameters drawn on ``device`` from ``seed`` (not the
-        reference's ``jax.random`` values: tests that compare with the
-        reference carry its parameters across with ``convert``)."""
+        """The reference's ``init(PRNGKey(seed))``, bitwise, drawn on
+        ``device``: ``split(PRNGKey(seed), 4)`` gives the embedding's, the
+        decoder's, the (unused) encoder's and the unembedding's keys, and
+        each layer folds its place into the decoder's (:func:`layer_key`)."""
         cfg, dtype = self.cfg, self.dtype
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
-        params: Params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)}
-        params["layers"] = [init_block(gen, kind, cfg, dtype) for kind in cfg.layer_kinds()]
+        r_emb, r_dec, _, r_un = prng.split(prng.PRNGKey(seed), 4)
+        params: Params = {"embed": embed_init(r_emb, cfg.vocab_size, cfg.d_model, dtype, dev)}
+        params["layers"] = [init_block(layer_key(r_dec, i, cfg), kind, cfg, dtype, dev)
+                            for i, kind in enumerate(cfg.layer_kinds())]
         params["final_norm"] = init_norm(cfg.norm, cfg.d_model, dtype, dev)
         if not cfg.tie_embeddings:
-            params["unembed"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype).T.contiguous()
+            params["unembed"] = embed_init(r_un, cfg.vocab_size, cfg.d_model, dtype,
+                                           dev).T.contiguous()
         return params
 
     def unembed(self, params: Params, h: torch.Tensor) -> torch.Tensor:

@@ -67,7 +67,8 @@ def test_gram_kernel_matches_plain(cuda, p, d):
     got = ops.gram(u)
     assert torch.all((got - gram.gram_plain(u)).abs() <= 1e-4 * _scale(u, u))
     assert ops.launch_counts() == {"cross_gram": 0, "gram": 1, "weighted_aggregate": 0,
-                                   "topk_mask_rows": 0, "decode_attention": 0}
+                                   "topk_mask_rows": 0, "decode_attention": 0,
+                                   "threefry_normal": 0, "threefry_rounding": 0}
 
 
 @pytest.mark.parametrize("d", [1, 2047, 2049, 595914])
@@ -172,7 +173,8 @@ def test_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError):
         ops.topk_mask_rows(u, block_d=8192)
     assert ops.launch_counts() == {"cross_gram": 0, "gram": 0, "weighted_aggregate": 0,
-                                   "topk_mask_rows": 0, "decode_attention": 0}
+                                   "topk_mask_rows": 0, "decode_attention": 0,
+                                   "threefry_normal": 0, "threefry_rounding": 0}
 
 
 def _bits(t):
@@ -372,7 +374,7 @@ def test_scan_chunk_graph_matches_eager_chunk(cuda):
     for k in g.final_params:
         assert torch.equal(g.final_params[k], e.final_params[k])
     want = {"cross_gram": 14, "gram": 7, "weighted_aggregate": 7, "topk_mask_rows": 0,
-            "decode_attention": 0}
+            "decode_attention": 0, "threefry_normal": 0, "threefry_rounding": 0}
     assert st["replay_launches"] == want
 
 
@@ -399,7 +401,8 @@ def test_scan_hidden_sync_raises(cuda, capture):
 
 
 @pytest.mark.parametrize("name", ["flrce", "flrce_sketched", "flrce_no_es", "flrce_stop",
-                                  "FedAvg", "Fedprox", "Fedcom", "Dropout", "TimelyFL"])
+                                  "FedAvg", "Fedprox", "Fedcom", "Dropout", "TimelyFL",
+                                  "QuantizedFL"])
 @pytest.mark.parametrize("pipeline,store", [(True, "resident"), (False, "paged")])
 def test_scan_matches_loop_on_the_card(cuda, name, pipeline, store):
     """Every strategy the compiled driver runs, on the card, against the
@@ -432,7 +435,8 @@ def test_scan_matches_loop_on_the_card(cuda, name, pipeline, store):
     flrce = name.startswith("flrce")
     want = {"cross_gram": 2 * n if flrce else 0, "gram": n if flrce else 0,
             "weighted_aggregate": n, "topk_mask_rows": n if name == "Fedcom" else 0,
-            "decode_attention": 0}
+            "decode_attention": 0, "threefry_normal": 0,
+            "threefry_rounding": n if name == "QuantizedFL" else 0}
     assert st["replay_launches"] == want
     if store == "paged":
         assert st["page_bytes_h2d"] > 0
@@ -771,3 +775,135 @@ def test_non_fp32_full_model_is_refused_on_the_card(cuda, driver):
     with pytest.raises(ValueError, match="float32"):
         run_federated(base, ds, FedAvg(8, 4, 1, seed=0), max_rounds=1, driver=driver,
                       torch_device=cuda)
+
+
+# --- the Threefry kernel (jax.random on the card) --------------------------------
+THREEFRY_KEYS = [(0, 0), (0, 1), (0, 2**31 - 1), (0xFFFFFFFF, 0xFFFFFFFF), (0x1BD11BDA, 7),
+                 (123456789, 987654321)]
+
+
+def _same_bits(a, b):
+    assert a.shape == b.shape and a.dtype == b.dtype
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(a.contiguous().view(view).cpu(), b.contiguous().view(view).cpu())
+
+
+@pytest.mark.parametrize("words", THREEFRY_KEYS)
+@pytest.mark.parametrize("n", [1, 2, 255, 1023, 1024, 1025, 4097, (1 << 20) + 3])
+def test_threefry_normal_kernel_matches_plain(cuda, words, n):
+    """Bitwise: one count a thread, the odd tails of a block and of the grid,
+    the edges of the key words."""
+    import numpy as np
+
+    from repro_torch.kernels import ops, threefry
+
+    key = np.array(words, np.uint32)
+    got = ops.random_normal(key, n, cuda)
+    assert ops.launch_counts()["threefry_normal"] == 1
+    _same_bits(got, threefry.normal_plain(key, n, device=cuda))
+    if n <= 4097:
+        _same_bits(got, threefry.normal_plain(key, n))          # and the CPU's
+
+
+@pytest.mark.parametrize("sizes", [(1,), (7, 3, 0, 129, 1), (4096, 5, 1024), (595_914,),
+                                   (1,) * 300 + (2000,), (0, 1025, 0, 0, 3)])
+@pytest.mark.parametrize("p", [1, 3, 10])
+def test_threefry_rounding_kernel_matches_plain(cuda, sizes, p):
+    """Bitwise: keys derived on the card from device round and client ids,
+    zero-size leaves, more leaves in a block than its shared keys hold."""
+    import numpy as np
+
+    from repro_torch.kernels import ops, threefry
+
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64))
+    ids = torch.from_numpy(np.random.default_rng(p).choice(1000, p, replace=False))
+    t = torch.tensor(41)
+    got = ops.rounding_uniforms(9, t.to(cuda), ids.to(cuda), offsets.to(cuda),
+                                int(offsets[-1]))
+    assert ops.launch_counts()["threefry_rounding"] == 1
+    _same_bits(got, threefry.rounding_uniforms_plain(9, t, ids, offsets, int(offsets[-1])))
+
+
+def test_threefry_kernels_refuse_bad_operands(cuda):
+    import numpy as np
+
+    from repro_torch.kernels import ops, threefry
+
+    with pytest.raises(ValueError):
+        threefry.normal_cuda(np.zeros(3, np.uint32), 4, cuda)
+    with pytest.raises(ValueError):
+        threefry.normal_cuda(np.zeros(2, np.uint32), 2**32 + 1, cuda)
+    i64 = dict(dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):        # int32 ids
+        ops.rounding_uniforms(0, torch.tensor(1, **i64), torch.tensor([1], device=cuda,
+                                                                      dtype=torch.int32),
+                              torch.tensor([0, 4], **i64), 4)
+    with pytest.raises(ValueError):        # offsets on the host
+        threefry.rounding_uniforms_cuda(0, torch.tensor(1, **i64), torch.tensor([1], **i64),
+                                        torch.tensor([0, 4]), 4)
+    assert ops.launch_counts()["threefry_normal"] == ops.launch_counts()["threefry_rounding"] == 0
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "recurrentgemma-2b", "qwen1.5-4b"])
+def test_reduced_init_on_the_card_is_the_cpus(cuda, arch):
+    """init(seed) drawn by the kernel on the card equals the CPU's plain
+    draw bitwise (bf16 leaves, RG-LRU's fp32 gates and Λ included), one
+    launch a drawn leaf."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import TransformerLM
+
+    model = TransformerLM(get_arch(arch, reduced=True))
+    got = model.init(3, cuda)
+    launches = ops.launch_counts()["threefry_normal"]
+    want = model.init(3, "cpu")
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        if isinstance(tree, list):
+            return [x for v in tree for x in leaves(v)]
+        return [tree]
+
+    g, w = leaves(got), leaves(want)
+    assert len(g) == len(w) and all(x.device.type == "cuda" for x in g)
+    for a, b in zip(g, w):
+        _same_bits(a, b)
+    assert launches == sum(x.dim() == 2 for x in w)     # every matrix is drawn, nothing else
+
+
+def test_lora_init_on_the_card_is_the_cpus(cuda):
+    _, _, _, models = _reduced_lora("bfloat16")
+    from repro_torch.kernels import ops
+
+    got = models["cuda"].init(2, cuda)
+    assert ops.launch_counts()["threefry_normal"] > 0
+    want = models["cpu"].init(2, "cpu")
+    assert list(got) == list(want)
+    for k in want:
+        _same_bits(got[k], want[k])
+
+
+def test_quantized_scan_on_the_card_is_the_loop(cuda):
+    """QuantizedFL on the card: the captured chunk draws its rounding
+    uniforms with one kernel launch a round from device tensors, the loop
+    with one launch a round from host values; the same bits, the same run."""
+    from repro_torch.fl import run_federated
+    from repro_torch.fl.baselines import QuantizedFL
+    from repro_torch.kernels import ops
+
+    ds, model = _scan_fed()
+    init = model.init(0, "cpu")
+    kw = dict(max_rounds=5, learning_rate=0.1, batch_size=16, init_params=init,
+              torch_device=cuda)
+    loop = run_federated(model, ds, QuantizedFL(8, 3, 2, seed=0), **kw)
+    assert ops.launch_counts()["threefry_rounding"] == 5
+    scan = run_federated(model, ds, QuantizedFL(8, 3, 2, seed=0), driver="scan",
+                         scan_chunk_rounds=3, **kw)
+    st = scan.driver_stats
+    assert st["replay_launches"]["threefry_rounding"] == st["replays"] == 5
+    for ra, rb in zip(loop.records, scan.records):
+        assert (ra.selected, ra.accuracy, ra.mean_client_loss, ra.energy_kj, ra.bytes_gb) == \
+            (rb.selected, rb.accuracy, rb.mean_client_loss, rb.energy_kj, rb.bytes_gb)
+    for k in loop.final_params:
+        assert torch.equal(loop.final_params[k], scan.final_params[k])

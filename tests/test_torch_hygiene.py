@@ -14,6 +14,16 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The models here are tiny; one intra-op thread a worker (and two in a
+    subprocess) keeps parallel test workers from contending for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_modules():
     mods = []
     for path in sorted(PORT.rglob("*.py")):
@@ -31,7 +41,8 @@ def test_every_module_imports_without_jax_or_reference():
     for new in ("repro_torch.models.lm", "repro_torch.models.lora", "repro_torch.data.lm",
                 "repro_torch.data.tokens", "repro_torch.optim", "repro_torch.optim.optimizers",
                 "repro_torch.optim.schedules", "repro_torch.launch.train",
-                "repro_torch.models.rglru", "repro_torch.configs.recurrentgemma_2b"):
+                "repro_torch.models.rglru", "repro_torch.configs.recurrentgemma_2b",
+                "repro_torch.kernels.threefry"):
         assert new in mods, new
     code = (
         "import sys, importlib\n"
@@ -124,7 +135,7 @@ def test_serving_entry_points_default_to_cuda():
         model.init_cache(1, 4)
     with pytest.raises(RuntimeError, match="cuda"):
         lm_params_from_jax(model.cfg, {})
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="2")
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--batch", "2", "--prompt-len", "3",
            "--gen", "2"]
     proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=300)

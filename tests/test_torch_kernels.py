@@ -27,7 +27,8 @@ def _fresh_counts():
     tops.reset_launch_counts()
     yield
     assert tops.launch_counts() == {"cross_gram": 0, "gram": 0, "weighted_aggregate": 0,
-                                    "topk_mask_rows": 0, "decode_attention": 0}
+                                    "topk_mask_rows": 0, "decode_attention": 0,
+                                    "threefry_normal": 0, "threefry_rounding": 0}
 
 
 @pytest.mark.parametrize("d", DIMS)

@@ -16,6 +16,7 @@ from repro import configs as jconfigs  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models import rglru as jrglru  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch import random as prng  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import rglru as trglru  # noqa: E402
 
@@ -107,16 +108,16 @@ def _flatten(tree, prefix=""):
 
 def test_init_rglru_has_the_references_leaves_and_dtypes():
     """A bf16 block: the same leaves and shapes, fp32 exactly where the
-    reference keeps fp32 (w_a, w_x, b_a, b_x, lam), and the reference's Λ
-    (the two linspaces round an ulp apart)."""
+    reference keeps fp32 (w_a, w_x, b_a, b_x, lam), and the reference's
+    values bit for bit (Λ included) from the same key."""
     jcfg, tcfg = _cfgs()
     want = _flatten(jrglru.init_rglru(jax.random.PRNGKey(0), jcfg, jnp.bfloat16))
-    got = _flatten(trglru.init_rglru(torch.Generator().manual_seed(0), tcfg, torch.bfloat16))
+    got = _flatten(trglru.init_rglru(prng.PRNGKey(0), tcfg, torch.bfloat16, torch.device("cpu")))
     assert sorted(got) == sorted(want)
     for name, leaf in want.items():
         assert tuple(got[name].shape) == leaf.shape, name
         assert str(got[name].dtype) == f"torch.{leaf.dtype}", name
-    np.testing.assert_allclose(got["lam"].numpy(), np.asarray(want["lam"]), rtol=LAYER_RTOL)
+        assert torch.equal(got[name], _to_torch(leaf)), name
 
 
 @pytest.mark.parametrize("s", [1, 5, 24, 33])
@@ -171,7 +172,7 @@ def test_rglru_scan_equals_step():
     """The port's whole-sequence scan equals its decode steps (the
     reference's own test, tests/test_transformer_units.py, on the port)."""
     _, cfg = _cfgs(d_model=16)
-    p = trglru.init_rglru(torch.Generator().manual_seed(2), cfg, torch.float32)
+    p = trglru.init_rglru(prng.PRNGKey(2), cfg, torch.float32, torch.device("cpu"))
     b, s = 2, 14
     x = torch.from_numpy(np.random.default_rng(2).normal(size=(b, s, 16)).astype(np.float32) * 0.5)
     full = trglru.apply_rglru(p, x, cfg)
@@ -186,7 +187,7 @@ def test_rglru_scan_equals_step():
 def test_rglru_decay_bounded():
     """The RG-LRU state is a contraction: |h| stays bounded for bounded input."""
     _, cfg = _cfgs(d_model=16)
-    p = trglru.init_rglru(torch.Generator().manual_seed(3), cfg, torch.float32)
+    p = trglru.init_rglru(prng.PRNGKey(3), cfg, torch.float32, torch.device("cpu"))
     out = trglru.apply_rglru(p, torch.ones((1, 500, 16)), cfg)
     assert bool(torch.isfinite(out).all())
     assert float(out.abs().max()) < 1e3

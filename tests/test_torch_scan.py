@@ -10,8 +10,11 @@ on ``repro_torch``:
   tolerance (``assert_runs_equivalent(..., bitwise=False)``);
 * serial ≡ pipelined exactly, the server write-back and a cancelled
   speculative chunk included;
-* the reference's validation errors, PyramidFL's fallback, QuantizedFL's
-  raise, and the ``driver_stats`` contract.
+* QuantizedFL's rounding uniforms drawn inside the chunk from the round and
+  client tensors: the same draw as the loop's host one, the run bitwise the
+  loop's;
+* the reference's validation errors, PyramidFL's fallback, and the
+  ``driver_stats`` contract.
 
 On the CPU the round body runs eagerly; ``tests/test_torch_cuda.py`` holds
 the captured graph on the card.
@@ -226,11 +229,32 @@ def test_scan_runs_compression_in_chunk(tiny_fed):
     assert not torch.allclose(dense.final_params[k], sparse.final_params[k])
 
 
-def test_quantized_scan_raises_naming_the_device_threefry(tiny_fed):
+def test_quantized_scan_is_bitwise_the_loop(tiny_fed):
+    """QuantizedFL's rounding uniforms come from the Threefry plain version
+    inside the chunk (round and ids as tensors) and from the host in the
+    loop: the same bits, so the same run to the last bit."""
     ds, model = tiny_fed
-    with pytest.raises(NotImplementedError, match="A.6"):
-        run_federated(model, ds, QuantizedFL(8, 3, 1, seed=0), max_rounds=1, driver="scan",
-                      **CPU)
+    assert QuantizedFL(8, 3, 1, seed=0).supports_scan
+    loop, scan = _run_both(model, ds, lambda: QuantizedFL(8, 3, 2, seed=0), max_rounds=5,
+                           learning_rate=0.1, batch_size=16, seed=0)
+    assert_runs_equivalent(loop, scan, bitwise=True)
+    for k in loop.final_params:
+        assert torch.equal(loop.final_params[k], scan.final_params[k])
+
+
+def test_quantized_transform_takes_host_values_or_tensors(tiny_fed):
+    """The transform draws the same uniforms from a host round index and ids
+    (the loop driver) as from device tensors (a chunk's body)."""
+    _, model = tiny_fed
+    params = model.init(0, "cpu")
+    apply = QuantizedFL(8, 3, 1, seed=3).update_transform(params)
+    d = sum(p.numel() for p in params.values())
+    u = torch.from_numpy(np.random.default_rng(0).normal(size=(3, d + 5)).astype(np.float32))
+    ids = np.array([6, 1, 2])
+    host = apply(4, ids, u)
+    dev = apply(torch.tensor(4), torch.from_numpy(ids), u)
+    assert torch.equal(host.view(torch.int32), dev.view(torch.int32))
+    assert torch.equal(host[:, d:], u[:, d:])      # columns past the template's D kept
 
 
 def test_scan_rejects_non_batched_engines_and_unported_paths(tiny_fed):
@@ -428,7 +452,7 @@ REF_CASES = {
 }
 REF_BASELINES = {"fedavg": ("FedAvg", {}), "fedcom": ("Fedcom", {"keep_frac": 0.2}),
                  "dropout": ("Dropout", {"keep_rate": 0.6}), "timelyfl": ("TimelyFL", {}),
-                 "fedprox": ("Fedprox", {"mu": 0.01})}
+                 "fedprox": ("Fedprox", {"mu": 0.01}), "quantized": ("QuantizedFL", {})}
 
 
 @pytest.mark.parametrize("name", [*REF_CASES, *REF_BASELINES])
@@ -562,7 +586,8 @@ def test_driver_stats_contract(tiny_fed):
         assert 1 <= st["programs"] <= 3
         assert len(st["steps"]) == 6 and all(real <= run for real, run in st["steps"])
         assert set(st["replay_launches"]) == {"cross_gram", "gram", "weighted_aggregate",
-                                              "topk_mask_rows", "decode_attention"}
+                                              "topk_mask_rows", "decode_attention",
+                                              "threefry_normal", "threefry_rounding"}
     assert ser.driver_stats["speculative_chunks"] == 0
     assert pip.driver_stats["speculative_chunks"] == 2
     assert pip.driver_stats["cancelled_chunks"] == 0
