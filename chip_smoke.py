@@ -149,6 +149,37 @@
    ``driver="scan"`` (a captured round) against the loop: selections,
    exploit flags, stops and ledger equal, accuracy within 2e-3, losses
    within 1e-4.
+7. Federated LoRA fine-tuning of recurrentgemma-2b at full width (26
+   layers, bf16 with fp32 RG-LRU gates, seed 0's weights drawn and checked
+   as in phase 4b) as phase 6 runs gemma3-4b: ``LoRAClassifier(rank=8)``
+   adapts the attention layers' and MLPs' projections and every RG-LRU
+   block's conv ``w`` (D = 3,258,656 over 11 stacked target leaves), the
+   same federation at vocab 256,000, FLrce 4 rounds, FedAvg and Fedcom 2
+   each, checks (a) to (d), the four FL kernels at the phase's operands,
+   and a 2-round profile by group (RG-LRU blocks among them).
+   7b. recurrentgemma-2b's training on the card against the CPU in fp32:
+   the reference CLI's pretrain case (``--silos 4 --participants 2 --rounds
+   2 --local-steps 1 --batch 2 --seq 32``, reduced): silos, exploit and stop
+   flags and conflicts equal, mean losses within 1e-5 relative; on a
+   5-layer reduced config one LMClassifier gradient (loss within 1e-5
+   relative, every leaf within 1e-5 of its max), LoRA FLrce for 3 rounds
+   (discrete results equal, round 0's update rows within 1e-5 of their
+   max), and LoRA FedAvg through ``driver="scan"`` against the loop and,
+   captured, bitwise against the same body run eagerly.
+8. Serving xlstm-1.3b at full width (48 layers: 42 mLSTM, 6 sLSTM; the
+   tree ``init`` builds holds 2,119,586,128 parameters, bf16 with fp32
+   gate weights and biases; seed 0's weights drawn and checked as in phase
+   4, the sLSTM's recurrent matrices included): 8 requests × (512 prompt +
+   64 generated) tokens through ``generate``, the same serving numbers as
+   phase 4, the state's bytes (the mLSTM matrix memories are (8, 4, 1024,
+   1024) fp32 a layer), 8 steps under ``torch.profiler`` by group and the
+   busy share; then the model in fp32: decode-step logits over 300
+   positions at B = 2 (a whole chunk of 256 and a padded one) within 1e-3
+   of max|logit| of ``forward``'s.
+   8b. A small xlstm-family model (9 layers: 7 mLSTM, 1 sLSTM, 1 mLSTM;
+   fp32) teacher-forced over 20 positions on the card and on the CPU as in
+   phase 5, and the reference CLI's serve case (``--arch xlstm-1.3b --batch
+   2 --prompt-len 4 --gen 4``, reduced, fp32): tokens equal.
 
 Measurement modes, which print no result line:
 ``--decode-variants`` builds and times variants of the ``decode_attention``
@@ -171,7 +202,8 @@ their phase 1 shapes, ``decode_attention@recurrentgemma-2b`` at its ring
 layer with phase 4b's launches, the two Threefry kernels at their phase 1
 shapes with phase 2b's QuantizedFL and phase 4's init launches, then the
 four FL kernels at phase 6's as ``<name>@gemma3-4b-lora``, with phase 6's
-launches), after the seconds of each phase and the total; the last line is
+launches, and at phase 7's as ``<name>@recurrentgemma-2b-lora``, with phase
+7's), after the seconds of each phase and the total; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the exit code is
 non-zero and no result line is printed.  Exits 1 when CUDA is absent or the
 port's sources are not beside this file.  Imports nothing of JAX.
@@ -209,7 +241,8 @@ THREEFRY_INT_OPS = 43
 # card reaches it, on a slow host too
 L2_FLUSH_BYTES = 1 << 30
 # measurement modes: they print no result line
-MODES = ("--decode-variants", "--kernel-variants", "--time-kernels", "--numerics")
+MODES = ("--decode-variants", "--kernel-variants", "--time-kernels", "--numerics",
+         "--xlstm-gap")
 # 0.05 diverges on this data: the JAX package's run of the same
 # configuration, like the port's, reaches a NaN loss in round 1.
 MAIN_LR = 0.01
@@ -1645,6 +1678,15 @@ def tensors(tree):
         yield tree
 
 
+def tree_to(tree, device):
+    """A parameter or cache tree (dicts and lists) with every tensor on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
 def serve_phase(torch, arch, b, prompt_len, gen, want_params, want_config_params,
                 keep_calls=0) -> tuple:
     """``arch`` at full width through repro_torch.launch.serve.generate: b
@@ -1752,7 +1794,9 @@ def init_leaf_check(torch, cfg, params, seed, launches) -> None:
     the embedding's last row among them, bitwise against the plain
     version's index-set draw under the reference's key for that leaf,
     scaled and rounded as the reference's ``dense_init``, ``embed_init`` and
-    ``init_conv1d`` do; Λ whole against the reference's linspace."""
+    ``init_conv1d`` do (and the sLSTM's recurrent matrices as
+    ``(0.1 · normal / sqrt(hd)).astype(dtype)``); Λ whole against the
+    reference's linspace, the forget biases whole at 3."""
     import numpy as np
 
     from repro_torch import random as prng
@@ -1780,6 +1824,22 @@ def init_leaf_check(torch, cfg, params, seed, launches) -> None:
                        (f"{i}.conv.w", mix["conv"]["w"], rc, None, 2.0)]
             if not torch.equal(mix["lam"].cpu(), torch.from_numpy(decay_init(inner))):
                 fail(f"init {cfg.name}: layer {i}'s Λ is not the reference's linspace")
+        elif kind == "mlstm":
+            inner = mix["wo"].shape[0]
+            rq, rk, rv, ro, rg, ri, rf = prng.split(r1, 7)
+            checks += [(f"{i}.{name}", mix[name], key, 1.0 / math.sqrt(d), None)
+                       for name, key in (("wq", rq), ("wk", rk), ("wv", rv), ("wgate", rg))]
+            checks += [(f"{i}.wo", mix["wo"], ro, 1.0 / math.sqrt(inner), None),
+                       (f"{i}.wi", mix["wi"], ri, 0.01, None), (f"{i}.wf", mix["wf"], rf, 0.01, None)]
+        elif kind == "slstm":
+            hd = d // cfg.num_heads
+            rz, ri, rf, ro, rr, rp = prng.split(r1, 6)
+            checks += [(f"{i}.{name}", mix[name], key, 1.0 / math.sqrt(d), None)
+                       for name, key in (("wz", rz), ("wi", ri), ("wf", rf), ("wo_g", ro),
+                                         ("wproj", rp))]
+            checks += [(f"{i}.{name}", mix[name], prng.fold_in(rr, j), 0.1,
+                        float(np.float32(math.sqrt(hd))))
+                       for j, name in enumerate(("rz", "ri", "rf", "ro"))]
         else:
             for name, key in zip(("wq", "wk", "wv", "wo"), prng.split(r1, 4)):
                 checks.append((f"{i}.{name}", mix[name], key, 1.0 / math.sqrt(mix[name].shape[0]),
@@ -1798,13 +1858,20 @@ def init_leaf_check(torch, cfg, params, seed, launches) -> None:
             idx = np.concatenate([idx, np.arange(n - leaf.shape[-1], n)])
         index = torch.from_numpy(idx).cuda()
         z = ktf.normal_plain(key, index=index, device="cuda")
-        z = z / torch.tensor(divisor, device="cuda") if divisor else z * float(np.float32(scale))
+        if scale is not None:
+            z = z * float(np.float32(scale))
+        if divisor:
+            z = z / torch.tensor(divisor, device="cuda")
         got = leaf.reshape(-1)[index]
         view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
         if not torch.equal(got.view(view), z.to(got.dtype).view(view)):
             fail(f"init {cfg.name}: leaf {label} differs from the reference's draw")
         kinds[f"{tuple(leaf.shape)} {str(leaf.dtype).removeprefix('torch.')}"] += 1
-    drawn = sum(t.dim() == 2 for t in tensors(params))
+    drawn = sum(t.dim() >= 2 for t in tensors(params))
+    forget = [layer["mixer"]["bf"] for kind, layer in zip(cfg.layer_kinds(), params["layers"])
+              if kind in ("mlstm", "slstm")]
+    if not all(bool((b == 3.0).all()) and b.dtype == torch.float32 for b in forget):
+        fail(f"init {cfg.name}: a forget bias is not fp32 3.0")
     want = {k: 0 for k in launches}
     want["threefry_normal"] = drawn
     if launches != want or len(checks) != drawn:
@@ -1914,10 +1981,11 @@ def serve_profile(torch, model, params, step_wall_s: float, steps: int = 8) -> N
 
 
 def small_config(arch):
-    """Phase 5's and 5b's small fp32 model of ``arch``'s family, the CPU
-    tests' config: ``reduce_config`` at 8 layers and window 8 (for
-    recurrentgemma-2b also its 10 query heads over one KV head), and how
-    many positions it is teacher-forced over, so that the rings of 8 wrap."""
+    """Phase 5's, 5b's and 8b's small fp32 model of ``arch``'s family, the
+    CPU tests' config: ``reduce_config`` at 8 layers and window 8 (for
+    recurrentgemma-2b also its 10 query heads over one KV head; xlstm-1.3b
+    at 9 layers), and how many positions it is teacher-forced over, so that
+    the rings of 8 wrap."""
     import dataclasses
 
     from repro_torch.configs import get_arch, reduce_config
@@ -1925,6 +1993,8 @@ def small_config(arch):
     kw = dict(num_layers=8, window=8, dtype="float32")
     if arch == RG_ARCH:
         kw.update(num_heads=RG_GROUP, num_kv_heads=1)
+    if arch == XL_ARCH:                  # a cycle of 7 mLSTM and 1 sLSTM block, 1 rest layer
+        kw = dict(num_layers=9, dtype="float32")
     return dataclasses.replace(reduce_config(get_arch(arch)), **kw), 24 if arch == RG_ARCH else 20
 
 
@@ -2027,44 +2097,49 @@ def rg_group(name: str, label, op: str) -> str:
     return "norms, RoPE, casts, residuals"
 
 
-def rg_serve_profile(torch, model, params, step_wall_s: float, steps: int = 8) -> None:
-    """Device time by group over ``steps`` decode steps at phase 4b's last
-    positions, through the same serve step on a fresh cache (the rings'
-    2,048 valid slots and the RG-LRU work are the run's last steps')."""
+def group_profile(torch, model, params, b: int, last: int, spans, labels: tuple, group,
+                  step_wall_s: float, attn_layers: int, state_line=None, steps: int = 8) -> None:
+    """Device time by group over ``steps`` decode steps at a serve run's last
+    positions (up to ``last``), through the same serve step on a fresh cache
+    of ``last + 1`` slots: the rings' valid slots, the recurrent states and
+    the work are the run's last steps'.  ``spans`` are the (module, function,
+    label) annotations and ``group`` names a kernel's group from its name, its
+    innermost label of ``labels`` and the op that launched it.  A step must
+    launch ``attn_layers`` decode attention kernels.  ``state_line(cache,
+    params)``, where given, prints a line on the state first."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.steps import build_serve_step
-    from repro_torch.models import attention, rglru, transformer
 
+    name = model.cfg.name
     serve = build_serve_step(model)
-    cache = model.init_cache(RG_B, RG_CACHE, "cuda")
-    tok = torch.zeros(RG_B, 1, dtype=torch.long, device="cuda")
-    first = RG_STEPS - steps
+    cache = model.init_cache(b, last + 1, "cuda")
+    if state_line is not None:
+        state_line(cache, params)
+    tok = torch.zeros(b, 1, dtype=torch.long, device="cuda")
+    first = last - steps
     for pos in range(first - 2, first):                  # warm-up, not profiled
         tok, logits, cache = serve(params, tok, cache, pos)
         tok = tok[:, None]
     torch.cuda.synchronize()
-    spans = [(rglru, "rglru_decode_step", "rglru_block"), (rglru, "_gates", "rglru_gates"),
-             (rglru, "conv1d_decode", "rglru_conv"),
-             (attention, "attention_decode_step", "attention"),
-             (transformer, "apply_mlp", "mlp"), (transformer.TransformerLM, "unembed", "unembed")]
     with annotated(spans), profile(activities=[ProfilerActivity.CPU,
                                                ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for pos in range(first, RG_STEPS):
+        for pos in range(first, last):
             tok, logits, cache = serve(params, tok, cache, pos)
             tok = tok[:, None]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    if not torch.isfinite(logits.float()).all() or tuple(logits.shape) != (RG_B, 1, 256_000):
-        fail("recurrentgemma serve profile: logits not finite or of the wrong shape")
-    groups, busy_us, n_kernels, top = device_groups(prof, RG_SPANS, rg_group)
+    if (not torch.isfinite(logits.float()).all()
+            or tuple(logits.shape) != (b, 1, model.cfg.vocab_size)):
+        fail(f"{name} serve profile: logits not finite or of the wrong shape")
+    groups, busy_us, n_kernels, top = device_groups(prof, labels, group)
     if not n_kernels:
         fail("the profiler saw no device activity")
-    decode_launches = sum(n for name, (_, n) in top if DECODE_KERNEL in name)
-    if decode_launches != RG_ATTN_LAYERS * steps:
-        fail(f"recurrentgemma serve profile: {decode_launches} decode attention kernel launches "
-             f"in {steps} steps, want one per attention layer per step ({RG_ATTN_LAYERS * steps})")
+    decode_launches = sum(n for kernel, (_, n) in top if DECODE_KERNEL in kernel)
+    if decode_launches != attn_layers * steps:
+        fail(f"{name} serve profile: {decode_launches} decode attention kernel launches in "
+             f"{steps} steps, want one per attention layer per step ({attn_layers * steps})")
     total = sum(groups.values())
     busy_step = busy_us / 1e6 / steps
     print(f"  {steps} steps under the profiler: wall {wall:.3f} s, device busy {busy_us / 1e6:.4f} s "
@@ -2074,47 +2149,97 @@ def rg_serve_profile(torch, model, params, step_wall_s: float, steps: int = 8) -
           f"({1e3 * step_wall_s:.2f} ms)")
     for label, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {us / 1e3 / steps:8.3f} ms/step  {100 * us / total:5.1f}%  {label}")
-    for name, (us, n) in top[:10]:
-        print(f"    top kernel {us / 1e3 / steps:8.3f} ms/step  {n / steps:5.0f}/step  {name[:110]}")
+    for kernel, (us, n) in top[:10]:
+        print(f"    top kernel {us / 1e3 / steps:8.3f} ms/step  {n / steps:5.0f}/step  {kernel[:110]}")
 
 
-def rg_fp32_check(torch) -> None:
-    """recurrentgemma-2b at full width in fp32: decode-step logits over
-    RG_FP32_POSITIONS positions at B = RG_FP32_B against ``forward``'s (the
-    RG-LRU scan and chunked attention) on the card."""
+def rg_serve_profile(torch, model, params, step_wall_s: float) -> None:
+    """Phase 4b's device time by group, at the run's last positions."""
+    from repro_torch.models import attention, rglru, transformer
+
+    spans = [(rglru, "rglru_decode_step", "rglru_block"), (rglru, "_gates", "rglru_gates"),
+             (rglru, "conv1d_decode", "rglru_conv"),
+             (attention, "attention_decode_step", "attention"),
+             (transformer, "apply_mlp", "mlp"), (transformer.TransformerLM, "unembed", "unembed")]
+    group_profile(torch, model, params, RG_B, RG_STEPS, spans, RG_SPANS, rg_group, step_wall_s,
+                  RG_ATTN_LAYERS)
+
+
+def clone_cache(cache: list) -> list:
+    """A copy of a model's per-layer caches (the decode updates them in place)."""
+    return [{k: v.clone() for k, v in c.items()} for c in cache]
+
+
+def decode_gap(torch, model, params, tokens, full, cache, start: int = 0, keep_at=None) -> tuple:
+    """Decode ``tokens`` from position ``start`` on, from ``cache``, and
+    return (the largest |Δ|/max|logit| of the step logits from ``full``,
+    ``forward``'s logits; the positions whose argmax agrees; a copy of the
+    cache as it stood before position ``keep_at``, or None)."""
+    worst, same, kept = 0.0, 0, None
+    with torch.no_grad():
+        for pos in range(start, tokens.shape[1]):
+            if pos == keep_at:
+                kept = clone_cache(cache)
+            logits, cache = model.decode_step(params, tokens[:, pos:pos + 1], cache, pos)
+            want = full[:, pos]
+            worst = max(worst, float((logits[:, 0] - want).abs().max() / want.abs().max()))
+            same += int((logits[:, 0].argmax(-1) == want.argmax(-1)).sum())
+    return worst, same, kept
+
+
+def fault_gap(torch, model, params, tokens, full, kept, label: str, at: int, layers) -> float:
+    """A planted fault: decode on from ``kept``, a copy of the sound cache as
+    it stood before position ``at``, with the caches of ``layers`` (every
+    layer where None) emptied, and print and return its gap from ``full``."""
+    b, positions = tokens.shape
+    fresh = model.init_cache(b, positions, tokens.device)
+    cache = [fresh[i] if layers is None or i in layers else c
+             for i, c in enumerate(clone_cache(kept))]
+    gap, same, _ = decode_gap(torch, model, params, tokens, full, cache, start=at)
+    print(f"  planted fault, {label} before position {at}: |Δ|/max|logit| {gap:.3e} over "
+          f"positions {at}..{positions - 1}, argmax equal at {same} of {b * (positions - at)}")
+    return gap
+
+
+def fp32_decode_check(torch, arch: str, b: int, positions: int, rtol: float,
+                      faults=(), fault_at=None) -> None:
+    """``arch`` at full width in fp32: decode-step logits over ``positions``
+    positions at B = ``b`` against ``forward``'s on the card, within
+    ``rtol`` of max|logit|.  Each planted fault (label, layers) decodes on
+    from a copy of the sound cache as it stood before position ``fault_at``,
+    with the caches of ``layers`` (every layer where None) emptied: a decode
+    that lost state there.  Its gap must pass ``rtol``, so
+    that the limit lies between a sound decode and a wrong one."""
     import dataclasses
 
     from repro_torch.configs import get_arch
     from repro_torch.models import TransformerLM
 
-    cfg = dataclasses.replace(get_arch(RG_ARCH), dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch), dtype="float32")
     model = TransformerLM(cfg)
     t0 = time.perf_counter()
     params = model.init(0, "cuda")
     n_bytes = sum(t.numel() * t.element_size() for t in tensors(params))
     gen = torch.Generator(device="cuda").manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (RG_FP32_B, RG_FP32_POSITIONS), generator=gen,
-                           device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (b, positions), generator=gen, device="cuda")
     with torch.no_grad():
         full = model.forward(params, {"tokens": tokens})
-        cache = model.init_cache(RG_FP32_B, RG_FP32_POSITIONS, "cuda")
-        worst, same = 0.0, 0
-        for pos in range(RG_FP32_POSITIONS):
-            logits, cache = model.decode_step(params, tokens[:, pos:pos + 1], cache, pos)
-            want = full[:, pos]
-            worst = max(worst, float((logits[:, 0] - want).abs().max() / want.abs().max()))
-            same += int((logits[:, 0].argmax(-1) == want.argmax(-1)).sum())
-    torch.cuda.synchronize()
-    if not torch.isfinite(full).all() or tuple(full.shape) != (RG_FP32_B, RG_FP32_POSITIONS,
-                                                               cfg.vocab_size):
-        fail(f"{RG_ARCH} fp32 forward: logits not finite or of the wrong shape")
-    if worst > RG_FP32_RTOL:
-        fail(f"{RG_ARCH} fp32: decode-step logits |Δ|/max {worst:.2e} from forward's "
-             f"(limit {RG_FP32_RTOL:.0e})")
+    if not torch.isfinite(full).all() or tuple(full.shape) != (b, positions, cfg.vocab_size):
+        fail(f"{arch} fp32 forward: logits not finite or of the wrong shape")
+    worst, same, kept = decode_gap(torch, model, params, tokens, full,
+                                   model.init_cache(b, positions, "cuda"), keep_at=fault_at)
+    if worst > rtol:
+        fail(f"{arch} fp32: decode-step logits |Δ|/max {worst:.2e} from forward's "
+             f"(limit {rtol:.0e})")
     print(f"  {cfg.name} fp32 ({n_bytes / 1e9:.2f} GB of parameters): decode-step logits against "
-          f"forward's over {RG_FP32_POSITIONS} positions at B={RG_FP32_B}: |Δ|/max|logit| ≤ "
-          f"{worst:.3e} (limit {RG_FP32_RTOL:.0e}), argmax equal at {same} of "
-          f"{RG_FP32_B * RG_FP32_POSITIONS}; {time.perf_counter() - t0:.1f} s")
+          f"forward's over {positions} positions at B={b}: |Δ|/max|logit| ≤ {worst:.3e} (limit "
+          f"{rtol:.0e}), argmax equal at {same} of {b * positions}; {time.perf_counter() - t0:.1f} s")
+    for label, layers in faults:
+        gap = fault_gap(torch, model, params, tokens, full, kept, label, fault_at, layers)
+        if gap <= rtol:
+            fail(f"{arch} fp32: a decode with {label} stays within the limit {rtol:.0e} "
+                 f"({gap:.2e}): the check cannot tell it from a sound one")
+    del params, full, kept
 
 
 # ``--decode-variants``: csrc/decode_attention.cu with these substitutions,
@@ -2508,19 +2633,21 @@ def decode_variants(torch, timer, bandwidth) -> None:
 LORA_ARCH, LORA_RANK, LORA_SEQ = "gemma3-4b", 8, 128
 LORA_M, LORA_N, LORA_P, LORA_EVAL, LORA_BATCH = 16, 32, 4, 64, 8
 LORA_D = 14_901_248          # rank-8 adapters on gemma3-4b's 70 target leaves
+RG_LORA_D = 3_258_656        # rank-8 adapters on recurrentgemma-2b's 11 stacked target leaves
 LORA_LR = 0.01
 LORA_KEEP = 0.1              # Fedcom's keep fraction
 # device time by group in the profiled rounds: a kernel counts for the group
 # of the annotated call that launched it (forward, or its backward through
 # the autograd sequence number, or its recomputation under remat); GEMMs
 # outside every annotation are the model's projections and unembedding
-LORA_GROUPS = ("lora_merge", "chunked_attention", "cross_entropy")
+LORA_GROUPS = ("lora_merge", "chunked_attention", "cross_entropy", "rglru")
 
 
-def lora_phase(torch, timer, bandwidth) -> tuple:
-    """Phase 6: FLrce, FedAvg and Fedcom over rank-8 LoRA adapters on
-    full-width bf16 gemma3-4b, with checks (a) to (d), the kernels at the
-    phase's own operands, and a profile of two rounds."""
+def lora_phase(torch, timer, bandwidth, arch=LORA_ARCH, want_dim=LORA_D, tag="6") -> tuple:
+    """Phase 6 (gemma3-4b) and 7 (recurrentgemma-2b, ``arch``): FLrce, FedAvg
+    and Fedcom over rank-8 LoRA adapters on the full-width bf16 model, with
+    checks (a) to (d), the kernels at the phase's own operands, and a
+    profile of two rounds."""
     import numpy as np
 
     from repro_torch.configs import get_arch
@@ -2533,7 +2660,7 @@ def lora_phase(torch, timer, bandwidth) -> tuple:
     from repro_torch.models.lm import lm_from_flat
 
     t_phase = time.perf_counter()
-    cfg = get_arch(LORA_ARCH)
+    cfg = get_arch(arch)
     base = LMClassifier(cfg, seq_len=LORA_SEQ)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2548,8 +2675,8 @@ def lora_phase(torch, timer, bandwidth) -> tuple:
     lora = LoRAClassifier(base, base_params, rank=LORA_RANK)
     dim = lora.adapter_dim()
     n_targets = len({base for _, base, factor in lora.adapter_leaves() if factor is not None})
-    if dim != LORA_D:
-        fail(f"LoRA adapter dim {dim} != {LORA_D}")
+    if dim != want_dim:
+        fail(f"LoRA adapter dim {dim} != {want_dim}")
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     adapters = lora.init(0, "cuda")
@@ -2621,7 +2748,7 @@ def lora_phase(torch, timer, bandwidth) -> tuple:
     u, w = u0["u"], u0["w"]
     sizes = ds.client_sizes()[res.records[0].selected]
     weights = torch.from_numpy((sizes / sizes.sum()).astype(np.float32)).cuda()
-    rows = lora_kernel_rows(torch, timer, bandwidth, u, state.updates, w, weights)
+    rows = lora_kernel_rows(torch, timer, bandwidth, u, state.updates, w, weights, tag)
 
     # (d) the first local step of round 0's cohort, batched against sequential
     seq, bat = first_step_updates(torch, ds, lora, adapters, res.records[0].selected,
@@ -2661,7 +2788,7 @@ def lora_phase(torch, timer, bandwidth) -> tuple:
     launches["topk_mask_rows"] = other["Fedcom"]["topk_mask_rows"]
 
     lora_profile(torch, lora, ds, adapters, dim, res.records)
-    print(f"  phase 6 wall {time.perf_counter() - t_phase:.1f} s")
+    print(f"  phase {tag} wall {time.perf_counter() - t_phase:.1f} s")
     del lora, base_params, adapters, strategy, res
     gc.collect()
     torch.cuda.empty_cache()
@@ -2691,10 +2818,11 @@ def lora_checks(label, res, strategy, dim, *, need_exploit: bool) -> None:
             fail(f"{label}: final adapter {name} not finite")
 
 
-def lora_kernel_rows(torch, timer, bandwidth, u, v, w, weights) -> dict:
-    """Each of the four FL kernels on phase 6's operands (round 0's update
-    matrix, the server's V after the run, round 0's model) against its plain
-    version, timed beside the plain version, the PyTorch call and the bound."""
+def lora_kernel_rows(torch, timer, bandwidth, u, v, w, weights, tag="6") -> dict:
+    """Each of the four FL kernels on phase ``tag``'s operands (round 0's
+    update matrix, the server's V after the run, round 0's model) against
+    its plain version, timed beside the plain version, the PyTorch call and
+    the bound."""
     from repro_torch.kernels import aggregate as kagg
     from repro_torch.kernels import gram as kgram
     from repro_torch.kernels import topk_mask as ktopk
@@ -2708,7 +2836,7 @@ def lora_kernel_rows(torch, timer, bandwidth, u, v, w, weights) -> dict:
 
     src = "src/repro_torch/kernels/csrc/"
     rows = []
-    err, rel = check_gram("cross_gram (phase 6)", kgram.cross_gram_cuda(u, v),
+    err, rel = check_gram(f"cross_gram (phase {tag})", kgram.cross_gram_cuda(u, v),
                           kgram.cross_gram_plain(u, v), u, v, torch)
     b_ms, b_by = bound(4 * (k * d + q * d + k * q), 2 * k * q * d)
     rows.append(dict(name="cross_gram", route="cuda", source=src + "gram.cu",
@@ -2717,7 +2845,7 @@ def lora_kernel_rows(torch, timer, bandwidth, u, v, w, weights) -> dict:
                      plain_ms=timer(lambda: kgram.cross_gram_plain(u, v)),
                      bound_ms=b_ms, bound_by=b_by, library_ms=timer(lambda: torch.mm(u, v.t())),
                      shape=f"K={k} Q={q} D={d}"))
-    err, rel = check_gram("gram (phase 6)", kgram.gram_cuda(u), kgram.gram_plain(u), u, u, torch)
+    err, rel = check_gram(f"gram (phase {tag})", kgram.gram_cuda(u), kgram.gram_plain(u), u, u, torch)
     b_ms, b_by = bound(4 * (k * d + k * k), 2 * k * k * d)
     rows.append(dict(name="gram", route="cuda", source=src + "gram.cu",
                      replaces="src/repro/kernels/gram.py:56", max_abs_err=err, rel_err=rel,
@@ -2725,7 +2853,7 @@ def lora_kernel_rows(torch, timer, bandwidth, u, v, w, weights) -> dict:
                      plain_ms=timer(lambda: kgram.gram_plain(u)),
                      bound_ms=b_ms, bound_by=b_by, library_ms=timer(lambda: torch.mm(u, u.t())),
                      shape=f"P={k} D={d}"))
-    err = check_aggregate("weighted_aggregate (phase 6)", kagg.weighted_aggregate_cuda(w, u, weights),
+    err = check_aggregate(f"weighted_aggregate (phase {tag})", kagg.weighted_aggregate_cuda(w, u, weights),
                           kagg.weighted_aggregate_plain(w, u, weights), torch)
     b_ms, b_by = bound(4 * (d + k * d + k + d), 2 * k * d)
     rows.append(dict(name="weighted_aggregate", route="cuda", source=src + "aggregate.cu",
@@ -2735,7 +2863,7 @@ def lora_kernel_rows(torch, timer, bandwidth, u, v, w, weights) -> dict:
                      bound_ms=b_ms, bound_by=b_by,
                      library_ms=timer(lambda: torch.addmv(w, u.t(), weights)),
                      shape=f"P={k} D={d}"))
-    check_bitwise("topk_mask_rows (phase 6)", ktopk.topk_mask_rows_cuda(u, keep_frac=LORA_KEEP),
+    check_bitwise(f"topk_mask_rows (phase {tag})", ktopk.topk_mask_rows_cuda(u, keep_frac=LORA_KEEP),
                   ktopk.topk_mask_rows_plain(u, keep_frac=LORA_KEEP), torch)
     bd = ktopk.DEFAULT_BLOCK_D
     padded = torch.nn.functional.pad(u, (0, (-d) % bd)).reshape(-1, bd)
@@ -2768,11 +2896,12 @@ def lora_profile(torch, lora, ds, adapters, dim, main_records, rounds: int = 2) 
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.fl import FLrce, run_federated
-    from repro_torch.models import attention, lora as lora_mod, transformer
+    from repro_torch.models import attention, lora as lora_mod, rglru, transformer
 
     spans = [(attention, "chunked_attention", "chunked_attention"),
              (transformer, "_chunk_nll", "cross_entropy"),
-             (lora_mod.LoRAClassifier, "merge", "lora_merge")]
+             (lora_mod.LoRAClassifier, "merge", "lora_merge"),
+             (rglru, "apply_rglru", "rglru")]
     strategy = FLrce(LORA_M, LORA_P, 1, dim=dim, explore_decay=0.5, seed=0)
     with annotated(spans), profile(activities=[ProfilerActivity.CPU,
                                                ProfilerActivity.CUDA]) as prof:
@@ -2815,7 +2944,9 @@ def lora_group(name: str, label, op: str) -> str:
     if label is not None:
         return {"lora_merge": "LoRA merges (forward and backward)",
                 "chunked_attention": "chunked attention (fp32; forward, recompute, backward)",
-                "cross_entropy": "chunked cross-entropy (forward, recompute, backward)"}[label]
+                "cross_entropy": "chunked cross-entropy (forward, recompute, backward)",
+                "rglru": "RG-LRU blocks (projections, fp32 gates, conv, scan; forward, "
+                         "recompute, backward)"}[label]
     if "gemm" in low or "xmma" in low or "nvjet" in low or "cutlass" in low:
         return "projection and unembedding GEMMs (forward, recompute, backward)"
     return "other kernels (norms, RoPE, MLP activations, residuals, gathers, SGD)"
@@ -2941,6 +3072,256 @@ def lora_reference_check(torch) -> None:
     print(f"  phase 6b wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 7b: the RG-LRU hybrid's training on the card against the CPU
+# ---------------------------------------------------------------------------
+RG_TRAIN_RTOL = 1e-5    # fp32: loss relative; gradient leaves and update rows |Δ| / their max
+RG_PRETRAIN_CLI = ["--mode", "pretrain", "--arch", RG_ARCH, "--silos", "4", "--participants", "2",
+                   "--rounds", "2", "--local-steps", "1", "--batch", "2", "--seq", "32"]
+
+
+def rg_train_reference_check(torch) -> None:
+    """Phase 7b: recurrentgemma-2b's training on the card against the CPU
+    in fp32: the reference CLI's pretrain case (``RG_PRETRAIN_CLI``, the
+    reduced config), then on the CPU tests' 5-layer reduced config (a cycle
+    of two RG-LRU blocks and a local attention layer, two RG-LRU rest
+    blocks, window 4) one LMClassifier gradient, LoRA FLrce rounds (round
+    0's update rows), and a LoRA FedAvg round captured by ``driver="scan"``
+    against the loop and bitwise against the same body run eagerly."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_federated_lm
+    from repro_torch.fl import FLrce, run_federated
+    from repro_torch.fl.baselines import FedAvg
+    from repro_torch.fl.scan_driver import run_scan_driver
+    from repro_torch.launch import train
+    from repro_torch.models import LMClassifier, LoRAClassifier
+
+    t_phase = time.perf_counter()
+    get = train.get_arch
+    train.get_arch = lambda name, reduced=False: dataclasses.replace(get(name, reduced=reduced),
+                                                                     dtype="float32")
+    try:
+        hist = {dev: train.run_pretrain_mode(train.build_parser().parse_args(
+            RG_PRETRAIN_CLI + ["--device", dev]))["history"] for dev in ("cuda", "cpu")}
+    finally:
+        train.get_arch = get
+    loss_gap = 0.0
+    for a, b in zip(hist["cuda"], hist["cpu"]):
+        if [a[k] for k in ("round", "silos", "exploit", "stopped", "conflicts")] != \
+                [b[k] for k in ("round", "silos", "exploit", "stopped", "conflicts")]:
+            fail(f"pretrain {RG_ARCH}: card and CPU rounds differ: {a} vs {b}")
+        loss_gap = max(loss_gap, abs(a["mean_loss"] - b["mean_loss"]) / abs(b["mean_loss"]))
+    if len(hist["cuda"]) != len(hist["cpu"]) or loss_gap > RG_TRAIN_RTOL:
+        fail(f"pretrain {RG_ARCH}: {len(hist['cuda'])} / {len(hist['cpu'])} rounds, mean loss "
+             f"{loss_gap:.2e} relative")
+    print(f"  pretrain CLI ({' '.join(RG_PRETRAIN_CLI[2:])}, fp32) card == CPU over "
+          f"{len(hist['cpu'])} rounds: silos {[r['silos'] for r in hist['cpu']]}, exploit "
+          f"{[r['exploit'] for r in hist['cpu']]}, conflicts {[r['conflicts'] for r in hist['cpu']]}; "
+          f"mean loss {loss_gap:.2e} relative (limit {RG_TRAIN_RTOL:.0e})")
+
+    cfg = dataclasses.replace(get_arch(RG_ARCH, reduced=True), dtype="float32", num_layers=5,
+                              window=4)
+    base = LMClassifier(cfg, seq_len=32)
+    host = base.init(0, "cpu")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4,)))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        live = {k: v.to(dev).requires_grad_(True) for k, v in host.items()}
+        loss = base.loss(live, x.to(dev), y.to(dev))
+        grads = torch.autograd.grad(loss, list(live.values()))
+        out[dev] = (float(loss.detach()), [g.cpu() for g in grads])
+    loss_gap = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    grad_gap = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(out["cuda"][1], out["cpu"][1]))
+    if loss_gap > RG_TRAIN_RTOL or grad_gap > RG_TRAIN_RTOL:
+        fail(f"LMClassifier {cfg.name}: card against CPU loss {loss_gap:.2e} relative, gradient "
+             f"leaves {grad_gap:.2e} of their max (limit {RG_TRAIN_RTOL:.0e})")
+    print(f"  LMClassifier ({cfg.num_layers} layers: {', '.join(cfg.layer_kinds())}; remat) "
+          f"gradient card == CPU: loss {loss_gap:.2e} relative, {len(host)} gradient leaves within "
+          f"{grad_gap:.2e} of their max")
+
+    ds = make_federated_lm(num_clients=8, samples_per_client=16, seq_len=32,
+                           vocab_size=cfg.vocab_size, num_eval=32, seed=0)
+    models = {dev: LoRAClassifier(base, {k: v.to(dev) for k, v in host.items()}, rank=8)
+              for dev in ("cuda", "cpu")}
+    dim = models["cpu"].adapter_dim()
+    kw = dict(learning_rate=0.01, batch_size=8, seed=0)
+    runs, rows = {}, {}
+    for dev, m in models.items():
+        strategy = FLrce(8, 4, 1, dim=dim, explore_decay=0.5, seed=0)
+        rows[dev] = capture_round0(strategy)
+        runs[dev] = run_federated(m, ds, strategy, max_rounds=3, torch_device=dev, **kw)
+    compare_runs(f"LoRA FLrce over {cfg.name} (fp32, D = {dim})", runs["cuda"], runs["cpu"])
+    ua, ub = rows["cuda"]["u"].cpu(), rows["cpu"]["u"]
+    row_gap = float(((ua - ub).abs().amax(dim=1) / ub.abs().amax(dim=1).clamp_min(1e-30)).max())
+    if row_gap > RG_TRAIN_RTOL:
+        fail(f"LoRA {cfg.name}: round 0's update rows {row_gap:.2e} of their max apart")
+    print(f"  round 0's {tuple(ub.shape)} update rows card == CPU within {row_gap:.2e} of each "
+          f"row's max (limit {RG_TRAIN_RTOL:.0e})")
+    loop = run_federated(models["cuda"], ds, FedAvg(8, 4, 1, seed=0), max_rounds=4,
+                         torch_device="cuda", **kw)
+    scan = run_federated(models["cuda"], ds, FedAvg(8, 4, 1, seed=0), max_rounds=4,
+                         torch_device="cuda", driver="scan", scan_chunk_rounds=2, **kw)
+    compare_scan(f"LoRA FedAvg over {cfg.name}, driver='scan' on the card", loop, scan, torch)
+    skw = dict(max_rounds=4, learning_rate=0.01, batch_size=8, device="jetson_nano",
+               eval_every=1, seed=0, init_params=None, verbose=False, chunk_rounds=2)
+    dev = torch.device("cuda")
+    graph = run_scan_driver(models["cuda"], ds, FedAvg(8, 4, 1, seed=0), torch_device=dev,
+                            capture=True, **skw)
+    eager = run_scan_driver(models["cuda"], ds, FedAvg(8, 4, 1, seed=0), torch_device=dev,
+                            capture=False, **skw)
+    st = graph.driver_stats
+    if st["captures_chunk"] < 1 or st["replays"] != 4 or st["host_syncs"] != st["chunks"]:
+        fail(f"LoRA {cfg.name}: the scan driver did not capture and replay its rounds: {st}")
+    compare_scan(f"LoRA FedAvg over {cfg.name}, captured rounds against the eager body", eager,
+                 graph, torch, bitwise=True)
+    print(f"  captured: {st['captures_chunk']} captures, {st['replays']} replays, "
+          f"{st['host_syncs']} host syncs in {st['chunks']} chunks, bitwise the eager body")
+    print(f"  phase 7b wall {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: serving xlstm-1.3b at full width; 8b: xLSTM on the card against the CPU
+# ---------------------------------------------------------------------------
+XL_ARCH = "xlstm-1.3b"
+XL_B, XL_PROMPT, XL_GEN = 8, 512, 64
+XL_STEPS = XL_PROMPT + XL_GEN - 1
+XL_PARAMS = 2_119_586_128          # the tree init builds
+XL_CONFIG_PARAMS = 1_741_666_304   # ArchConfig.param_count()
+XL_FP32_B, XL_FP32_POSITIONS = 2, 300   # a whole chunk of 256 and a padded one
+# decode-step logits against forward's, |Δ| / max|logit|, fp32: the two
+# forms round differently in every block, and the gap grows with the width
+# at 48 layers (the reference's own 2.7e-4 at d_model 256 on the CPU; on the
+# card 3.1e-4 at 256 to 6.8e-4 at 2048, and at 2048 the card's forward lies
+# 4.7e-4 from the host CPU's: ``--xlstm-gap``)
+XL_FP32_RTOL = 1e-3
+# planted faults of phase 8's fp32 check (and ``--xlstm-gap``): the decode
+# loses the state of these layers before the chunk boundary at 256; the
+# least of them read 0.196 of max|logit| on the card, the sound decode 6.8e-4
+XL_FAULT_AT = 256
+XL_FAULTS = (("every layer's state emptied", None),
+             ("the 6 sLSTM layers' states emptied", tuple(range(7, 48, 8))),
+             ("layer 0's mLSTM state emptied", (0,)),
+             ("layer 7's sLSTM state emptied", (7,)),
+             ("layer 46's mLSTM state emptied", (46,)))
+XL_SPANS = ("mlstm", "slstm", "unembed")
+
+
+def xl_group(name: str, label, op: str) -> str:
+    """Phase 8's group of a kernel, from its ``XL_SPANS`` label and the op
+    that launched it."""
+    if label == "mlstm":
+        if op.startswith(("aten::baddbmm", "aten::bmm", "aten::mul_")):
+            return "mLSTM matrix memory C (scale, rank-one add, read; fp32)"
+        if op.endswith("mm"):
+            return "mLSTM projections (bf16 q/k/v/gate/out, fp32 gates)"
+        return "mLSTM gates, stabiliser, normaliser (elementwise)"
+    if label == "slstm":
+        return ("sLSTM products (bf16 weights cast to fp32)" if op.endswith("mm")
+                else "sLSTM elementwise and casts")
+    if label == "unembed":
+        return "unembed (vocab 50,304)"
+    return "norms, residuals, embedding, argmax"
+
+
+def xl_serve_profile(torch, model, params, step_wall_s: float) -> None:
+    """Phase 8's device time by group at the run's last positions (the state
+    is the same size at every position), and the state's bytes."""
+    from repro_torch.models import ssm, transformer
+
+    def state_line(cache, params) -> None:
+        state = sum(t.numel() * t.element_size() for t in tensors(cache))
+        c_bytes = sum(c["C"].numel() * c["C"].element_size() for c in cache if "C" in c)
+        weights = sum(t.numel() * t.element_size() for t in tensors(params))
+        bytes_min = 2 * state + weights
+        print(f"  state {state / 1e9:.3f} GB at B = {XL_B} ({c_bytes / 1e9:.3f} GB the mLSTM "
+              f"matrix memories), weights {weights / 1e9:.3f} GB: a step reads and writes the "
+              f"state and reads the weights, {bytes_min / 1e9:.2f} GB, "
+              f"{1e3 * bytes_min / 3.35e12:.2f} ms at 3.35 TB/s")
+
+    spans = [(ssm, "mlstm_decode_step", "mlstm"), (ssm, "slstm_decode_step", "slstm"),
+             (transformer.TransformerLM, "unembed", "unembed")]
+    group_profile(torch, model, params, XL_B, XL_STEPS, spans, XL_SPANS, xl_group, step_wall_s,
+                  0, state_line)
+
+
+def xlstm_gap(torch) -> None:
+    """``--xlstm-gap``: xLSTM's fp32 decode-against-forward gap by two more
+    routes than phase 8's.  On the card at 48 layers and d_model 256, 512,
+    1024 and 2048 (the full width), to show how it grows with the width; at
+    the full width on the host's CPU from the card's weights, with the
+    card's ``forward`` logits against the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import TransformerLM
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, 50_304, (XL_FP32_B, XL_FP32_POSITIONS), generator=gen,
+                           device="cuda")
+    for d in (256, 512, 1024, 2048):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_arch(XL_ARCH), d_model=d, dtype="float32")
+        model = TransformerLM(cfg)
+        params = model.init(0, "cuda")
+        with torch.no_grad():
+            full = model.forward(params, {"tokens": tokens})
+        worst, same, kept = decode_gap(torch, model, params, tokens, full,
+                                       model.init_cache(XL_FP32_B, XL_FP32_POSITIONS, "cuda"),
+                                       keep_at=XL_FAULT_AT)
+        print(f"  card, 48 layers, d_model {d}: |Δ|/max|logit| {worst:.3e}, argmax equal at "
+              f"{same} of {XL_FP32_B * XL_FP32_POSITIONS}; {time.perf_counter() - t0:.1f} s")
+    for label, layers in XL_FAULTS:
+        fault_gap(torch, model, params, tokens, full, kept, label, XL_FAULT_AT, layers)
+    del kept
+    t0 = time.perf_counter()
+    host = tree_to(params, "cpu")
+    full_card = full.cpu()
+    del params, full
+    torch.cuda.empty_cache()
+    cpu_tokens = tokens.cpu()
+    with torch.no_grad():
+        full = model.forward(host, {"tokens": cpu_tokens})
+    cross = float((full - full_card).abs().max() / full_card.abs().max())
+    worst, same, _ = decode_gap(torch, model, host, cpu_tokens, full,
+                                model.init_cache(XL_FP32_B, XL_FP32_POSITIONS, "cpu"))
+    print(f"  host CPU ({torch.get_num_threads()} threads), the full width from the card's "
+          f"weights: decode against forward |Δ|/max|logit| {worst:.3e}, argmax equal at {same} "
+          f"of {XL_FP32_B * XL_FP32_POSITIONS}; the card's forward against the CPU's "
+          f"{cross:.3e}; {time.perf_counter() - t0:.1f} s")
+
+
+def xl_cli_reference_check(torch) -> None:
+    """Phase 8b's CLI case: ``serve --arch xlstm-1.3b --batch 2 --prompt-len 4
+    --gen 4`` (the reference's tests/test_launch_cli.py) on the reduced
+    config in fp32 through ``generate``, on the card and on the CPU, from
+    seed 0's weights and the CLI's prompt: the tokens must be equal."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import TransformerLM
+
+    cfg = dataclasses.replace(get_arch(XL_ARCH, reduced=True), dtype="float32")
+    model = TransformerLM(cfg)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 4)))
+    seqs = {dev: generate(model, model.init(0, dev), prompt.to(dev), 4, 8).cpu()
+            for dev in ("cuda", "cpu")}
+    if not torch.equal(seqs["cuda"], seqs["cpu"]):
+        fail(f"serve CLI case {cfg.name} (fp32): card tokens {seqs['cuda'].tolist()} differ from "
+             f"the CPU's {seqs['cpu'].tolist()}")
+    print(f"  serve CLI case ({cfg.name}, {', '.join(cfg.layer_kinds())}; batch 2, 4 + 4 tokens, "
+          f"fp32) card == CPU: {seqs['cpu'].tolist()}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3008,6 +3389,10 @@ def main() -> int:
     if mode == "--numerics":
         print("numerics of the FL path at the CIFAR width")
         numerics(torch)
+        return 0
+    if mode == "--xlstm-gap":
+        print(f"{XL_ARCH} in fp32: decode steps against forward by width, and on the host's CPU")
+        xlstm_gap(torch)
         return 0
     if mode == "--kernel-variants":
         print("topk_mask_rows and gram variants")
@@ -3088,7 +3473,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"{RG_ARCH} at full width in fp32, {RG_FP32_POSITIONS} positions at B={RG_FP32_B}: "
           f"decode steps against forward")
-    rg_fp32_check(torch)
+    fp32_decode_check(torch, RG_ARCH, RG_FP32_B, RG_FP32_POSITIONS, RG_FP32_RTOL)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3107,6 +3492,38 @@ def main() -> int:
 
     phase("phase 6b: a reduced gemma3 config, LoRA and full-model federations, GPU against CPU")
     lora_reference_check(torch)
+    torch.cuda.empty_cache()
+
+    phase(f"phase 7: federated LoRA (rank {LORA_RANK}) on {RG_ARCH} at full width, M={LORA_M}, "
+          f"P={LORA_P}, {LORA_N} sequences of {LORA_SEQ} tokens a client: FLrce, FedAvg, Fedcom")
+    timer = Timer(torch)
+    rg_lora_rows, rg_lora_launches = lora_phase(torch, timer, bandwidth, RG_ARCH, RG_LORA_D, "7")
+    del timer
+    torch.cuda.empty_cache()
+
+    phase(f"phase 7b: {RG_ARCH}'s training, reduced configs in fp32, GPU against CPU")
+    rg_train_reference_check(torch)
+    torch.cuda.empty_cache()
+
+    phase(f"phase 8: serve {XL_ARCH} at full width, {XL_B} requests x ({XL_PROMPT} prompt + "
+          f"{XL_GEN} generated) tokens")
+    model, params, _, xl_step_s, _ = serve_phase(torch, XL_ARCH, XL_B, XL_PROMPT, XL_GEN,
+                                                 XL_PARAMS, XL_CONFIG_PARAMS)
+    print(f"profile: device time by group of the {XL_ARCH} serve step")
+    xl_serve_profile(torch, model, params, xl_step_s)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{XL_ARCH} at full width in fp32, {XL_FP32_POSITIONS} positions at B={XL_FP32_B}: "
+          f"decode steps against forward")
+    fp32_decode_check(torch, XL_ARCH, XL_FP32_B, XL_FP32_POSITIONS, XL_FP32_RTOL, XL_FAULTS,
+                      XL_FAULT_AT)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"phase 8b: small {XL_ARCH}-family models served on the GPU and on the CPU")
+    serve_reference_check(torch, XL_ARCH)
+    xl_cli_reference_check(torch)
 
     kernels = []
     for name in ("cross_gram", "gram", "weighted_aggregate", "topk_mask_rows", "decode_attention",
@@ -3122,14 +3539,17 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
-    for name in ("cross_gram", "gram", "weighted_aggregate", "topk_mask_rows"):
-        r = lora_rows[name]
-        kernels.append({
-            "name": f"{name}@{LORA_ARCH}-lora", "route": r["route"], "source": r["source"],
-            "replaces": r["replaces"], "launches": lora_launches[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        })
+    for arch, lrows, llaunches in ((LORA_ARCH, lora_rows, lora_launches),
+                                   (RG_ARCH, rg_lora_rows, rg_lora_launches)):
+        for name in ("cross_gram", "gram", "weighted_aggregate", "topk_mask_rows"):
+            r = lrows[name]
+            kernels.append({
+                "name": f"{name}@{arch}-lora", "route": r["route"], "source": r["source"],
+                "replaces": r["replaces"], "launches": llaunches[name],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+            })
     ends = [t for _, t in starts[1:]] + [time.perf_counter()]
     print("phase seconds: " + ", ".join(f"{name} {end - t:.1f}"
                                         for (name, t), end in zip(starts, ends)))

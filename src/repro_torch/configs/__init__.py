@@ -2,8 +2,9 @@
 ``reduce_config``, copied from the reference's ``src/repro/configs``.
 
 The registry holds the architectures whose blocks the port has: the dense
-attention-only ones (global and sliding-window attention with a dense MLP)
-and the hybrid recurrentgemma-2b (RG-LRU blocks beside local attention).
+attention-only ones (global and sliding-window attention with a dense MLP),
+the hybrid recurrentgemma-2b (RG-LRU blocks beside local attention) and
+xlstm-1.3b (mLSTM and sLSTM blocks).
 Every other architecture of the reference raises ``KeyError`` until the
 slice that ports its blocks.
 """
@@ -22,11 +23,11 @@ _ARCH_MODULES = {
     "minitron-4b": "repro_torch.configs.minitron_4b",
     "deepseek-7b": "repro_torch.configs.deepseek_7b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
 }
 
 # the reference's other architectures and the blocks they wait for
 _LATER = {
-    "xlstm-1.3b": "the xLSTM (mLSTM/sLSTM) blocks",
     "phi-3-vision-4.2b": "image tokens",
     "dbrx-132b": "mixture-of-experts blocks",
     "mixtral-8x22b": "mixture-of-experts blocks",

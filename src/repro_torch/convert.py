@@ -120,7 +120,8 @@ def lm_params_from_jax(cfg, tree: Dict[str, Any], device: DeviceLike = "cuda") -
     Flat layer ``i < NC·len(pattern)`` is cycle ``i // len(pattern)`` of
     position ``i % len(pattern)``, the order the reference runs them in.
     Every leaf keeps its own dtype, so an RG-LRU block's fp32 gates, decay
-    and biases stay fp32 beside a bf16 model's other leaves."""
+    and biases, and an mLSTM or sLSTM block's fp32 gate weights and biases,
+    stay fp32 beside a bf16 model's other leaves."""
     dev = resolve_device(device)
     extra = set(tree) - _LM_KEYS
     if extra:

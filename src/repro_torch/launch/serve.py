@@ -7,7 +7,8 @@ The same loop and defaults as the reference's ``src/repro/launch/serve.py``:
 the prompt is fed one token at a time through the decode step (prefill is
 decode), then the greedy tokens.  Architectures: those of
 ``repro_torch.configs`` (``--arch``; the default recurrentgemma-2b is the
-RG-LRU hybrid, the others dense attention-only), reduced unless
+RG-LRU hybrid, xlstm-1.3b the mLSTM/sLSTM stack, the others dense
+attention-only), reduced unless
 ``--full-config``.  Parameters are the reference's ``init(PRNGKey(seed))``
 for ``--seed``, drawn on the device.  Runs on CUDA unless ``--device cpu``
 is given.

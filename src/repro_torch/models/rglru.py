@@ -20,7 +20,9 @@ torch ops: ⌈log2 S⌉ rounds of whole-tensor multiply-adds, where a step loop
 would launch S rounds of small ones (S·18 of them a forward at
 recurrentgemma-2b's depth).  Its O(S log S) elementwise work is small next
 to the block's projections.  Both scans combine the same pairs
-``(a1·a2, a2·b1 + b2)`` in another order, so they agree to fp32 rounding.
+``(a1·a2, a2·b1 + b2)`` in another order, so they agree to fp32 rounding,
+and so do their gradients: autograd runs back through the rounds (training;
+held against ``jax.grad`` of the reference).
 There is no Pallas kernel here, so the port has no CUDA kernel either.
 
 Decode is the O(1) single-step recurrence; it updates the cache's ``h`` and
@@ -104,7 +106,9 @@ def _gates(params: Params, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
 
 
 def _input_scale(log_a: torch.Tensor) -> torch.Tensor:
-    """sqrt(1 − a²), floored as the reference floors it."""
+    """sqrt(1 − a²), floored as the reference floors it.  The reference's
+    ``jnp.maximum`` halves the gradient at a tie with the floor, ``clamp``
+    does not; no fp32 input ties: 1 − exp(2·log a) is 0 or at least 2⁻²⁴."""
     return torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
 
 

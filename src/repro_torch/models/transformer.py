@@ -1,7 +1,8 @@
 """Decoder-only LM, from the reference's ``src/repro/models/transformer.py``,
 for the dense attention-only architectures (global and sliding-window
-attention, dense MLP) and the RG-LRU hybrid (recurrentgemma-2b: Griffin
-recurrent blocks beside local attention): the full-sequence forward and the
+attention, dense MLP), the RG-LRU hybrid (recurrentgemma-2b: Griffin
+recurrent blocks beside local attention) and xLSTM (xlstm-1.3b: seven mLSTM
+blocks to one sLSTM block): the full-sequence forward and the
 sequence-chunked cross-entropy of training and prefill, and cached decoding.
 
 Parameters are a dict::
@@ -16,22 +17,26 @@ cycle c's positions 0…len(pattern)−1 before cycle c+1, then the ``rest``
 layers; flat layer i is therefore pattern position ``i % len(pattern)`` of
 cycle ``i // len(pattern)``, and its kind is ``cfg.block_kind(i)``
 (``convert.lm_params_from_jax`` maps the stacked pytree onto this list).
-Each block is a pre-norm residual: ``norm1`` and the ``mixer`` (attention or
-RG-LRU), then, for attention blocks of a model with ``d_ff > 0``, ``norm2``
-and the MLP; an RG-LRU block has no MLP, as in the reference (its
+Each block is a pre-norm residual: ``norm1`` and the ``mixer`` (attention,
+RG-LRU, mLSTM or sLSTM), then, for attention blocks of a model with
+``d_ff > 0``, ``norm2`` and the MLP; a recurrent block has no MLP, as in the
+reference (an RG-LRU block's
 ``ArchConfig.param_count()`` books one anyway: recurrentgemma-2b's built tree
 has 2,304,888,320 parameters, the config's count says 2,835,637,760).
 Caches are a matching list: ``{"k", "v"}`` for an attention layer, where a
 local layer's cache is ``min(cache_len, window)`` long, a ring buffer;
 ``{"h", "conv_tail"}`` (fp32 state, the conv's last inputs) for an RG-LRU
-layer.
+layer, ``{"C", "n", "m"}`` for an mLSTM layer and ``{"c", "n", "m", "h"}``
+for an sLSTM layer (fp32).
 
 The dense slice has no mixture-of-experts auxiliary loss, so ``hidden`` and
 ``forward`` return the hidden states and the logits alone, where the
 reference returns them beside a zero aux term.  ``remat`` is a memory
 policy, not semantics: each layer is recomputed in the backward pass
 (``torch.utils.checkpoint``) where the reference checkpoints each scanned
-cycle; each loss chunk is recomputed either way, as in the reference.
+cycle and each rest block; each loss chunk is recomputed either way, as in
+the reference.  Gradients flow through every block kind, but the federated
+and launch-level training paths refuse xLSTM (``check_trainable``).
 """
 from __future__ import annotations
 
@@ -44,14 +49,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as prng
-from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, RGLRU, ArchConfig
+from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, MLSTM, RGLRU, SLSTM, ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import rglru
+from repro_torch.models import rglru, ssm
 from repro_torch.models.layers import apply_mlp, apply_norm, embed_init, init_mlp, init_norm
 
 _ATTN_KINDS = (ATTN_GLOBAL, ATTN_LOCAL)
-_KINDS = _ATTN_KINDS + (RGLRU,)
+_KINDS = _ATTN_KINDS + (RGLRU, MLSTM, SLSTM)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 Params = Dict[str, object]
@@ -72,19 +77,20 @@ def check_supported(cfg: ArchConfig) -> None:
     if later:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(later)} wait for a later slice of the port; this one runs "
-            f"the dense attention-only architectures and the RG-LRU hybrid"
+            f"the dense attention-only architectures, the RG-LRU hybrid and xLSTM"
         )
 
 
 def check_trainable(cfg: ArchConfig, who: str) -> None:
-    """Raise ``NotImplementedError`` for a model with RG-LRU blocks where the
-    federated and launch-level training paths would take it: this slice
-    serves RG-LRU models (and runs their full-sequence forward and loss);
-    their training waits for ROADMAP A.7.2."""
-    if RGLRU in cfg.layer_kinds():
+    """Raise ``NotImplementedError`` for a model with xLSTM (mLSTM or sLSTM)
+    blocks where the federated and launch-level training paths would take
+    it: the port serves xLSTM models; their training waits for ROADMAP
+    A.7.7."""
+    kinds = sorted({MLSTM, SLSTM} & set(cfg.layer_kinds()))
+    if kinds:
         raise NotImplementedError(
-            f"{who}: {cfg.name} has RG-LRU blocks, whose training waits for ROADMAP A.7.2 "
-            f"(RG-LRU training); this slice of the port serves them")
+            f"{who}: {cfg.name} has xLSTM blocks {kinds}, whose training waits for ROADMAP "
+            f"A.7.7 (xLSTM training); this slice of the port serves them")
 
 
 # ===========================================================================
@@ -110,6 +116,10 @@ def init_block(key: np.ndarray, kind: str, cfg: ArchConfig, dtype: torch.dtype,
     r1, _, r3, _, _ = prng.split(key, 5)
     if kind == RGLRU:
         mixer = rglru.init_rglru(r1, cfg, dtype, device)
+    elif kind == MLSTM:
+        mixer = ssm.init_mlstm(r1, cfg, dtype, device)
+    elif kind == SLSTM:
+        mixer = ssm.init_slstm(r1, cfg, dtype, device)
     else:
         mixer = attn.init_attention(r1, cfg, dtype, device)
     p: Dict = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, device), "mixer": mixer}
@@ -135,6 +145,10 @@ def apply_block_train(params: Dict, kind: str, x: torch.Tensor, positions: torch
     h = apply_norm(cfg.norm, params["norm1"], x)
     if kind == RGLRU:
         x = x + rglru.apply_rglru(params["mixer"], h, cfg)
+    elif kind == MLSTM:
+        x = x + ssm.apply_mlstm(params["mixer"], h, cfg)
+    elif kind == SLSTM:
+        x = x + ssm.apply_slstm(params["mixer"], h, cfg)
     else:
         x = x + attn.attention_block(params["mixer"], h, positions, cfg, local=_is_local(kind))
     if "mlp" in params:
@@ -154,6 +168,10 @@ def init_block_cache(kind: str, cfg: ArchConfig, batch: int, cache_len: int, dty
                      device: torch.device) -> Dict:
     if kind == RGLRU:
         return rglru.init_rglru_cache(cfg, batch, dtype, device)
+    if kind == MLSTM:
+        return ssm.init_mlstm_cache(cfg, batch, device)
+    if kind == SLSTM:
+        return ssm.init_slstm_cache(cfg, batch, device)
     length = min(cache_len, cfg.window) if (_is_local(kind) and cfg.window) else cache_len
     return attn.init_kv_cache(cfg, batch, length, dtype, device)
 
@@ -165,6 +183,10 @@ def apply_block_decode(params: Dict, kind: str, x_t: torch.Tensor, cache: Dict, 
     h = apply_norm(cfg.norm, params["norm1"], x_t)
     if kind == RGLRU:
         mix, cache = rglru.rglru_decode_step(params["mixer"], h, cache, cfg)
+    elif kind == MLSTM:
+        mix, cache = ssm.mlstm_decode_step(params["mixer"], h, cache, cfg)
+    elif kind == SLSTM:
+        mix, cache = ssm.slstm_decode_step(params["mixer"], h, cache, cfg)
     else:
         mix, cache = attn.attention_decode_step(params["mixer"], h, cache, position, cfg,
                                                 local=_is_local(kind), length=length)

@@ -844,16 +844,23 @@ def test_threefry_kernels_refuse_bad_operands(cuda):
     assert ops.launch_counts()["threefry_normal"] == ops.launch_counts()["threefry_rounding"] == 0
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "recurrentgemma-2b", "qwen1.5-4b"])
+@pytest.mark.parametrize("arch", ["gemma3-4b", "recurrentgemma-2b", "qwen1.5-4b", "xlstm-9"])
 def test_reduced_init_on_the_card_is_the_cpus(cuda, arch):
     """init(seed) drawn by the kernel on the card equals the CPU's plain
-    draw bitwise (bf16 leaves, RG-LRU's fp32 gates and Λ included), one
+    draw bitwise (bf16 leaves, RG-LRU's fp32 gates and Λ included; xLSTM at
+    9 layers, so an sLSTM block's (H, hd, hd) recurrent matrices too), one
     launch a drawn leaf."""
+    import dataclasses
+
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.models import TransformerLM
 
-    model = TransformerLM(get_arch(arch, reduced=True))
+    if arch == "xlstm-9":
+        cfg = dataclasses.replace(get_arch("xlstm-1.3b", reduced=True), num_layers=9)
+    else:
+        cfg = get_arch(arch, reduced=True)
+    model = TransformerLM(cfg)
     got = model.init(3, cuda)
     launches = ops.launch_counts()["threefry_normal"]
     want = model.init(3, "cpu")
@@ -869,7 +876,7 @@ def test_reduced_init_on_the_card_is_the_cpus(cuda, arch):
     assert len(g) == len(w) and all(x.device.type == "cuda" for x in g)
     for a, b in zip(g, w):
         _same_bits(a, b)
-    assert launches == sum(x.dim() == 2 for x in w)     # every matrix is drawn, nothing else
+    assert launches == sum(x.dim() >= 2 for x in w)     # every matrix is drawn, nothing else
 
 
 def test_lora_init_on_the_card_is_the_cpus(cuda):
@@ -907,3 +914,199 @@ def test_quantized_scan_on_the_card_is_the_loop(cuda):
             (rb.selected, rb.accuracy, rb.mean_client_loss, rb.energy_kj, rb.bytes_gb)
     for k in loop.final_params:
         assert torch.equal(loop.final_params[k], scan.final_params[k])
+
+
+# --- the RG-LRU hybrid's training, and xLSTM serving ---------------------------------------
+TRAIN_RTOL = 1e-5       # fp32: loss relative; gradient leaves and update rows |Δ| / their max
+
+
+def _hybrid_train(rank=8):
+    """recurrentgemma-2b reduced to 5 fp32 layers (a cycle of two RG-LRU
+    blocks and a local attention layer, two RG-LRU rest blocks, window 4):
+    the LMClassifier, its CPU weights, a token federation and rank-8 LoRA on
+    each device."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_federated_lm
+    from repro_torch.models import LMClassifier, LoRAClassifier
+
+    cfg = dataclasses.replace(get_arch("recurrentgemma-2b", reduced=True), dtype="float32",
+                              num_layers=5, window=4)
+    base = LMClassifier(cfg, seq_len=32)
+    host = base.init(0, "cpu")
+    ds = make_federated_lm(num_clients=8, samples_per_client=16, seq_len=32,
+                           vocab_size=cfg.vocab_size, num_eval=32, seed=0)
+    models = {dev: LoRAClassifier(base, {k: v.to(dev) for k, v in host.items()}, rank=rank)
+              for dev in ("cuda", "cpu")}
+    return base, host, ds, models
+
+
+@pytest.mark.parametrize("remat", [True, False], ids=["remat", "no-remat"])
+def test_hybrid_gradient_on_the_card_is_the_cpus(cuda, remat):
+    """LMClassifier on the RG-LRU hybrid: the loss within 1e-5 relative and
+    every gradient leaf within 1e-5 of its max, card against CPU."""
+    import dataclasses
+
+    base, host, _, _ = _hybrid_train()
+    base = dataclasses.replace(base, remat=remat)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randint(0, base.cfg.vocab_size, (4, 32), generator=g).float()
+    y = torch.randint(0, base.cfg.vocab_size, (4,), generator=g)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        live = {k: v.to(dev).requires_grad_(True) for k, v in host.items()}
+        loss = base.loss(live, x.to(dev), y.to(dev))
+        grads = torch.autograd.grad(loss, list(live.values()))
+        out[dev] = (float(loss.detach()), [t.cpu() for t in grads])
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= TRAIN_RTOL * abs(out["cpu"][0])
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((a - b).abs().max()) <= TRAIN_RTOL * float(b.abs().max())
+
+
+def test_hybrid_pretrain_cli_on_the_card_matches_cpu(cuda, monkeypatch):
+    """The reference CLI's pretrain case on recurrentgemma-2b (reduced, fp32)
+    through launch/train.py on the card and on the CPU: the same silos,
+    exploit and stop flags and conflicts, mean losses within 1e-5."""
+    import dataclasses
+
+    from repro_torch.launch import train
+
+    get = train.get_arch
+    monkeypatch.setattr(train, "get_arch", lambda name, reduced=False: dataclasses.replace(
+        get(name, reduced=reduced), dtype="float32"))
+    argv = ["--mode", "pretrain", "--arch", "recurrentgemma-2b", "--silos", "4",
+            "--participants", "2", "--rounds", "2", "--local-steps", "1", "--batch", "2",
+            "--seq", "32"]
+    hist = {dev: train.run_pretrain_mode(train.build_parser().parse_args(argv + ["--device", dev]))
+            ["history"] for dev in ("cuda", "cpu")}
+    assert len(hist["cuda"]) == len(hist["cpu"]) == 2
+    for a, b in zip(hist["cuda"], hist["cpu"]):
+        keys = ("round", "silos", "exploit", "stopped", "conflicts")
+        assert [a[k] for k in keys] == [b[k] for k in keys]
+        assert abs(a["mean_loss"] - b["mean_loss"]) <= TRAIN_RTOL * abs(b["mean_loss"])
+
+
+def test_hybrid_lora_rounds_gpu_match_cpu(cuda):
+    """LoRA FLrce over the hybrid (the conv's w on every RG-LRU block,
+    attention and MLP projections) on the card and on the CPU: discrete
+    results and ledger equal, round 0's update rows within 1e-5 of each
+    row's max, the FL kernels launched on the card."""
+    from repro_torch.fl import FLrce, run_federated
+    from repro_torch.kernels import ops
+
+    _, _, ds, models = _hybrid_train()
+    dim = models["cpu"].adapter_dim()
+    runs, rows = {}, {}
+    for dev, model in models.items():
+        strategy = FLrce(8, 4, 1, dim=dim, explore_decay=0.5, seed=0)
+        inner, rows[dev] = strategy.post_round, {}
+
+        def post_round(t, w, ids, u, stats, _inner=inner, _rows=rows[dev]):
+            _rows.setdefault("u", u.detach().cpu().clone())
+            return _inner(t, w, ids, u, stats)
+        strategy.post_round = post_round
+        ops.reset_launch_counts()
+        runs[dev] = run_federated(model, ds, strategy, max_rounds=3, learning_rate=0.01,
+                                  batch_size=8, seed=0, torch_device=dev)
+        if dev == "cuda":
+            counts = ops.launch_counts()
+    a, b = runs["cuda"], runs["cpu"]
+    assert counts["cross_gram"] == 2 * a.rounds_run and counts["weighted_aggregate"] == a.rounds_run
+    for ra, rb in zip(a.records, b.records):
+        assert (ra.selected, ra.exploited, ra.stopped) == (rb.selected, rb.exploited, rb.stopped)
+        assert ra.energy_kj == rb.energy_kj and ra.bytes_gb == rb.bytes_gb
+        assert abs(ra.mean_client_loss - rb.mean_client_loss) <= 1e-4
+    ua, ub = rows["cuda"]["u"], rows["cpu"]["u"]
+    assert torch.all((ua - ub).abs().amax(dim=1) <= TRAIN_RTOL * ub.abs().amax(dim=1))
+
+
+def test_hybrid_lora_round_is_captured(cuda):
+    """A LoRA round over the hybrid (per-client autograd through the RG-LRU
+    scan, remat) replays from a captured graph and equals the same body run
+    eagerly on the card bitwise."""
+    from repro_torch.fl.baselines import FedAvg
+    from repro_torch.fl.scan_driver import run_scan_driver
+
+    _, _, ds, models = _hybrid_train()
+    kw = dict(max_rounds=4, learning_rate=0.01, batch_size=8, device="jetson_nano",
+              eval_every=1, seed=0, init_params=None, verbose=False, chunk_rounds=2)
+    graph = run_scan_driver(models["cuda"], ds, FedAvg(8, 4, 1, seed=0), torch_device=cuda,
+                            capture=True, **kw)
+    eager = run_scan_driver(models["cuda"], ds, FedAvg(8, 4, 1, seed=0), torch_device=cuda,
+                            capture=False, **kw)
+    st = graph.driver_stats
+    assert st["captures_chunk"] == st["programs"] >= 1 and st["replays"] == 4
+    assert st["host_syncs"] == st["chunks"]
+    for ra, rb in zip(graph.records, eager.records):
+        assert (ra.selected, ra.accuracy, ra.mean_client_loss) == \
+               (rb.selected, rb.accuracy, rb.mean_client_loss)
+    for k in graph.final_params:
+        assert torch.equal(graph.final_params[k], eager.final_params[k])
+
+
+def _xlstm(layers=9):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import TransformerLM
+
+    cfg = dataclasses.replace(get_arch("xlstm-1.3b", reduced=True), num_layers=layers,
+                              dtype="float32")
+    return cfg, TransformerLM(cfg)
+
+
+def test_xlstm_decode_on_the_card_matches_cpu(cuda):
+    """9 fp32 xLSTM layers (7 mLSTM, an sLSTM, an mLSTM) teacher-forced over
+    20 positions on the card and on the CPU: logits within 1e-4 of
+    max|logit|, greedy tokens equal, the states updated in place, and no
+    kernel of the port launched (xLSTM has no attention)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_serve_step
+
+    cfg, model = _xlstm()
+    params = model.init(0, "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (4, 20), generator=torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        serve, p = build_serve_step(model), _to(params, dev)
+        cache = model.init_cache(4, 20, dev)
+        held = [dict(c) for c in cache]
+        ops.reset_launch_counts()
+        out = []
+        for pos in range(20):
+            nxt, logits, cache = serve(p, tokens[:, pos:pos + 1].to(dev), cache, pos)
+            out.append((nxt.cpu(), logits.cpu()))
+        assert all(c[k] is h[k] for c, h in zip(cache, held) for k in h)
+        assert not any(ops.launch_counts().values())
+        runs[dev] = out
+    for (ta, la), (tb, lb) in zip(runs["cuda"], runs["cpu"]):
+        assert float((la - lb).abs().max()) <= 1e-4 * float(lb.abs().max())
+        assert torch.equal(ta, tb)
+
+
+def test_xlstm_forward_on_the_card_matches_cpu(cuda):
+    """The chunkwise mLSTM (a whole chunk of 256 and a padded one) and the
+    sLSTM loop over 300 positions: logits within 1e-4 of max|logit|."""
+    cfg, model = _xlstm()
+    params = model.init(0, "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 300), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = model.forward(params, {"tokens": tokens})
+        got = model.forward(_to(params, cuda), {"tokens": tokens.to(cuda)}).cpu()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_xlstm_serve_cli_case_on_the_card_matches_cpu(cuda):
+    """The reference CLI's serve case (``--arch xlstm-1.3b --batch 2
+    --prompt-len 4 --gen 4``, reduced, fp32) through ``generate``: the card's
+    tokens equal the CPU's."""
+    import numpy as np
+
+    from repro_torch.launch.serve import generate
+
+    cfg, model = _xlstm(layers=2)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 4)))
+    want = generate(model, model.init(0, "cpu"), prompt, 4, 8)
+    got = generate(model, model.init(0, cuda), prompt.to(cuda), 4, 8)
+    assert torch.equal(got.cpu(), want)

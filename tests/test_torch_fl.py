@@ -251,14 +251,6 @@ def _jax_block_from_r(ids, u, w, v, a, last, t, om):
     return jrel.rows_from_relationship_dots(ids, dots, last, t, om)
 
 
-def _torch_block_expanded(ids, u, w, v, a, last, t, om):
-    """Eq. 5/6 rows from the reference's nine dot groups, in fp32."""
-    uw, vw, aw = u @ w, v @ w, a @ w
-    vv, av, aa, ww = (v * v).sum(1), (a * v).sum(1), (a * a).sum(1), w @ w
-    dots = (u @ v.T, uw[:, None] - u @ a.T, vv, vw - av, ww - 2.0 * aw + aa)
-    return trel.rows_from_relationship_dots(ids, dots, last, t, om)
-
-
 def _torch_block_f64(ids, u, w, v, a, last, t, om):
     """Eq. 5/6 rows with every dot in float64 (returned in float32)."""
     u, w, v, a = u.double(), w.double(), v.double(), a.double()
@@ -274,10 +266,10 @@ def test_eq6_from_r_against_reference_and_float64(lr, monkeypatch):
     float64, the port's (r = w − a first) within 2e-5.  The port makes the
     selections, exploit flags and stop round of the reference run with Eq. 6
     from r (Ω within 5e-5) and of its own run with Eq. 6 in float64.  At lr
-    0.08 the reference's own run makes them too; at lr 1e-3 the anchors sit
-    closer to w, and the reference's rounding changes its selections: the
-    port with the expanded form, which rounds in another order, does not
-    make them either, but the float64 ones."""
+    0.08 the reference's own run makes them too.  At lr 1e-3 the anchors sit
+    closer to w, and the picks of the expanded form hang on near-ties: the
+    reference's own run and a torch copy of the expanded form, which rounds
+    in another order, may each pick other clients, so neither is asserted."""
     jm, tm = jcnn.MLPClassifier(24, 10, (48, 32)), tcnn.MLPClassifier(24, 10, (48, 32))
     init = jm.init(jax.random.PRNGKey(0))
     tinit = params_from_jax(jax.device_get(init), tm, "cpu")
@@ -307,12 +299,10 @@ def test_eq6_from_r_against_reference_and_float64(lr, monkeypatch):
     with monkeypatch.context() as mp:
         mp.setattr(trel, "relationship_block", spy)
         tres = trun(tm, _quickstart(tdata), tstrat, init_params=tinit, torch_device="cpu", **run)
-    other = {}
-    for label, block in (("f64", _torch_block_f64), ("expanded", _torch_block_expanded)):
-        with monkeypatch.context() as mp:
-            mp.setattr(trel, "relationship_block", block)
-            other[label] = trun(tm, _quickstart(tdata), TFLrce(**kw), init_params=tinit,
-                                torch_device="cpu", **run)
+    with monkeypatch.context() as mp:
+        mp.setattr(trel, "relationship_block", _torch_block_f64)
+        f64 = trun(tm, _quickstart(tdata), TFLrce(**kw), init_params=tinit, torch_device="cpu",
+                   **run)
 
     expanded_err, r_err = (max(e) for e in zip(*errors))
     assert expanded_err >= 1e-3 and r_err <= 2e-5, (expanded_err, r_err)
@@ -320,9 +310,10 @@ def test_eq6_from_r_against_reference_and_float64(lr, monkeypatch):
     np.testing.assert_allclose(tstrat.server.state.omega.numpy(),
                                np.asarray(jstrat.server.state.omega), rtol=0, atol=5e-5)
     flags = lambda res: [(r.selected, r.exploited, r.stopped) for r in res.records]
-    assert flags(other["f64"]) == flags(other["expanded"]) == flags(tres)
+    assert flags(f64) == flags(jres_r) == flags(tres)
     assert any(r.exploited for r in tres.records)
-    assert (flags(jres) == flags(tres)) == (lr == 0.08)
+    if lr == 0.08:
+        assert flags(jres) == flags(tres)
 
 
 # ---------------------------------------------------------------------------

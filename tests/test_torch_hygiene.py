@@ -1,6 +1,7 @@
 """The port stands alone: no JAX and nothing of the reference package at
 run time, and no silent CPU fallback when CUDA is asked for."""
 import ast
+import math
 import os
 import subprocess
 import sys
@@ -190,30 +191,40 @@ def test_training_entry_points_default_to_cuda():
 
 
 def test_training_entry_points_refuse_rglru_models():
-    """RG-LRU training waits for a later slice: LMClassifier, LoRAClassifier
-    (over any base that carries such a config) and launch/train.py's
-    pretrain mode raise NotImplementedError naming the ROADMAP item, while
-    TransformerLM runs the hybrid's forward and loss."""
+    """RG-LRU training is ported (the name is this test's from when the
+    entry points refused it): LMClassifier, LoRAClassifier and launch/
+    train.py's pretrain mode run recurrentgemma-2b on the CPU, while xLSTM
+    training waits for a later slice and each of them raises
+    NotImplementedError naming its ROADMAP item."""
     import types
 
     from repro_torch.configs import get_arch
     from repro_torch.launch import train
-    from repro_torch.models import LMClassifier, LoRAClassifier, TransformerLM
+    from repro_torch.models import LMClassifier, LoRAClassifier
 
     cfg = get_arch("recurrentgemma-2b", reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7.2"):
-        LMClassifier(cfg, seq_len=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7.2"):
-        LoRAClassifier(types.SimpleNamespace(cfg=cfg, name="lm"), {}, rank=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7.2"):
-        train.main(["--mode", "pretrain", "--arch", "recurrentgemma-2b", "--device", "cpu",
-                    "--rounds", "1"])
-    model = TransformerLM(cfg)
+    model = LMClassifier(cfg, seq_len=6)
     params = model.init(0, "cpu")
-    tokens = torch.randint(0, cfg.vocab_size, (2, 6), generator=torch.Generator().manual_seed(0))
-    with torch.no_grad():
-        loss = model.loss(params, {"tokens": tokens, "labels": tokens})
-    assert bool(torch.isfinite(loss))
+    lora = LoRAClassifier(model, params, rank=2)
+    x = torch.randint(0, cfg.vocab_size, (2, 6), generator=torch.Generator().manual_seed(0))
+    adapters = {k: v.requires_grad_(True) for k, v in lora.init(0, "cpu").items()}
+    loss = lora.loss(adapters, x.float(), x[:, 0])
+    grads = torch.autograd.grad(loss, list(adapters.values()))
+    assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
+    out = train.run_pretrain_mode(train.build_parser().parse_args(
+        ["--mode", "pretrain", "--arch", "recurrentgemma-2b", "--device", "cpu", "--rounds", "1",
+         "--silos", "2", "--participants", "1", "--local-steps", "1", "--batch", "1",
+         "--seq", "8"]))
+    assert out["rounds"] == 1 and math.isfinite(out["final_loss"])
+
+    xl = get_arch("xlstm-1.3b", reduced=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7.7"):
+        LMClassifier(xl, seq_len=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7.7"):
+        LoRAClassifier(types.SimpleNamespace(cfg=xl, name="lm"), {}, rank=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7.7"):
+        train.main(["--mode", "pretrain", "--arch", "xlstm-1.3b", "--device", "cpu",
+                    "--rounds", "1"])
 
 
 def test_lora_example_defaults_to_cuda():

@@ -34,7 +34,8 @@ from repro_torch.models import LMClassifier, LoRAClassifier, TransformerLM  # no
 from repro_torch.models import transformer as ttransformer  # noqa: E402
 from repro_torch.models.rglru import decay_init  # noqa: E402
 
-ARCHS = ["gemma3-4b", "recurrentgemma-2b", "qwen1.5-4b", "minitron-4b", "deepseek-7b"]
+ARCHS = ["gemma3-4b", "recurrentgemma-2b", "qwen1.5-4b", "minitron-4b", "deepseek-7b",
+         "xlstm-1.3b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -87,13 +88,16 @@ def test_reduced_lm_init_is_the_references(arch, seed):
 
 # 8 layers past the scanned cycles: gemma3's 6-position pattern leaves 2 rest
 # layers; recurrentgemma's 3-position pattern (10 heads over one KV head, as
-# tests/test_torch_lm.py builds it) 2 RG-LRU rest layers; and the small
-# recurrentgemma family of tests/test_torch_rglru.py (d_model 32, Λ at 48)
+# tests/test_torch_lm.py builds it) 2 RG-LRU rest layers; the small
+# recurrentgemma family of tests/test_torch_rglru.py (d_model 32, Λ at 48);
+# and 9 xLSTM layers, so that the reduced width has an sLSTM block
 EIGHT = {
     "gemma3-8": ("gemma3-4b", dict(num_layers=8, window=8)),
     "recurrentgemma-8": ("recurrentgemma-2b", dict(num_layers=8, num_heads=10, num_kv_heads=1,
                                                    window=8)),
     "recurrentgemma-d32": ("recurrentgemma-2b", dict(d_model=32, num_layers=8)),
+    # xLSTM: a cycle of 7 mLSTM and 1 sLSTM block, and one mLSTM rest layer
+    "xlstm-9": ("xlstm-1.3b", dict(num_layers=9)),
 }
 
 

@@ -18,12 +18,16 @@ from repro import configs as jconfigs  # noqa: E402
 from repro import optim as joptim  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
+from repro.core.distributed import flatten_pytree  # noqa: E402
+from repro.models import LMClassifier as JaxLMC  # noqa: E402
 from repro.models.transformer import TransformerLM as JaxLM  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import optim as toptim  # noqa: E402
-from repro_torch.convert import lm_params_from_jax, lm_params_to_jax  # noqa: E402
+from repro_torch.convert import lm_flat_from_jax, lm_params_from_jax, lm_params_to_jax  # noqa: E402
+from repro_torch.core.distributed import flatten_params  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import LMClassifier  # noqa: E402
 from repro_torch.models.transformer import TransformerLM  # noqa: E402
 
 ATTN_RTOL = 1e-6        # |Δ| / max|out|: one fp32 online softmax, reordered sums
@@ -31,6 +35,7 @@ LOGIT_RTOL = 1e-5       # |Δ| / max|logit|
 LOSS_RTOL = 1e-5        # relative
 GRAD_RTOL = 1e-5        # |Δ| / max|g| per leaf
 DENSE_ARCHS = ["gemma3-4b", "qwen1.5-4b", "minitron-4b", "deepseek-7b"]
+TRAIN_ARCHS = DENSE_ARCHS + ["recurrentgemma-2b"]      # and the RG-LRU hybrid
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -49,7 +54,7 @@ def _configs(arch, **kw):
     """reduce_config(arch) in fp32 with 3 layers (window 4 where it has
     one), in both packages."""
     jcfg = jconfigs.reduce_config(jconfigs.get_arch(arch))
-    kw = dict(dtype="float32", num_layers=3, **kw)
+    kw = dict(dict(dtype="float32", num_layers=3), **kw)
     if jcfg.window:
         kw["window"] = 4
     return (dataclasses.replace(jcfg, **kw),
@@ -113,10 +118,11 @@ def test_chunked_attention_keeps_bf16_inputs_dtype():
 
 
 # --- the model -------------------------------------------------------------------
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_hidden_forward_loss_and_every_gradient_match(arch):
-    """Reduced fp32 configs, 3 layers, a loss chunk of 8 over 13 positions
-    (the last chunk padded with -1 labels), one label -1."""
+    """Reduced fp32 configs, 3 layers (recurrentgemma-2b: one cycle of two
+    RG-LRU blocks and a local attention layer), a loss chunk of 8 over 13
+    positions (the last chunk padded with -1 labels), one label -1."""
     jm, jp, tm, tp = _models(arch, loss_chunk=8)
     jb, tb = _batch(tm.cfg.vocab_size)
     hj, _ = jm.hidden(jp, jb)
@@ -150,6 +156,58 @@ def test_remat_changes_no_gradient():
         leaves = [t.detach().requires_grad_(True) for t in jax.tree_util.tree_leaves(tp)]
         tree = jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(tp), leaves)
         out.append(torch.autograd.grad(model.loss(tree, tb), leaves))
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _hybrid_models(remat):
+    """recurrentgemma-2b reduced to 5 fp32 layers, window 4: a scanned
+    cycle (RG-LRU, RG-LRU, local attention) and two RG-LRU rest blocks, the
+    reference's ``LMClassifier`` and the port's with ``remat`` on or off."""
+    jcfg, tcfg = _configs("recurrentgemma-2b", num_layers=5)
+    jm, tm = JaxLMC(jcfg, seq_len=13, remat=remat), LMClassifier(tcfg, seq_len=13, remat=remat)
+    jp = jm.init(jax.random.PRNGKey(0))
+    return jm, jp, tm, lm_flat_from_jax(tcfg, _np_tree(jp), "cpu")
+
+
+@pytest.mark.parametrize("remat", [True, False], ids=["remat", "no-remat"])
+def test_hybrid_lm_classifier_loss_and_every_gradient_match(remat):
+    """LMClassifier on the RG-LRU hybrid, against the reference's, with
+    remat on and off in both: the flat vector is the reference's leaf for
+    leaf (names, shapes and order), the loss within 1e-5 relative, every
+    gradient leaf within 1e-5 of its max."""
+    jm, jp, tm, tp = _hybrid_models(remat)
+    jflat, _ = flatten_pytree(jp)
+    assert flatten_params(tp)[0].numpy().tobytes() == np.asarray(jflat).tobytes()
+    names = [jax.tree_util.keystr(k) for k, _ in jax.tree_util.tree_flatten_with_path(jp)[0]]
+    assert len(names) == len(tp) and any(".rest." in n for n in tp)
+    for name, (path, leaf) in zip(tp, jax.tree_util.tree_flatten_with_path(jp)[0]):
+        assert tuple(tp[name].shape) == leaf.shape
+        assert [str(getattr(k, "key", getattr(k, "idx", k))) for k in path] == name.split(".")
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, tm.cfg.vocab_size, size=(3, 13)).astype(np.float32)
+    y = rng.integers(0, tm.cfg.vocab_size, size=(3,)).astype(np.int32)
+    loss_j, grads_j = jax.value_and_grad(jm.loss)(jp, jnp.asarray(x), jnp.asarray(y))
+    live = {k: v.detach().requires_grad_(True) for k, v in tp.items()}
+    loss_t = tm.loss(live, torch.from_numpy(x), torch.from_numpy(y))
+    assert abs(float(loss_t.detach()) - float(loss_j)) <= LOSS_RTOL * abs(float(loss_j))
+    grads = torch.autograd.grad(loss_t, list(live.values()))
+    gj = jax.tree_util.tree_leaves(grads_j)
+    assert len(gj) == len(grads)
+    for name, a, b in zip(live, gj, grads):
+        assert _rel(a, b.numpy()) <= GRAD_RTOL, name
+
+
+def test_hybrid_remat_changes_no_gradient():
+    """remat on the RG-LRU hybrid (each block recomputed, the scan included)
+    changes no gradient: equal bitwise to the run without it."""
+    out = []
+    for remat in (True, False):
+        _, _, tm, tp = _hybrid_models(remat)
+        live = {k: v.detach().requires_grad_(True) for k, v in tp.items()}
+        x = torch.from_numpy(np.random.default_rng(4).integers(0, tm.cfg.vocab_size, size=(2, 13))
+                             .astype(np.float32))
+        out.append(torch.autograd.grad(tm.loss(live, x, x[:, 0].long()), list(live.values())))
     for a, b in zip(*out):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 

@@ -4,6 +4,8 @@ param-subset gate, no-target error), and against the JAX package on the
 CPU: ``init`` bitwise, ``merge``, the sorted adapter order at more than ten
 pattern positions, and FedAvg/FLrce federations over an MLP and over an LM
 base (fp32 and bf16)."""
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -13,6 +15,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from equivalence import assert_runs_equivalent  # noqa: E402
+from repro import configs as jconfigs  # noqa: E402
 from repro.configs.base import ATTN_GLOBAL, ATTN_LOCAL  # noqa: E402
 from repro.configs.base import ArchConfig as JaxArch  # noqa: E402
 from repro.core.distributed import flatten_pytree  # noqa: E402
@@ -25,6 +28,7 @@ from repro.models import LMClassifier as JaxLMC  # noqa: E402
 from repro.models import LoRAClassifier as JaxLoRA  # noqa: E402
 from repro.models.cnn import MLPClassifier as JaxMLP  # noqa: E402
 from repro.models.cnn import PaperCNN as JaxCNN  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.convert import (  # noqa: E402
     lm_flat_from_jax, lm_flat_to_jax, lora_from_jax, lora_to_jax, params_to_jax,
@@ -72,6 +76,15 @@ def _flat_j(tree):
     return np.asarray(flatten_pytree(tree)[0])
 
 
+def _hybrid_cfgs(**kw):
+    """reduce_config(recurrentgemma-2b) in fp32 in both packages, by default
+    with 3 layers: one cycle of two RG-LRU blocks and a local attention
+    layer (window 4)."""
+    kw = dict(dict(dtype="float32", num_layers=3, window=4), **kw)
+    return (dataclasses.replace(jconfigs.get_arch("recurrentgemma-2b", reduced=True), **kw),
+            dataclasses.replace(tconfigs.get_arch("recurrentgemma-2b", reduced=True), **kw))
+
+
 # --- the five contracts of tests/test_lora.py ------------------------------------------
 def test_exact_mode_merges_to_full_matrix_run(base):
     ds, model, params = base
@@ -101,15 +114,16 @@ def test_ledger_charges_true_adapter_bytes(base):
     assert ada.ledger.energy_j == full.ledger.energy_j
 
 
-@pytest.mark.parametrize("which", ["mlp", "lm"])
+@pytest.mark.parametrize("which", ["mlp", "lm", "hybrid"])
 def test_lora_scan_matches_loop(base, which):
     if which == "mlp":
         ds, model, params = base
     else:
-        model = LMClassifier(ArchConfig(**LM), seq_len=SEQ)
+        cfg = ArchConfig(**LM) if which == "lm" else _hybrid_cfgs()[1]
+        model = LMClassifier(cfg, seq_len=SEQ)
         params = model.init(0, "cpu")
         ds = make_federated_lm(num_clients=M, samples_per_client=16, seq_len=SEQ,
-                               vocab_size=VOCAB, num_eval=32, seed=0)
+                               vocab_size=cfg.vocab_size, num_eval=32, seed=0)
     lora = LoRAClassifier(model, params, rank=2)
     loo = run_federated(lora, ds, FedAvg(M, P, EPOCHS, seed=0), **CPU, **KW)
     scn = run_federated(lora, ds, FedAvg(M, P, EPOCHS, seed=0), driver="scan",
@@ -248,3 +262,87 @@ def test_lm_lora_flrce_matches_reference(dtype):
         np.testing.assert_allclose(flatten_params(tr.final_params)[0].numpy(),
                                    _flat_j(jr.final_params), rtol=0, atol=1e-5)
     assert [r.selected for r in tr.records] == [[1, 2, 4, 6], [3, 4, 5, 7], [0, 1, 3, 5]]
+
+
+# --- the RG-LRU hybrid (recurrentgemma-2b) -----------------------------------------------
+RG_FULL_D = 3_258_656       # rank-8 adapters on recurrentgemma-2b's 11 stacked target leaves
+RG_REDUCED_D = 3_104        # decoder/rest/{0,1}/mixer/conv/w, (4, 384) each, at rank 4
+
+
+def _plan(lora):
+    """(path, kind, shape) of every base leaf, the port's names as the
+    reference's '/' paths."""
+    return [(name.replace(".", "/"), kind, shape) for name, kind, shape in lora._plan]
+
+
+@pytest.mark.parametrize("layers", [2, 5])
+def test_hybrid_lora_plan_init_and_merge_are_the_references(layers):
+    """The reduced hybrid (2 layers: two RG-LRU rest blocks; 5: a cycle and
+    two rest blocks) at rank 8: the plan equals the reference's leaf for
+    leaf (names, shapes, target or frozen), so on every RG-LRU block only
+    the conv's ``w`` is adapted, at rank min(8, 4) = 4; ``adapter_dim``,
+    ``init`` (bitwise) and ``merge`` equal the reference's."""
+    jcfg, tcfg = _hybrid_cfgs(num_layers=layers)
+    jm, tm = JaxLMC(jcfg, seq_len=SEQ), LMClassifier(tcfg, seq_len=SEQ)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = lm_flat_from_jax(tcfg, _np(jp), "cpu")
+    jl, tl = JaxLoRA(jm, jp, rank=8), LoRAClassifier(tm, tp, rank=8)
+    assert _plan(tl) == jl._plan
+    targets = [name for name, kind, _ in tl._plan if kind == "target"]
+    rglru_targets = [n for n in targets if ".mixer." in n and "conv" in n]
+    assert all(n.endswith("mixer.conv.w") for n in rglru_targets)
+    assert not any(n.split(".")[-1] in ("w_up", "w_gate", "w_a", "w_x", "w_down") for n in targets)
+    assert tl.adapter_dim() == jl.adapter_dim()
+    if layers == 2:
+        assert targets == ["decoder.rest.0.mixer.conv.w", "decoder.rest.1.mixer.conv.w"]
+        assert tl.adapter_dim() == RG_REDUCED_D == 2 * 4 * (4 + 384)
+    ja, ta = jl.init(jax.random.PRNGKey(2)), tl.init(2, "cpu")
+    np.testing.assert_array_equal(flatten_params(ta)[0].numpy(), _flat_j(ja))
+    rng = np.random.default_rng(3)
+    ja = jax.tree_util.tree_map(lambda a: a + 0.1 * rng.normal(size=a.shape).astype(np.float32),
+                                _np(ja))
+    want = jl.merge(jax.tree_util.tree_map(jnp.asarray, ja))
+    got = lm_flat_to_jax(tcfg, tl.merge(lora_from_jax(tl, ja, "cpu")))
+    for a, b in zip(jax.tree_util.tree_leaves(want), jax.tree_util.tree_leaves(got)):
+        np.testing.assert_allclose(b, np.asarray(a), rtol=1e-6, atol=1e-7)
+
+
+def test_full_width_hybrid_adapter_dim_from_shapes():
+    """recurrentgemma-2b at full width, from shapes alone (``jax.eval_shape``
+    of the reference's init; the port's plan over meta tensors, nothing
+    allocated): 11 stacked target leaves, D = 3,258,656 at rank 8."""
+    jcfg = jconfigs.get_arch("recurrentgemma-2b")
+    tcfg = tconfigs.get_arch("recurrentgemma-2b")
+    shapes = jax.eval_shape(JaxLMC(jcfg, seq_len=128).init, jax.random.PRNGKey(0))
+    meta = {".".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path):
+            torch.empty(leaf.shape, device="meta")
+            for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    lora = LoRAClassifier(LMClassifier(tcfg, seq_len=128), meta, rank=8)
+    targets = [(name, shape) for name, kind, shape in lora._plan if kind == "target"]
+    assert len(targets) == 11
+    assert ("decoder.cycles.0.mixer.conv.w", (8, 4, 3840)) in targets
+    assert ("decoder.rest.1.mixer.conv.w", (4, 3840)) in targets
+    assert lora.adapter_dim() == RG_FULL_D
+
+
+def test_hybrid_lora_flrce_matches_reference():
+    """FLrce over the hybrid's adapters (3 fp32 layers, rank 4), the loop
+    driver and the batched engine: the same selections, exploit flags, stops
+    and ledger, accuracy within 2e-3, losses within 1e-4, final adapters
+    within 1e-5."""
+    jcfg, tcfg = _hybrid_cfgs()
+    jm, tm = JaxLMC(jcfg, seq_len=SEQ), LMClassifier(tcfg, seq_len=SEQ)
+    jp = jm.init(jax.random.PRNGKey(0))
+    jl = JaxLoRA(jm, jp, rank=4)
+    tl = LoRAClassifier(tm, lm_flat_from_jax(tcfg, _np(jp), "cpu"), rank=4)
+    dim = tl.adapter_dim()
+    kw = dict(num_clients=8, samples_per_client=16, seq_len=SEQ, vocab_size=tcfg.vocab_size,
+              num_eval=32, seed=0)
+    run = dict(max_rounds=3, learning_rate=0.05, batch_size=8, seed=0)
+    jr = jrun(jl, jax_make_lm(**kw), JFLrce(8, 4, 1, dim=dim, explore_decay=0.5, seed=0), **run)
+    tr = run_federated(tl, make_federated_lm(**kw),
+                       FLrce(8, 4, 1, dim=dim, explore_decay=0.5, seed=0), **CPU, **run)
+    assert_runs_equivalent(jr, tr, bitwise=False)
+    assert any(r.exploited for r in tr.records)
+    np.testing.assert_allclose(flatten_params(tr.final_params)[0].numpy(),
+                               _flat_j(jr.final_params), rtol=0, atol=1e-5)

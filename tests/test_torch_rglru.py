@@ -133,7 +133,12 @@ def test_apply_rglru_matches_the_references_associative_scan(s):
 
 def test_rglru_decode_sequence_matches_reference():
     """24 decode steps, the cache carried by each package its own way (the
-    port's in place)."""
+    port's in place).  ``h`` and ``conv_tail`` are held to the reference's
+    within STEP_RTOL of their max: the tail holds ``x_t @ w_up``, an fp32
+    product that XLA and PyTorch sum in other orders (on one CPU 87 of 432
+    elements differed, by at most 4.77e-7, 8.3e-6 relative).  What is exact
+    is held bitwise: after each step the port's tail is the last
+    CONV_WIDTH − 1 rows of its own ``x_t @ w_up``, shifted in place."""
     jcfg, tcfg = _cfgs()
     jp, tp = _params(jcfg, 7)
     b = 3
@@ -141,15 +146,19 @@ def test_rglru_decode_sequence_matches_reference():
     jc = jrglru.init_rglru_cache(jcfg, b, jnp.float32)
     tc = trglru.init_rglru_cache(tcfg, b, torch.float32, torch.device("cpu"))
     h, tail = tc["h"], tc["conv_tail"]
+    rows = [torch.zeros_like(tail[:, :1])] * (trglru.CONV_WIDTH - 1)
     step = jax.jit(lambda p, x, c: jrglru.rglru_decode_step(p, x, c, jcfg))
     for x in xs:
         want, jc = step(jp, jnp.asarray(x), jc)
         got, tc = trglru.rglru_decode_step(tp, torch.from_numpy(x), tc, tcfg)
+        rows = rows[1:] + [torch.from_numpy(x) @ tp["w_up"]]
         assert _rel(got, want) <= STEP_RTOL
         assert tc["h"] is h and tc["conv_tail"] is tail                # updated in place
-        np.testing.assert_allclose(h.numpy(), np.asarray(jc["h"]), rtol=STEP_RTOL,
-                                   atol=STEP_RTOL * float(np.abs(np.asarray(jc["h"])).max()))
-        np.testing.assert_array_equal(tail.numpy(), np.asarray(jc["conv_tail"]))
+        for mine, theirs in ((h, jc["h"]), (tail, jc["conv_tail"])):
+            theirs = np.asarray(theirs)
+            np.testing.assert_allclose(mine.numpy(), theirs, rtol=STEP_RTOL,
+                                       atol=STEP_RTOL * float(np.abs(theirs).max()))
+        assert torch.equal(tail, torch.cat(rows, dim=1))
 
 
 def test_rglru_bf16_decode_keeps_dtypes():
@@ -191,3 +200,66 @@ def test_rglru_decay_bounded():
     out = trglru.apply_rglru(p, torch.ones((1, 500, 16)), cfg)
     assert bool(torch.isfinite(out).all())
     assert float(out.abs().max()) < 1e3
+
+
+# --- gradients (training) --------------------------------------------------------
+GRAD_RTOL = 1e-5        # |Δ| / max|g| per leaf (PERF.md §2): the scans combine in other trees
+
+
+def _leaf_rel(got: torch.Tensor, want) -> float:
+    want = np.asarray(want, np.float32)
+    return float(np.abs(got.numpy() - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+@pytest.mark.parametrize("s", [1, 5, 33])
+def test_apply_rglru_gradients_match_jax_grad(s):
+    """Every gradient leaf of the block (w_up, w_gate, w_a, w_x, b_a, b_x,
+    lam, w_down and the conv's w and b) and the input's, of ⟨out, g⟩ for a
+    random cotangent g, against ``jax.grad`` of the reference in fp32.
+
+    The sqrt(1 − a²) floor at 1e-12 splits its gradient at an exact tie in
+    the reference (``jnp.maximum``: half to each side) but not in the port
+    (``torch.clamp``).  No input reaches the tie: e = exp(2·log a) is a
+    float32 of [0, 1] (log a ≤ 0), so 1 − e is 0 or at least 2⁻²⁴ (exact
+    for e ≥ 0.5, above 0.5 below it), never f32(1e-12); at 0 neither
+    package passes a gradient."""
+    jcfg, tcfg = _cfgs()
+    jp, tp = _params(jcfg, s + 20)
+    rng = np.random.default_rng(s + 21)
+    x = rng.normal(size=(2, s, jcfg.d_model)).astype(np.float32)
+    ct = rng.normal(size=(2, s, jcfg.d_model)).astype(np.float32)
+
+    def jloss(p, xx):
+        return jnp.sum(jrglru.apply_rglru(p, xx, jcfg) * ct)
+
+    want_p, want_x = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(x))
+    leaves = _flatten(tp)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    loss = torch.sum(trglru.apply_rglru(tp, xt, tcfg) * torch.from_numpy(ct))
+    grads = torch.autograd.grad(loss, [*leaves.values(), xt])
+    want = _flatten(want_p)
+    assert sorted(want) == sorted(leaves) and len(want) == 10
+    for (name, _), g in zip(leaves.items(), grads):
+        assert _leaf_rel(g, want[name]) <= GRAD_RTOL, (name, _leaf_rel(g, want[name]))
+    assert _leaf_rel(grads[-1], want_x) <= GRAD_RTOL
+
+
+@pytest.mark.parametrize("s", [1, 5, 33])
+def test_scan_gradients_with_an_incoming_state_match_jax_grad(s):
+    """``_scan_rglru`` from a nonzero h0: the gradients of log a, the gated
+    input and h0 against the reference's ``associative_scan``."""
+    rng = np.random.default_rng(s)
+    log_a = -np.abs(rng.normal(size=(2, s, 12))).astype(np.float32)
+    x_in = rng.normal(size=(2, s, 12)).astype(np.float32)
+    h0 = rng.normal(size=(2, 12)).astype(np.float32)
+    ct = rng.normal(size=(2, s, 12)).astype(np.float32)
+    args = (log_a, x_in, h0)
+    want = jax.grad(lambda *a: jnp.sum(jrglru._scan_rglru(*a) * ct), argnums=(0, 1, 2))(
+        *map(jnp.asarray, args))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    out = trglru._scan_rglru(*ts)
+    assert _leaf_rel(out.detach(), jrglru._scan_rglru(*map(jnp.asarray, args))) <= SCAN_RTOL
+    for g, w in zip(torch.autograd.grad(torch.sum(out * torch.from_numpy(ct)), ts), want):
+        assert _leaf_rel(g, w) <= GRAD_RTOL

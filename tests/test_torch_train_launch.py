@@ -77,3 +77,39 @@ def test_train_cli_pretrain_mode_matches_reference(monkeypatch, capsys):
                (b["round"], b["silos"], b["exploit"], b["stopped"])
         assert b["mean_loss"] == pytest.approx(a["mean_loss"], abs=1e-4)
         assert b["conflicts"] == a["conflicts"]
+
+
+def test_train_cli_pretrain_mode_on_the_rglru_hybrid_matches_reference(monkeypatch, capsys):
+    """The reference's CLI case of ``tests/test_launch_cli.py`` (``--mode
+    pretrain --arch recurrentgemma-2b --silos 4 --participants 2 --rounds 2
+    --local-steps 1 --batch 2 --seq 32``) through both packages' pretrain
+    mode, on the reduced config in fp32 from the same weights: the same
+    silos, exploit and stop flags and conflicts, each round's mean loss
+    within 1e-5 relative."""
+    from repro import configs as jconfigs
+    from repro.models.transformer import TransformerLM as JaxLM
+    from repro_torch import configs as tconfigs
+
+    def fp32(get):
+        return lambda name, reduced=False: dataclasses.replace(get(name, reduced=reduced),
+                                                               dtype="float32")
+
+    monkeypatch.setattr(jtrain, "get_arch", fp32(jconfigs.get_arch))
+    monkeypatch.setattr(ttrain, "get_arch", fp32(tconfigs.get_arch))
+    cli = dict(mode="pretrain", arch="recurrentgemma-2b", silos=4, participants=2, rounds=2,
+               local_steps=1, batch=2, seq=32)
+    jtrain.run_pretrain_mode(_args(**cli))
+    want = [json.loads(line.split(" ", 1)[1]) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("[pretrain] {")]
+    cfg = ttrain.get_arch(cli["arch"], reduced=True)
+    assert set(cfg.layer_kinds()) == {"rglru"}
+    jp = JaxLM(jtrain.get_arch(cli["arch"], reduced=True)).init(jax.random.PRNGKey(0))
+    got = ttrain.run_pretrain_mode(_args(device="cpu", **cli),
+                                   params=lm_params_from_jax(cfg, _np_tree(jp), "cpu"))["history"]
+    out = capsys.readouterr().out
+    assert "[pretrain] recurrentgemma-2b-reduced:" in out and '"mean_loss"' in out
+    assert len(got) == len(want) == cli["rounds"]
+    for a, b in zip(want, got):
+        assert (a["round"], a["silos"], a["exploit"], a["stopped"], a["conflicts"]) == \
+               (b["round"], b["silos"], b["exploit"], b["stopped"], b["conflicts"])
+        assert b["mean_loss"] == pytest.approx(a["mean_loss"], rel=1e-5)
