@@ -2,6 +2,14 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 2e,2f
+
+With no argument every phase below runs.  ``--phases`` runs only the named
+phases (``PHASES``: 1, 2, 2b, 2c, 2e, 2f, 2d, 3, 4, 4b, 5, 5b, 6, 6b, 7,
+7b, 8, 8b), after the same build and ptxas gate and with the same checks;
+phases 2b, 2e and 2f then build phase 2's federation without its run, and
+phase 2c needs phase 2.  The kernels line lists the rows of the phases that
+ran.
 
 1. Builds the CUDA kernels from the six sources of
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one
@@ -74,7 +82,7 @@
    rounds against the loop (QuantizedFL bitwise: the chunk draws its
    rounding uniforms with the Threefry kernel from device tensors); then ``benchmarks/common.py``'s quick ``BenchConfig`` (MLP
    16→24→10, M = 30, P = 6, 50 rounds) on the loop driver, the graph and the
-   eager chunks.  Each scan run runs under a device-only ``torch.profiler``
+   eager chunks (the eager chunks for the first 16 rounds).  Each scan run runs under a device-only ``torch.profiler``
    and must show one capture per key, one host sync per chunk (dispatch runs
    under ``set_sync_debug_mode("error")``), each kernel's launches in the
    replays as its round launches it (``gram`` every round), and the
@@ -82,6 +90,21 @@
    rounds'; it
    prints per-round wall, device busy share, capture time, store, page and
    schedule bytes, peak device memory and real against run local steps.
+   2f. Staleness-aware async rounds (``async_rounds=AsyncConfig``) on phase
+   2's federation: FLrce (8 rounds, pipelined), FedAvg (4, pipelined) and
+   Fedprox (4, serial) at ``max_staleness=0``, each bitwise its synchronous
+   scan run (phase 2e's where it ran the same job): records, ledger, final
+   params, FLrce's written-back state, launches; FLrce at ``max_staleness=2``
+   on the synthetic trace for 8 rounds: every departed update arrived or is
+   pending at exit, the ledger charges the departures, the trace delays
+   something, ``gram`` and both ``cross_gram`` launches at the arrival
+   buffer's K = 30 rows; the quick ``BenchConfig`` at ``max_staleness=2`` on
+   the card against the CPU (selections, exploit flags, arrivals by
+   staleness, stop round and ledger equal, accuracy within 2e-3);
+   ``validate_driver_stats`` on every scan run's stats of phases 2e and 2f;
+   then ``weighted_aggregate``, ``cross_gram`` (Q = 100) and ``gram`` at K =
+   30 against their plain versions, timed beside ``torch.addmv`` /
+   ``torch.mm`` and the bound.  The phase prints the seconds predicted for it.
 3. Reference check: small federations (FLrce, Fedcom, QuantizedFL) and
    ``examples/quickstart.py``'s configuration (FLrce with and without early
    stopping, from ``init(0)``) run on the card and on the CPU (the kernels'
@@ -94,9 +117,9 @@
    embedding's last row among them, bitwise the plain version's draw under
    the reference's key; init time printed) through
    ``repro_torch.launch.serve.generate``:
-   8 requests × (1536 prompt + 64 generated) tokens, cache_len 1600, so the
+   8 requests × (1088 prompt + 64 generated) tokens, cache_len 1152, so the
    29 local layers' 1024-slot rings wrap.  ``decode_attention`` must launch
-   34 times per decode step (34 × 1599), with the counts reset just before
+   34 times per decode step (34 × 1151), with the counts reset just before
    and read just after.  Prints prefill and generation wall time, tokens/s,
    per-step wall time and peak memory; then 8 decode steps under
    ``torch.profiler``: device time by kernel and the busy share, with
@@ -128,8 +151,8 @@
    ``run_federated``: ``LMClassifier(cfg, seq_len=128)`` wrapped in
    ``LoRAClassifier(rank=8)`` (D = 14,901,248 over 70 target leaves), 16
    clients of 32 sequences from ``make_federated_lm`` (vocab 262,144) and 64
-   eval sequences; FLrce (P = 4, 4 rounds, lr 0.01, batch 8, batched
-   engine, loop driver), then FedAvg and Fedcom (keep 0.1) for 2 rounds
+   eval sequences; FLrce (P = 4, 3 rounds, lr 0.01, batch 8, batched
+   engine, loop driver), then FedAvg and Fedcom (keep 0.1) for 1 round
    each, every run with the launch counts reset just before and read just
    after.  Checks: (a) at B = 0 the merged model's logits equal the base
    model's bitwise; (b) ``cross_gram``, ``gram``, ``weighted_aggregate`` and
@@ -140,7 +163,7 @@
    host formula at D; (d) the first local step of round 0's cohort on the
    batched engine within the reference's engine tolerance of the
    sequential engine's.  Prints the adapters' and the data's host time,
-   per-round wall, peak memory, and from 2 profiled rounds the device time
+   per-round wall, peak memory, and from a profiled round the device time
    by group (LoRA merges, chunked attention, cross-entropy, projection
    GEMMs, FL kernels, H2D) and the device's busy share.
    6b. A reduced gemma3 config on the card against the CPU: LoRA FLrce over
@@ -154,9 +177,9 @@
    as in phase 4b) as phase 6 runs gemma3-4b: ``LoRAClassifier(rank=8)``
    adapts the attention layers' and MLPs' projections and every RG-LRU
    block's conv ``w`` (D = 3,258,656 over 11 stacked target leaves), the
-   same federation at vocab 256,000, FLrce 4 rounds, FedAvg and Fedcom 2
+   same federation at vocab 256,000, FLrce 3 rounds, FedAvg and Fedcom 1
    each, checks (a) to (d), the four FL kernels at the phase's operands,
-   and a 2-round profile by group (RG-LRU blocks among them).
+   and a 1-round profile by group (RG-LRU blocks among them).
    7b. recurrentgemma-2b's training on the card against the CPU in fp32:
    the reference CLI's pretrain case (``--silos 4 --participants 2 --rounds
    2 --local-steps 1 --batch 2 --seq 32``, reduced): silos, exploit and stop
@@ -169,7 +192,7 @@
 8. Serving xlstm-1.3b at full width (48 layers: 42 mLSTM, 6 sLSTM; the
    tree ``init`` builds holds 2,119,586,128 parameters, bf16 with fp32
    gate weights and biases; seed 0's weights drawn and checked as in phase
-   4, the sLSTM's recurrent matrices included): 8 requests × (512 prompt +
+   4, the sLSTM's recurrent matrices included): 8 requests × (128 prompt +
    64 generated) tokens through ``generate``, the same serving numbers as
    phase 4, the state's bytes (the mLSTM matrix memories are (8, 4, 1024,
    1024) fp32 a layer), 8 steps under ``torch.profiler`` by group and the
@@ -203,7 +226,9 @@ layer with phase 4b's launches, the two Threefry kernels at their phase 1
 shapes with phase 2b's QuantizedFL and phase 4's init launches, then the
 four FL kernels at phase 6's as ``<name>@gemma3-4b-lora``, with phase 6's
 launches, and at phase 7's as ``<name>@recurrentgemma-2b-lora``, with phase
-7's), after the seconds of each phase and the total; the last line is
+7's, and at phase 2f's async round as ``<name>@async``, with its FLrce
+run's wrapper launches: the warm-up round's and the capture's), after the
+seconds of each phase and the total; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the exit code is
 non-zero and no result line is printed.  Exits 1 when CUDA is absent or the
 port's sources are not beside this file.  Imports nothing of JAX.
@@ -240,6 +265,9 @@ THREEFRY_INT_OPS = 43
 # enough (about 0.3 ms) that the host has queued the timed call before the
 # card reaches it, on a slow host too
 L2_FLUSH_BYTES = 1 << 30
+# the phases, in the order they run; ``--phases`` picks some of them
+PHASES = ("1", "2", "2b", "2c", "2e", "2f", "2d", "3", "4", "4b", "5", "5b", "6", "6b", "7", "7b",
+          "8", "8b")
 # measurement modes: they print no result line
 MODES = ("--decode-variants", "--kernel-variants", "--time-kernels", "--numerics",
          "--xlstm-gap")
@@ -670,13 +698,12 @@ def launch_plans(torch, kgram, ktopk, u) -> None:
         fail(f"gram at P={u.shape[0]}: kernels {kernels}, want one {GRAM_KERNEL}")
 
 
-def main_path(torch) -> dict:
+def cifar_federation(torch) -> tuple:
+    """Phase 2's federation: the paper's CIFAR-10 model (``init(0)`` on the
+    card) and 100 clients of ``make_image_like``: ``(ds, model, params)``."""
     from repro_torch.data import make_image_like
-    from repro_torch.fl import FLrce, run_federated
-    from repro_torch.kernels import ops
     from repro_torch.models import PaperCNN
 
-    t0 = time.perf_counter()
     ds = make_image_like(num_clients=100, alpha=0.1, num_samples=40_000, num_eval=4_000,
                          side=32, channels=3, num_classes=10, seed=0)
     model = PaperCNN(side=32, channels=3, num_classes=10, num_fc=3)
@@ -684,6 +711,16 @@ def main_path(torch) -> dict:
     dim = sum(p.numel() for p in params.values())
     if dim != D_MAIN:
         fail(f"PaperCNN CIFAR flat dim {dim} != {D_MAIN}")
+    return ds, model, params
+
+
+def main_path(torch) -> dict:
+    from repro_torch.fl import FLrce, run_federated
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    ds, model, params = cifar_federation(torch)
+    dim = D_MAIN
     strategy = FLrce(100, 10, local_epochs=2, dim=dim, es_threshold=5.0, explore_decay=0.5, seed=0)
     u0 = capture_round0(strategy)
     ingest_s: list = []
@@ -1259,10 +1296,16 @@ def scan_run(torch, label, ds, model, params, make, rounds, **kw):
     """One driver="scan" job under a device-only torch.profiler, checked: one
     capture per key, one host sync per chunk, each kernel launched in the
     replays as the strategy's round launches it, the profiler's kernel
-    counts at least the replays' and at most those plus the warm-up rounds'."""
+    counts at least the replays' and at most those plus the warm-up rounds'.
+    A ``gram`` that ran as the cross kernel (an async job's (B·P, D) arrival
+    buffer above 16 rows), as its wrapper tells, is counted there by the
+    profiler.  Returns ``(result, strategy, (launches, profiled))``: the
+    wrappers' launch counts, reset just before the run and read just after,
+    and the profiler's counts of the kernels' device runs."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.fl import run_federated
+    from repro_torch.kernels import gram as gram_kernels
     from repro_torch.kernels import ops
 
     gc.collect()
@@ -1277,6 +1320,8 @@ def scan_run(torch, label, ds, model, params, make, rounds, **kw):
                             torch_device="cuda", **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    via_cross = gram_kernels.GRAM_VIA_CROSS
     peak = torch.cuda.max_memory_allocated()
     busy_us, n_activities, prof_counts = device_busy(prof)
     st = res.driver_stats
@@ -1294,8 +1339,17 @@ def scan_run(torch, label, ds, model, params, make, rounds, **kw):
         fail(f"{label}: {st['host_syncs']} host syncs in {st['chunks']} chunks")
     # the profiler sees each replayed kernel; one of the warm-up round's
     # eager launches has been seen missing from its records
+    if via_cross not in (0, launches["gram"]):
+        fail(f"{label}: {via_cross} of {launches['gram']} gram launches took the cross kernel")
+    routed = {}
+    for key in ("replay_launches", "warmup_launches"):
+        routed[key] = dict(st[key])
+        if via_cross:
+            routed[key]["cross_gram"] += routed[key]["gram"]
+            routed[key]["gram"] = 0
     for k in PROFILED_KERNEL:
-        lo, hi = st["replay_launches"][k], st["replay_launches"][k] + st["warmup_launches"][k]
+        lo = routed["replay_launches"][k]
+        hi = lo + routed["warmup_launches"][k]
         if not lo <= prof_counts[k] <= hi:
             fail(f"{label}: the profiler counted {prof_counts[k]} {PROFILED_KERNEL[k]} launches; "
                  f"the replays launched {lo}, and the warm-up rounds {hi - lo}")
@@ -1311,20 +1365,22 @@ def scan_run(torch, label, ds, model, params, make, rounds, **kw):
           f"(warm-up round "
           f"and capture) {st['capture_s']:.3f} s, build and dispatch {st['host_build_s']:.3f} s, device wait {st['device_wait_s']:.3f} s, flush "
           f"{st['host_flush_s']:.3f} s; launches in the replays {st['replay_launches']}, "
-          f"in the warm-up rounds {st['warmup_launches']}, by the profiler {prof_counts}")
+          f"in the warm-up rounds {st['warmup_launches']}, by the profiler {prof_counts}"
+          + (" (gram ran as the cross kernel: the profiler counts it under cross_gram)"
+             if via_cross else ""))
     print(f"  {label}: store {st['store_bytes_device'] / 2**30:.2f} GiB on the device, "
           f"{st['store_bytes_host'] / 2**30:.2f} GiB on the host; H2D page "
           f"{st['page_bytes_h2d'] / 2**20:.1f} MiB, schedules {st['schedule_bytes_host'] / 2**20:.1f} "
           f"MiB, all staged {st['h2d_bytes'] / 2**20:.1f} MiB; peak device memory "
           f"{peak / 2**30:.2f} GiB; local steps per round real/run "
           + ", ".join(f"{a}/{b}" for a, b in steps))
-    return res, strategy
+    return res, strategy, (launches, prof_counts)
 
 
-def compare_scan(label, loop, scan, torch, bitwise: bool = False) -> None:
-    """A scan run against the loop run from the same params: discrete
-    results and ledger equal, accuracy within 2e-3; with ``bitwise``,
-    accuracies, losses and final params equal."""
+def compare_scan(label, loop, scan, torch, bitwise: bool = False, against: str = "loop") -> None:
+    """A scan run against the loop run (or another ``against`` run) from the
+    same params: discrete results and ledger equal, accuracy within 2e-3;
+    with ``bitwise``, accuracies, losses and final params equal."""
     if (loop.rounds_run, loop.stopped_early) != (scan.rounds_run, scan.stopped_early):
         fail(f"{label}: loop ran {loop.rounds_run} rounds (stop {loop.stopped_early}), scan "
              f"{scan.rounds_run} (stop {scan.stopped_early})")
@@ -1339,23 +1395,24 @@ def compare_scan(label, loop, scan, torch, bitwise: bool = False) -> None:
             fail(f"{label} round {a.t}: non-finite accuracy/loss")
     if acc_gap > 2e-3:
         fail(f"{label}: accuracy {acc_gap:.2e} from the loop's")
-    param_gap = max(float((loop.final_params[k] - scan.final_params[k]).abs().max())
-                    for k in loop.final_params)
+    param_gap = max(float((loop.final_params[k] - scan.final_params[k].to(
+        loop.final_params[k].device)).abs().max()) for k in loop.final_params)
     if bitwise and (acc_gap or loss_gap or any(
             not torch.equal(loop.final_params[k], scan.final_params[k])
             for k in loop.final_params)):
-        fail(f"{label}: not bitwise the loop (accuracy {acc_gap:.2e}, loss {loss_gap:.2e}, "
-             f"params {param_gap:.3e})")
-    print(f"  {label} == loop over {scan.rounds_run} rounds: selections "
+        fail(f"{label}: not bitwise the {against} (accuracy {acc_gap:.2e}, loss "
+             f"{loss_gap:.2e}, params {param_gap:.3e})")
+    print(f"  {label} == {against} over {scan.rounds_run} rounds: selections "
           f"{[r.selected for r in scan.records][:3]}..., exploited "
           f"{[r.exploited for r in scan.records]}; max |Δ| accuracy {acc_gap:.2e}, loss "
           f"{loss_gap:.2e}, final params {param_gap:.3e}")
 
 
-def scan_phase(torch, ds, model, params) -> None:
+def scan_phase(torch, ds, model, params) -> dict:
     """Phase 2e: FLrce through driver="scan" in four configurations, then
     FedAvg and Fedcom, each against the loop driver from the same params;
-    then the quick BenchConfig federation on both drivers."""
+    then the quick BenchConfig federation on both drivers.  Returns its scan
+    runs by label, ``(result, strategy)``."""
     from repro_torch.fl import FLrce, baselines, run_federated
 
     def flrce(**kw):
@@ -1369,24 +1426,29 @@ def scan_phase(torch, ds, model, params) -> None:
     torch.cuda.synchronize()
     print(f"  loop FLrce: {loop.rounds_run} rounds in {time.perf_counter() - t0:.2f} s; per-round "
           "wall " + ", ".join(f"{r.wall_s:.3f}" for r in loop.records) + " s")
-    graph = None
+    graph, done = None, {}
     for label, kw in (("resident pipelined", dict(client_store="resident", pipeline=True)),
                       ("resident serial", dict(client_store="resident", pipeline=False)),
                       ("paged", dict(client_store="paged"))):
-        res, _ = scan_run(torch, f"FLrce {label}", ds, model, params, flrce(), SCAN_ROUNDS,
-                          scan_chunk_rounds=SCAN_CHUNK, **kw)
+        res, strat, _ = scan_run(torch, f"FLrce {label}", ds, model, params, flrce(),
+                                 SCAN_ROUNDS, scan_chunk_rounds=SCAN_CHUNK, **kw)
         compare_scan(f"FLrce {label}", loop, res, torch)
+        done[f"FLrce {label}"] = (res, strat)
         graph = graph or res
-    eager_chunks(torch, "FLrce resident pipelined", graph, model, ds, flrce()(), SCAN_ROUNDS,
-                 MAIN_LR, params, SCAN_CHUNK)
+    strat = flrce()()
+    done["FLrce resident pipelined eager"] = (
+        eager_chunks(torch, "FLrce resident pipelined", graph, model, ds, strat, SCAN_ROUNDS,
+                     MAIN_LR, params, SCAN_CHUNK), strat)
     # a 40-client candidate set: selection within the proposal, so the loop
     # cannot be its yardstick; the paged run must equal the resident one
     # bitwise, and pick only proposed clients
     runs = {}
     for store in ("paged", "resident"):
-        runs[store], strat = scan_run(torch, f"FLrce candidates_per_chunk=40 {store}", ds, model,
-                                      params, flrce(candidates_per_chunk=40), SCAN_ROUNDS,
-                                      scan_chunk_rounds=SCAN_CHUNK, client_store=store)
+        runs[store], strat, _ = scan_run(torch, f"FLrce candidates_per_chunk=40 {store}", ds,
+                                         model, params, flrce(candidates_per_chunk=40),
+                                         SCAN_ROUNDS, scan_chunk_rounds=SCAN_CHUNK,
+                                         client_store=store)
+        done[f"FLrce candidates_per_chunk=40 {store}"] = (runs[store], strat)
     a, b = runs["paged"], runs["resident"]
     for ra, rb in zip(a.records, b.records):
         if (ra.selected, ra.exploited, ra.stopped, ra.accuracy, ra.mean_client_loss) != \
@@ -1404,16 +1466,19 @@ def scan_phase(torch, ds, model, params) -> None:
         loop = run_federated(model, ds, make(), max_rounds=4, **loop_kw)
         print(f"  loop {name}: per-round wall " + ", ".join(f"{r.wall_s:.3f}" for r in loop.records)
               + " s")
-        res, _ = scan_run(torch, f"{name} resident", ds, model, params, make, 4,
-                          scan_chunk_rounds=SCAN_CHUNK)
+        res, strat, _ = scan_run(torch, f"{name} resident", ds, model, params, make, 4,
+                                 scan_chunk_rounds=SCAN_CHUNK)
         # QuantizedFL: the chunk draws the loop's uniforms on the card
         compare_scan(name, loop, res, torch, bitwise=name == "QuantizedFL")
-    quick_bench(torch)
+        done[f"{name} resident"] = (res, strat)
+    done["quick BenchConfig scan"] = quick_bench(torch)
+    return done
 
 
-def eager_chunks(torch, label, graph, model, ds, strategy, rounds, lr, params, chunk) -> None:
+def eager_chunks(torch, label, graph, model, ds, strategy, rounds, lr, params, chunk):
     """The same scan job with the round body run eagerly on the card (no
-    capture): what the graph saves, and its results equal bitwise."""
+    capture): what the graph saves, and its results equal bitwise.  Returns
+    the eager run."""
     from repro_torch.fl.scan_driver import run_scan_driver
 
     t0 = time.perf_counter()
@@ -1437,14 +1502,14 @@ def eager_chunks(torch, label, graph, model, ds, strategy, rounds, lr, params, c
                                                              eager.records)
           + f" s; build and dispatch {st['host_build_s']:.3f} s, device wait "
           f"{st['device_wait_s']:.3f} s, host syncs {st['host_syncs']}")
+    return eager
 
 
-def quick_bench(torch) -> None:
-    """``benchmarks/common.py`` ``BenchConfig`` at its quick scale (MLP
-    16→24→10, M = 30, P = 6, T = 50, FLrce ψ = 3.3): the dispatch-bound
-    regime, on both drivers."""
+def quick_federation():
+    """``benchmarks/common.py`` ``BenchConfig`` at its quick scale: (dataset,
+    MLP 16→24→10, its D, a maker of its FLrce(M = 30, P = 6, ψ = 3.3))."""
     from repro_torch.data import make_federated_classification
-    from repro_torch.fl import FLrce, run_federated
+    from repro_torch.fl import FLrce
     from repro_torch.models import MLPClassifier
 
     ds = make_federated_classification(num_clients=30, alpha=0.1, num_samples=12_000,
@@ -1452,12 +1517,23 @@ def quick_bench(torch) -> None:
                                        harmful_fraction=0.2, seed=0)
     model = MLPClassifier(16, 10, (24,))
     dim = sum(p.numel() for p in model.init(0, "cpu").values())
-    runs = {}
+    return ds, model, dim, lambda: FLrce(30, 6, 2, dim=dim, es_threshold=3.3,
+                                         explore_decay=0.95, seed=0)
+
+
+def quick_bench(torch) -> tuple:
+    """``benchmarks/common.py`` ``BenchConfig`` at its quick scale (MLP
+    16→24→10, M = 30, P = 6, T = 50, FLrce ψ = 3.3): the dispatch-bound
+    regime, on both drivers.  Returns the scan run and its strategy."""
+    from repro_torch.fl import run_federated
+
+    ds, model, dim, make = quick_federation()
+    runs, strategies = {}, {}
     for label, kw in (("loop", {}), ("scan", dict(driver="scan", scan_chunk_rounds=8))):
         t0 = time.perf_counter()
-        runs[label] = run_federated(model, ds, FLrce(30, 6, 2, dim=dim, es_threshold=3.3,
-                                                     explore_decay=0.95, seed=0),
-                                    max_rounds=50, learning_rate=0.1, batch_size=32, seed=0,
+        strategies[label] = make()
+        runs[label] = run_federated(model, ds, strategies[label], max_rounds=50,
+                                    learning_rate=0.1, batch_size=32, seed=0,
                                     torch_device="cuda", **kw)
         torch.cuda.synchronize()
         res = runs[label]
@@ -1467,22 +1543,205 @@ def quick_bench(torch) -> None:
               f"{1e3 * steady[len(steady) // 2]:.2f} ms, stopped early {res.stopped_early}, final "
               f"accuracy {res.final_accuracy:.4f}")
     compare_scan("quick BenchConfig", runs["loop"], runs["scan"], torch)
-    eager_chunks(torch, "quick BenchConfig", runs["scan"], model, ds,
-                 FLrce(30, 6, 2, dim=dim, es_threshold=3.3, explore_decay=0.95, seed=0), 50, 0.1,
-                 None, 8)
+    eager = eager_chunks(torch, "quick BenchConfig", runs["scan"], model, ds, make(), 50, 0.1,
+                         None, 8)
+    if not eager.driver_stats["captures_total"] == 0:
+        fail("quick BenchConfig eager chunks: a capture was made")
     st = runs["scan"].driver_stats
     print(f"  quick BenchConfig scan: {st['chunks']} chunks, {st['captures_chunk']} captures, "
           f"{st['host_syncs']} host syncs, local steps per round real/run "
           + ", ".join(f"{a}/{b}" for a, b in st["steps"][:8]) + " ...")
+    return runs["scan"], strategies["scan"]
+
+
+# ---------------------------------------------------------------------------
+# phase 2f: staleness-aware async rounds (async_rounds=AsyncConfig) in the
+# compiled driver
+# ---------------------------------------------------------------------------
+ASYNC_S, ASYNC_ROUNDS = 2, 8
+# the phase's seconds, predicted before its first run on the card (PERF.md §6)
+PHASE_2F_PREDICTED_S = (50, 90)
+
+
+def same_server(label, a, b, torch) -> None:
+    """FLrce's written-back state of two runs, bitwise."""
+    sa, sb = a.server.state, b.server.state
+    for field in ("omega", "heuristic", "updates", "anchors", "last_round"):
+        if not torch.equal(getattr(sa, field), getattr(sb, field)):
+            fail(f"{label}: the written-back {field} differs")
+    if (sa.t, sa.stopped, sa.stop_round, sa.last_conflicts) != \
+            (sb.t, sb.stopped, sb.stop_round, sb.last_conflicts):
+        fail(f"{label}: the written-back round, stop or conflicts differ")
+
+
+def departure_ledger(label, model, ds, res, strategy) -> None:
+    """The ledger's charges recomputed on the host from every departed
+    cohort, in the driver's order: an async run charges at departure."""
+    from repro_torch.fl.metrics import ResourceLedger
+
+    want, sizes = ResourceLedger(), ds.client_sizes()
+    for rec in res.records:
+        for cid in rec.selected:
+            cfg = strategy.client_config(rec.t, cid, None)
+            want.charge_training(model.flops_per_sample() * int(sizes[cid]) * cfg.epochs
+                                 * cfg.compute_fraction)
+            want.charge_download(D_MAIN, cfg.download_fraction)
+            want.charge_upload(D_MAIN, cfg.upload_fraction)
+    got = res.ledger
+    if (got.energy_j, got.bytes_up, got.bytes_down) != \
+            (want.energy_j, want.bytes_up, want.bytes_down):
+        fail(f"{label}: ledger {got.summary()} != the departures' charges {want.summary()}")
+
+
+def check_arrivals(label, res, s: int) -> None:
+    """Every departed update arrived or is pending at exit, and the ledger's
+    histogram holds every arrival at a staleness in [0, S]."""
+    st, hist = res.driver_stats, res.ledger.arrivals_by_staleness
+    departures = sum(len(r.selected) for r in res.records)
+    if st["async_arrivals"] + st["async_pending_at_exit"] != departures:
+        fail(f"{label}: {st['async_arrivals']} arrived + {st['async_pending_at_exit']} pending "
+             f"!= {departures} departed")
+    if sum(hist.values()) != st["async_arrivals"] or not all(0 <= tau <= s for tau in hist):
+        fail(f"{label}: arrivals by staleness {hist} against {st['async_arrivals']} arrivals")
+
+
+def async_phase(torch, timer, bandwidth, ds, model, params, scan_runs) -> tuple:
+    """Phase 2f: FLrce, FedAvg and Fedprox at max_staleness=0, bitwise their
+    synchronous scan runs (phase 2e's where it ran them); FLrce at S = 2 on
+    the synthetic trace; the quick BenchConfig at S = 2 on the card against
+    the CPU; every scan run's stats against the schema; then the three
+    kernels of the async round at its K = (S+1)·P = 30 rows.  Returns the
+    kernel rows and the S = 2 run's wrapper launch counts."""
+    from repro_torch.core.distributed import flatten_params
+    from repro_torch.fl import AsyncConfig, FLrce, baselines, run_federated, staleness_weights
+    from repro_torch.fl.async_rounds import default_decay
+    from repro_torch.fl.stats_schema import validate_driver_stats
+
+    t_phase = time.perf_counter()
+    print(f"  predicted before its first run: {PHASE_2F_PREDICTED_S[0]}-"
+          f"{PHASE_2F_PREDICTED_S[1]} s")
+
+    def flrce():
+        return FLrce(100, 10, local_epochs=2, dim=D_MAIN, es_threshold=5.0, explore_decay=0.5,
+                     seed=0)
+
+    stats = [(label, res.driver_stats) for label, (res, _) in scan_runs.items()]
+    for label, make, rounds, pipeline in (
+            ("FLrce resident pipelined", flrce, SCAN_ROUNDS, True),
+            ("FedAvg resident", lambda: baselines.FedAvg(100, 10, 2, seed=0), 4, True),
+            ("Fedprox resident serial", lambda: baselines.Fedprox(100, 10, 2, seed=0), 4, False)):
+        kw = dict(scan_chunk_rounds=SCAN_CHUNK, pipeline=pipeline)
+        if label in scan_runs:
+            sync, sync_strat = scan_runs[label]          # phase 2e's run of this job
+        else:
+            sync, sync_strat, _ = scan_run(torch, f"{label} sync", ds, model, params, make,
+                                           rounds, **kw)
+            stats.append((f"{label} sync", sync.driver_stats))
+        asy, strat, _ = scan_run(torch, f"{label} async S=0", ds, model, params, make, rounds,
+                                 async_rounds=AsyncConfig(max_staleness=0), **kw)
+        stats.append((f"{label} async S=0", asy.driver_stats))
+        compare_scan(f"{label} async S=0", sync, asy, torch, bitwise=True,
+                     against="synchronous scan run")
+        if isinstance(strat, FLrce):
+            same_server(f"{label} async S=0", sync_strat, strat, torch)
+        st = asy.driver_stats
+        if (st["async_pending_at_exit"], st["async_arrivals"], asy.ledger.arrivals_by_staleness) \
+                != (0, 10 * asy.rounds_run, {0: 10 * asy.rounds_run}):
+            fail(f"{label} async S=0: arrivals {asy.ledger.arrivals_by_staleness}, pending "
+                 f"{st['async_pending_at_exit']}")
+        if st["replay_launches"] != sync.driver_stats["replay_launches"]:
+            fail(f"{label} async S=0: launches {st['replay_launches']} against the synchronous "
+                 f"{sync.driver_stats['replay_launches']}")
+
+    s2_cfg = AsyncConfig(max_staleness=ASYNC_S)
+    label = f"FLrce async S={ASYNC_S}"
+    res, strat, (launches, profiled) = scan_run(torch, label, ds, model, params, flrce,
+                                                ASYNC_ROUNDS, scan_chunk_rounds=SCAN_CHUNK,
+                                                async_rounds=s2_cfg)
+    stats.append((label, res.driver_stats))
+    check_arrivals(label, res, ASYNC_S)
+    departure_ledger(label, model, ds, res, strat)
+    hist = res.ledger.arrivals_by_staleness
+    if not any(tau > 0 for tau in hist):
+        fail(f"{label}: the synthetic trace delayed nothing ({hist})")
+    for r in res.records:
+        if not (math.isfinite(r.accuracy) and math.isfinite(r.mean_client_loss)) \
+                or len(set(r.selected)) != 10:
+            fail(f"{label} round {r.t}: non-finite accuracy/loss or bad selection {r.selected}")
+    # the wrappers launch each kernel in the warm-up round and record it in
+    # the capture; the replays run what was captured without the wrappers
+    st = res.driver_stats
+    for k in ("cross_gram", "gram", "weighted_aggregate"):
+        if launches[k] != 2 * st["warmup_launches"][k] or st["replay_launches"][k] == 0:
+            fail(f"{label}: the {k} wrapper launched {launches[k]} times (warm-up and capture: "
+                 f"{2 * st['warmup_launches'][k]}), {st['replay_launches'][k]} in the replays")
+    sync = scan_runs.get("FLrce resident pipelined", (None,))[0]
+    print(f"  {label}: arrivals by staleness {dict(sorted(hist.items()))}, pending at exit "
+          f"{res.driver_stats['async_pending_at_exit']}, exploited "
+          f"{[r.exploited for r in res.records]}; accuracy "
+          + ", ".join(f"{r.accuracy:.4f}" for r in res.records)
+          + ("" if sync is None else " (synchronous " + ", ".join(
+              f"{r.accuracy:.4f}" for r in sync.records) + ")")
+          + f"; wrapper launches (the kernels line's) {launches}; device runs by the profiler "
+          f"{profiled}: gram at K = {(ASYNC_S + 1) * 10} runs as the cross kernel, so its "
+          "runs are counted under cross_gram")
+
+    # the quick BenchConfig at S = 2: the card against the CPU
+    qds, qmodel, _, qmake = quick_federation()
+    init = qmodel.init(0, "cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs[dev] = run_federated(qmodel, qds, qmake(), max_rounds=50, learning_rate=0.1,
+                                  batch_size=32, seed=0, init_params=init, driver="scan",
+                                  scan_chunk_rounds=8, async_rounds=s2_cfg, torch_device=dev)
+        print(f"  quick BenchConfig async S={ASYNC_S} on the {dev}: {runs[dev].rounds_run} rounds "
+              f"in {time.perf_counter() - t0:.2f} s, stopped early {runs[dev].stopped_early}, "
+              f"arrivals {dict(sorted(runs[dev].ledger.arrivals_by_staleness.items()))}")
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    stats.append((f"quick BenchConfig async S={ASYNC_S}", gpu.driver_stats))
+    compare_scan(f"quick BenchConfig async S={ASYNC_S} card", cpu, gpu, torch, against="CPU")
+    check_arrivals("quick BenchConfig async", gpu, ASYNC_S)
+    if gpu.ledger.arrivals_by_staleness != cpu.ledger.arrivals_by_staleness or any(
+            gpu.driver_stats[k] != cpu.driver_stats[k]
+            for k in ("async_arrivals", "async_pending_at_exit")):
+        fail("quick BenchConfig async: the card's arrivals differ from the CPU's")
+    if (gpu.ledger.energy_j, gpu.ledger.total_bytes) != (cpu.ledger.energy_j,
+                                                         cpu.ledger.total_bytes):
+        fail("quick BenchConfig async: the card's ledger differs from the CPU's")
+
+    for name, st in stats:
+        try:
+            validate_driver_stats(st)
+        except ValueError as err:
+            fail(f"{name}: driver_stats off the schema: {err}")
+    print(f"  validate_driver_stats: the stats of {len(stats)} scan runs ({len(scan_runs)} of "
+          f"phase 2e) match the schema")
+
+    # the async round's three kernels at K = (S+1)·P rows: the last three
+    # cohorts' stored updates, the server's V, the final model, Eq. 4's
+    # staleness weights
+    state = strat.server.state
+    ids = [c for r in res.records[-(ASYNC_S + 1):] for c in r.selected]
+    u = state.updates[torch.tensor(ids, device="cuda")].contiguous()
+    w = flatten_params(res.final_params)[0].contiguous()
+    taus = [tau for tau in range(ASYNC_S, -1, -1) for _ in range(10)]
+    weights = torch.from_numpy(staleness_weights(ds.client_sizes()[ids], taus,
+                                                 default_decay)).to("cuda")
+    rows = fl_kernel_rows(torch, timer, bandwidth, u, state.updates, w, weights, "2f",
+                          topk=False)
+    print(f"  phase 2f wall {time.perf_counter() - t_phase:.1f} s (predicted "
+          f"{PHASE_2F_PREDICTED_S[0]}-{PHASE_2F_PREDICTED_S[1]} s)")
+    return rows, launches
 
 
 # ---------------------------------------------------------------------------
 # decode attention and the serving path (gemma3-4b, recurrentgemma-2b)
 # ---------------------------------------------------------------------------
 # gemma3-4b at serving: 4 KV heads, groups of 2 query heads, head_dim 256
-SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 1536, 64
-SERVE_CACHE = SERVE_PROMPT + SERVE_GEN           # 1600
-SERVE_STEPS = SERVE_PROMPT + SERVE_GEN - 1       # 1599 decode steps
+SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 1088, 64
+SERVE_CACHE = SERVE_PROMPT + SERVE_GEN           # 1152: the 1,024-slot local rings wrap
+SERVE_STEPS = SERVE_PROMPT + SERVE_GEN - 1       # 1151 decode steps
 GEMMA3_LAYERS, GEMMA3_PARAMS = 34, 3_879_907_840
 # recurrentgemma-2b at serving: 18 RG-LRU blocks and 8 local attention layers
 # (2,048-slot rings; 10 query heads over one KV head, head_dim 256)
@@ -1910,7 +2169,7 @@ def rg_last_step_check(torch, cfg, calls) -> None:
 
 def serve_profile(torch, model, params, step_wall_s: float, steps: int = 8) -> None:
     """Device time by kernel over ``steps`` decode steps at the serve run's
-    last positions (1592-1599 tokens in the caches), through the same serve
+    last positions (1144-1151 tokens in the caches), through the same serve
     step on a fresh cache: the same work and bytes as the run's last steps."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2636,6 +2895,10 @@ LORA_D = 14_901_248          # rank-8 adapters on gemma3-4b's 70 target leaves
 RG_LORA_D = 3_258_656        # rank-8 adapters on recurrentgemma-2b's 11 stacked target leaves
 LORA_LR = 0.01
 LORA_KEEP = 0.1              # Fedcom's keep fraction
+# the runs' depth, cut to keep the smoke within its time: FLrce exploits in
+# round 2 (its check needs one exploit round); FedAvg and Fedcom launch
+# their kernels every round
+LORA_ROUNDS, LORA_BASELINE_ROUNDS = 3, 1
 # device time by group in the profiled rounds: a kernel counts for the group
 # of the annotated call that launched it (forward, or its backward through
 # the autograd sequence number, or its recomputation under remat); GEMMs
@@ -2647,7 +2910,7 @@ def lora_phase(torch, timer, bandwidth, arch=LORA_ARCH, want_dim=LORA_D, tag="6"
     """Phase 6 (gemma3-4b) and 7 (recurrentgemma-2b, ``arch``): FLrce, FedAvg
     and Fedcom over rank-8 LoRA adapters on the full-width bf16 model, with
     checks (a) to (d), the kernels at the phase's own operands, and a
-    profile of two rounds."""
+    profile of one round."""
     import numpy as np
 
     from repro_torch.configs import get_arch
@@ -2726,7 +2989,7 @@ def lora_phase(torch, timer, bandwidth, arch=LORA_ARCH, want_dim=LORA_D, tag="6"
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    res = run_federated(lora, ds, strategy, max_rounds=4, learning_rate=LORA_LR,
+    res = run_federated(lora, ds, strategy, max_rounds=LORA_ROUNDS, learning_rate=LORA_LR,
                         batch_size=LORA_BATCH, seed=0, init_params=adapters, verbose=True,
                         torch_device="cuda")
     torch.cuda.synchronize()
@@ -2748,7 +3011,7 @@ def lora_phase(torch, timer, bandwidth, arch=LORA_ARCH, want_dim=LORA_D, tag="6"
     u, w = u0["u"], u0["w"]
     sizes = ds.client_sizes()[res.records[0].selected]
     weights = torch.from_numpy((sizes / sizes.sum()).astype(np.float32)).cuda()
-    rows = lora_kernel_rows(torch, timer, bandwidth, u, state.updates, w, weights, tag)
+    rows = fl_kernel_rows(torch, timer, bandwidth, u, state.updates, w, weights, tag)
 
     # (d) the first local step of round 0's cohort, batched against sequential
     seq, bat = first_step_updates(torch, ds, lora, adapters, res.records[0].selected,
@@ -2769,7 +3032,7 @@ def lora_phase(torch, timer, bandwidth, arch=LORA_ARCH, want_dim=LORA_D, tag="6"
         strat = make()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        r = run_federated(lora, ds, strat, max_rounds=2, learning_rate=LORA_LR,
+        r = run_federated(lora, ds, strat, max_rounds=LORA_BASELINE_ROUNDS, learning_rate=LORA_LR,
                           batch_size=LORA_BATCH, seed=0, init_params=adapters,
                           torch_device="cuda")
         torch.cuda.synchronize()
@@ -2818,11 +3081,11 @@ def lora_checks(label, res, strategy, dim, *, need_exploit: bool) -> None:
             fail(f"{label}: final adapter {name} not finite")
 
 
-def lora_kernel_rows(torch, timer, bandwidth, u, v, w, weights, tag="6") -> dict:
-    """Each of the four FL kernels on phase ``tag``'s operands (round 0's
-    update matrix, the server's V after the run, round 0's model) against
-    its plain version, timed beside the plain version, the PyTorch call and
-    the bound."""
+def fl_kernel_rows(torch, timer, bandwidth, u, v, w, weights, tag="6", topk=True) -> dict:
+    """Each of the four FL kernels (three without ``topk``) on phase
+    ``tag``'s operands (an update matrix, the server's V after the run, a
+    model) against its plain version, timed beside the plain version, the
+    PyTorch call and the bound."""
     from repro_torch.kernels import aggregate as kagg
     from repro_torch.kernels import gram as kgram
     from repro_torch.kernels import topk_mask as ktopk
@@ -2863,19 +3126,24 @@ def lora_kernel_rows(torch, timer, bandwidth, u, v, w, weights, tag="6") -> dict
                      bound_ms=b_ms, bound_by=b_by,
                      library_ms=timer(lambda: torch.addmv(w, u.t(), weights)),
                      shape=f"P={k} D={d}"))
-    check_bitwise(f"topk_mask_rows (phase {tag})", ktopk.topk_mask_rows_cuda(u, keep_frac=LORA_KEEP),
-                  ktopk.topk_mask_rows_plain(u, keep_frac=LORA_KEEP), torch)
-    bd = ktopk.DEFAULT_BLOCK_D
-    padded = torch.nn.functional.pad(u, (0, (-d) % bd)).reshape(-1, bd)
-    b_ms, b_by = bound(4 * (k * d + k * d), k * d)
-    rows.append(dict(name="topk_mask_rows", route="cuda", source=src + "topk_mask.cu",
-                     replaces="src/repro/kernels/topk_mask.py:38", max_abs_err=0.0, rel_err=0.0,
-                     ms=timer(lambda: ktopk.topk_mask_rows_cuda(u, keep_frac=LORA_KEEP)),
-                     plain_ms=timer(lambda: ktopk.topk_mask_rows_plain(u, keep_frac=LORA_KEEP)),
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     route_ms=timer(lambda: topk_route(torch, padded,
-                                                       ktopk.keep_count(LORA_KEEP, bd))),
-                     shape=f"P={k} D={d} ({-(-d // bd)} tiles a row) keep_frac={LORA_KEEP}"))
+    padded = None
+    if topk:
+        check_bitwise(f"topk_mask_rows (phase {tag})",
+                      ktopk.topk_mask_rows_cuda(u, keep_frac=LORA_KEEP),
+                      ktopk.topk_mask_rows_plain(u, keep_frac=LORA_KEEP), torch)
+        bd = ktopk.DEFAULT_BLOCK_D
+        padded = torch.nn.functional.pad(u, (0, (-d) % bd)).reshape(-1, bd)
+        b_ms, b_by = bound(4 * (k * d + k * d), k * d)
+        rows.append(dict(name="topk_mask_rows", route="cuda", source=src + "topk_mask.cu",
+                         replaces="src/repro/kernels/topk_mask.py:38", max_abs_err=0.0,
+                         rel_err=0.0,
+                         ms=timer(lambda: ktopk.topk_mask_rows_cuda(u, keep_frac=LORA_KEEP)),
+                         plain_ms=timer(lambda: ktopk.topk_mask_rows_plain(u,
+                                                                           keep_frac=LORA_KEEP)),
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                         route_ms=timer(lambda: topk_route(torch, padded,
+                                                           ktopk.keep_count(LORA_KEEP, bd))),
+                         shape=f"P={k} D={d} ({-(-d // bd)} tiles a row) keep_frac={LORA_KEEP}"))
     for r in rows:
         lib = (f"library {r['library_ms']:.4f} ms" if r["library_ms"] is not None
                else f"torch.topk+torch.where (two calls) {r['route_ms']:.4f} ms")
@@ -2886,9 +3154,10 @@ def lora_kernel_rows(torch, timer, bandwidth, u, v, w, weights, tag="6") -> dict
     return {r["name"]: r for r in rows}
 
 
-def lora_profile(torch, lora, ds, adapters, dim, main_records, rounds: int = 2) -> None:
-    """Device time by group of the main FLrce run's first two rounds, run
-    again under torch.profiler with the same seed (so the same cohorts), and
+def lora_profile(torch, lora, ds, adapters, dim, main_records, rounds: int = 1) -> None:
+    """Device time by group of the main FLrce run's first ``rounds`` rounds
+    (one: reading a profiled LoRA round's records takes longer than the
+    round), run again under torch.profiler with the same seed (so the same cohorts), and
     the device's busy share of those rounds read two ways: against the
     profiled run's own wall (a lower bound, since the profiler's host
     overhead is in that wall) and against the same rounds' unprofiled walls
@@ -3190,7 +3459,7 @@ def rg_train_reference_check(torch) -> None:
 # phase 8: serving xlstm-1.3b at full width; 8b: xLSTM on the card against the CPU
 # ---------------------------------------------------------------------------
 XL_ARCH = "xlstm-1.3b"
-XL_B, XL_PROMPT, XL_GEN = 8, 512, 64
+XL_B, XL_PROMPT, XL_GEN = 8, 128, 64
 XL_STEPS = XL_PROMPT + XL_GEN - 1
 XL_PARAMS = 2_119_586_128          # the tree init builds
 XL_CONFIG_PARAMS = 1_741_666_304   # ArchConfig.param_count()
@@ -3333,6 +3602,14 @@ def main() -> int:
               file=sys.stderr)
         return 1
     args = sys.argv[1:]
+    selected = set(PHASES)
+    if args[:1] == ["--phases"]:
+        selected = set(args[1].split(",")) if len(args) == 2 else set()
+        if not selected or selected - set(PHASES) or ("2c" in selected and "2" not in selected):
+            print(f"usage: chip_smoke.py --phases P[,P...] with P among {', '.join(PHASES)}; "
+                  "phase 2c compares with phase 2's run and needs it", file=sys.stderr)
+            return 2
+        args = []
     mode = args[0] if args and args[0] in MODES else None
     src = SRC
     if mode == "--time-kernels" and args[1:2] == ["--src"] and len(args) == 3:
@@ -3401,133 +3678,156 @@ def main() -> int:
 
     starts = []
 
-    def phase(header: str) -> None:
-        """Print a phase's header and note when it started."""
-        starts.append((header.split(":")[0].removeprefix("phase "), time.perf_counter()))
-        print(header)
+    def phase(name: str, header: str) -> bool:
+        """Whether phase ``name`` runs; if it does, print its header and note
+        when it started."""
+        if name not in selected:
+            return False
+        starts.append((name, time.perf_counter()))
+        print(f"phase {name}: {header}")
+        return True
 
-    phase("phase 1: kernels against their plain versions")
-    timer = Timer(torch)
-    rows = kernel_phase(torch, timer, bandwidth)
-    decode_rows = decode_kernel_phase(torch, timer, bandwidth)
-    rows["decode_attention"] = decode_rows["global"]
-    rows[f"decode_attention@{RG_ARCH}"] = decode_rows[RG_ROW]
-    rows.update(threefry_phase(torch, timer, bandwidth))
-    del timer
-    torch.cuda.empty_cache()
+    rows, launches, fl_rows = {}, {}, {}
+    if phase("1", "kernels against their plain versions"):
+        timer = Timer(torch)
+        rows = kernel_phase(torch, timer, bandwidth)
+        decode_rows = decode_kernel_phase(torch, timer, bandwidth)
+        rows["decode_attention"] = decode_rows["global"]
+        rows[f"decode_attention@{RG_ARCH}"] = decode_rows[RG_ROW]
+        rows.update(threefry_phase(torch, timer, bandwidth))
+        del timer
+        torch.cuda.empty_cache()
 
-    phase("phase 2: main path, CIFAR-10 PaperCNN, M=100, P=10, 6 FLrce rounds")
-    launches, (ds, model, params, round_wall_s), (main_res, main_u0) = main_path(torch)
-    print("profile: the main path's device time by kernel")
-    profile_phase(torch, ds, model, params, round_wall_s)
+    fed = scan_runs = None
+    if phase("2", "main path, CIFAR-10 PaperCNN, M=100, P=10, 6 FLrce rounds"):
+        launches, (ds, model, params, round_wall_s), (main_res, main_u0) = main_path(torch)
+        fed = (ds, model, params)
+        print("profile: the main path's device time by kernel")
+        profile_phase(torch, ds, model, params, round_wall_s)
+    elif selected & {"2b", "2e", "2f"}:
+        fed = cifar_federation(torch)
 
-    phase("phase 2b: the §4.1 baselines at full width, M=100, P=10")
-    baseline_launches = baselines_phase(torch, ds, model, params)
-    launches["topk_mask_rows"] = baseline_launches["Fedcom"]["topk_mask_rows"]
-    launches["threefry_rounding"] = baseline_launches["QuantizedFL"]["threefry_rounding"]
+    if phase("2b", "the §4.1 baselines at full width, M=100, P=10"):
+        baseline_launches = baselines_phase(torch, *fed)
+        launches["topk_mask_rows"] = baseline_launches["Fedcom"]["topk_mask_rows"]
+        launches["threefry_rounding"] = baseline_launches["QuantizedFL"]["threefry_rounding"]
 
-    phase("phase 2c: the sequential engine at full width, M=100, P=10, 2 FLrce rounds")
-    sequential_phase(torch, ds, model, params, main_res, main_u0)
+    if phase("2c", "the sequential engine at full width, M=100, P=10, 2 FLrce rounds"):
+        sequential_phase(torch, *fed, main_res, main_u0)
 
-    phase(f"phase 2e: the compiled round driver (driver='scan'), CIFAR-10 PaperCNN, M=100, P=10, "
-          f"{SCAN_ROUNDS} FLrce rounds in chunks of {SCAN_CHUNK}, FedAvg, Fedcom and QuantizedFL")
-    scan_phase(torch, ds, model, params)
-    del ds, model, params, main_res, main_u0
+    if phase("2e", f"the compiled round driver (driver='scan'), CIFAR-10 PaperCNN, M=100, "
+                   f"P=10, {SCAN_ROUNDS} FLrce rounds in chunks of {SCAN_CHUNK}, FedAvg, Fedcom "
+                   "and QuantizedFL"):
+        scan_runs = scan_phase(torch, *fed)
+
+    if phase("2f", f"async rounds (async_rounds=AsyncConfig), CIFAR-10 PaperCNN, M=100, P=10: "
+                   f"FLrce, FedAvg and Fedprox at max_staleness=0 against the synchronous scan "
+                   f"runs, FLrce at max_staleness={ASYNC_S} for {ASYNC_ROUNDS} rounds, the quick "
+                   f"BenchConfig at max_staleness={ASYNC_S} card against CPU"):
+        timer = Timer(torch)
+        fl_rows["async"] = async_phase(torch, timer, bandwidth, *fed, scan_runs or {})
+        del timer
+    fed = scan_runs = ds = model = params = main_res = main_u0 = None
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase(f"phase 2d: FLrce at a {FLEET_M}-client fleet, CIFAR-10 PaperCNN, P=10, "
-          f"{FLEET_ROUNDS} rounds: exact maps, va_rows=40 and va_rows=20")
-    timer = Timer(torch)
-    fleet_phase(torch, timer, bandwidth)
-    del timer
-    torch.cuda.empty_cache()
+    if phase("2d", f"FLrce at a {FLEET_M}-client fleet, CIFAR-10 PaperCNN, P=10, "
+                   f"{FLEET_ROUNDS} rounds: exact maps, va_rows=40 and va_rows=20"):
+        timer = Timer(torch)
+        fleet_phase(torch, timer, bandwidth)
+        del timer
+        torch.cuda.empty_cache()
 
-    phase("phase 3: small federations, GPU against CPU")
-    reference_check(torch)
-    torch.cuda.empty_cache()
+    if phase("3", "small federations, GPU against CPU"):
+        reference_check(torch)
+        torch.cuda.empty_cache()
 
-    phase(f"phase 4: serve gemma3-4b at full width, {SERVE_B} requests x ({SERVE_PROMPT} prompt + "
-          f"{SERVE_GEN} generated) tokens")
-    model, params, serve_launches, step_wall_s, _ = serve_phase(
-        torch, "gemma3-4b", SERVE_B, SERVE_PROMPT, SERVE_GEN, GEMMA3_PARAMS, GEMMA3_PARAMS)
-    launches["decode_attention"] = serve_launches["decode_attention"]
-    launches["threefry_normal"] = serve_launches["threefry_normal"]
-    print("profile: device time by kernel of the serve step")
-    serve_profile(torch, model, params, step_wall_s)
-    del model, params
-    torch.cuda.empty_cache()
+    if phase("4", f"serve gemma3-4b at full width, {SERVE_B} requests x ({SERVE_PROMPT} prompt "
+                  f"+ {SERVE_GEN} generated) tokens"):
+        model, params, serve_launches, step_wall_s, _ = serve_phase(
+            torch, "gemma3-4b", SERVE_B, SERVE_PROMPT, SERVE_GEN, GEMMA3_PARAMS, GEMMA3_PARAMS)
+        launches["decode_attention"] = serve_launches["decode_attention"]
+        launches["threefry_normal"] = serve_launches["threefry_normal"]
+        print("profile: device time by kernel of the serve step")
+        serve_profile(torch, model, params, step_wall_s)
+        del model, params
+        torch.cuda.empty_cache()
 
-    phase(f"phase 4b: serve {RG_ARCH} at full width, {RG_B} requests x ({RG_PROMPT} prompt + "
-          f"{RG_GEN} generated) tokens")
-    model, params, rg_launches, rg_step_s, calls = serve_phase(
-        torch, RG_ARCH, RG_B, RG_PROMPT, RG_GEN, RG_PARAMS, RG_CONFIG_PARAMS,
-        keep_calls=RG_ATTN_LAYERS)
-    launches[f"decode_attention@{RG_ARCH}"] = rg_launches["decode_attention"]
-    rg_last_step_check(torch, model.cfg, calls)
-    del calls
-    print(f"profile: device time by group of the {RG_ARCH} serve step")
-    rg_serve_profile(torch, model, params, rg_step_s)
-    del model, params
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"{RG_ARCH} at full width in fp32, {RG_FP32_POSITIONS} positions at B={RG_FP32_B}: "
-          f"decode steps against forward")
-    fp32_decode_check(torch, RG_ARCH, RG_FP32_B, RG_FP32_POSITIONS, RG_FP32_RTOL)
-    gc.collect()
-    torch.cuda.empty_cache()
+    if phase("4b", f"serve {RG_ARCH} at full width, {RG_B} requests x ({RG_PROMPT} prompt + "
+                   f"{RG_GEN} generated) tokens"):
+        model, params, rg_launches, rg_step_s, calls = serve_phase(
+            torch, RG_ARCH, RG_B, RG_PROMPT, RG_GEN, RG_PARAMS, RG_CONFIG_PARAMS,
+            keep_calls=RG_ATTN_LAYERS)
+        launches[f"decode_attention@{RG_ARCH}"] = rg_launches["decode_attention"]
+        rg_last_step_check(torch, model.cfg, calls)
+        del calls
+        print(f"profile: device time by group of the {RG_ARCH} serve step")
+        rg_serve_profile(torch, model, params, rg_step_s)
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{RG_ARCH} at full width in fp32, {RG_FP32_POSITIONS} positions at "
+              f"B={RG_FP32_B}: decode steps against forward")
+        fp32_decode_check(torch, RG_ARCH, RG_FP32_B, RG_FP32_POSITIONS, RG_FP32_RTOL)
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    phase("phase 5: a small gemma3-family model served on the GPU and on the CPU")
-    serve_reference_check(torch, "gemma3-4b")
-    phase(f"phase 5b: a small {RG_ARCH}-family model served on the GPU and on the CPU")
-    serve_reference_check(torch, RG_ARCH)
-    torch.cuda.empty_cache()
+    if phase("5", "a small gemma3-family model served on the GPU and on the CPU"):
+        serve_reference_check(torch, "gemma3-4b")
+    if phase("5b", f"a small {RG_ARCH}-family model served on the GPU and on the CPU"):
+        serve_reference_check(torch, RG_ARCH)
+        torch.cuda.empty_cache()
 
-    phase(f"phase 6: federated LoRA (rank {LORA_RANK}) on {LORA_ARCH} at full width, M={LORA_M}, "
-          f"P={LORA_P}, {LORA_N} sequences of {LORA_SEQ} tokens a client: FLrce, FedAvg, Fedcom")
-    timer = Timer(torch)
-    lora_rows, lora_launches = lora_phase(torch, timer, bandwidth)
-    del timer
-    torch.cuda.empty_cache()
+    if phase("6", f"federated LoRA (rank {LORA_RANK}) on {LORA_ARCH} at full width, M={LORA_M}, "
+                  f"P={LORA_P}, {LORA_N} sequences of {LORA_SEQ} tokens a client: FLrce, "
+                  "FedAvg, Fedcom"):
+        timer = Timer(torch)
+        fl_rows[f"{LORA_ARCH}-lora"] = lora_phase(torch, timer, bandwidth)
+        del timer
+        torch.cuda.empty_cache()
 
-    phase("phase 6b: a reduced gemma3 config, LoRA and full-model federations, GPU against CPU")
-    lora_reference_check(torch)
-    torch.cuda.empty_cache()
+    if phase("6b", "a reduced gemma3 config, LoRA and full-model federations, GPU against CPU"):
+        lora_reference_check(torch)
+        torch.cuda.empty_cache()
 
-    phase(f"phase 7: federated LoRA (rank {LORA_RANK}) on {RG_ARCH} at full width, M={LORA_M}, "
-          f"P={LORA_P}, {LORA_N} sequences of {LORA_SEQ} tokens a client: FLrce, FedAvg, Fedcom")
-    timer = Timer(torch)
-    rg_lora_rows, rg_lora_launches = lora_phase(torch, timer, bandwidth, RG_ARCH, RG_LORA_D, "7")
-    del timer
-    torch.cuda.empty_cache()
+    if phase("7", f"federated LoRA (rank {LORA_RANK}) on {RG_ARCH} at full width, M={LORA_M}, "
+                  f"P={LORA_P}, {LORA_N} sequences of {LORA_SEQ} tokens a client: FLrce, "
+                  "FedAvg, Fedcom"):
+        timer = Timer(torch)
+        fl_rows[f"{RG_ARCH}-lora"] = lora_phase(torch, timer, bandwidth, RG_ARCH, RG_LORA_D, "7")
+        del timer
+        torch.cuda.empty_cache()
 
-    phase(f"phase 7b: {RG_ARCH}'s training, reduced configs in fp32, GPU against CPU")
-    rg_train_reference_check(torch)
-    torch.cuda.empty_cache()
+    if phase("7b", f"{RG_ARCH}'s training, reduced configs in fp32, GPU against CPU"):
+        rg_train_reference_check(torch)
+        torch.cuda.empty_cache()
 
-    phase(f"phase 8: serve {XL_ARCH} at full width, {XL_B} requests x ({XL_PROMPT} prompt + "
-          f"{XL_GEN} generated) tokens")
-    model, params, _, xl_step_s, _ = serve_phase(torch, XL_ARCH, XL_B, XL_PROMPT, XL_GEN,
-                                                 XL_PARAMS, XL_CONFIG_PARAMS)
-    print(f"profile: device time by group of the {XL_ARCH} serve step")
-    xl_serve_profile(torch, model, params, xl_step_s)
-    del model, params
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"{XL_ARCH} at full width in fp32, {XL_FP32_POSITIONS} positions at B={XL_FP32_B}: "
-          f"decode steps against forward")
-    fp32_decode_check(torch, XL_ARCH, XL_FP32_B, XL_FP32_POSITIONS, XL_FP32_RTOL, XL_FAULTS,
-                      XL_FAULT_AT)
-    gc.collect()
-    torch.cuda.empty_cache()
+    if phase("8", f"serve {XL_ARCH} at full width, {XL_B} requests x ({XL_PROMPT} prompt + "
+                  f"{XL_GEN} generated) tokens"):
+        model, params, _, xl_step_s, _ = serve_phase(torch, XL_ARCH, XL_B, XL_PROMPT, XL_GEN,
+                                                     XL_PARAMS, XL_CONFIG_PARAMS)
+        print(f"profile: device time by group of the {XL_ARCH} serve step")
+        xl_serve_profile(torch, model, params, xl_step_s)
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{XL_ARCH} at full width in fp32, {XL_FP32_POSITIONS} positions at "
+              f"B={XL_FP32_B}: decode steps against forward")
+        fp32_decode_check(torch, XL_ARCH, XL_FP32_B, XL_FP32_POSITIONS, XL_FP32_RTOL, XL_FAULTS,
+                          XL_FAULT_AT)
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    phase(f"phase 8b: small {XL_ARCH}-family models served on the GPU and on the CPU")
-    serve_reference_check(torch, XL_ARCH)
-    xl_cli_reference_check(torch)
+    if phase("8b", f"small {XL_ARCH}-family models served on the GPU and on the CPU"):
+        serve_reference_check(torch, XL_ARCH)
+        xl_cli_reference_check(torch)
 
+    # every kernel row of the phases that ran (with no --phases, all of them)
     kernels = []
     for name in ("cross_gram", "gram", "weighted_aggregate", "topk_mask_rows", "decode_attention",
                  f"decode_attention@{RG_ARCH}", "threefry_rounding", "threefry_normal"):
+        if name not in rows or name not in launches:
+            continue
         r = rows[name]
         kernels.append({
             "name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
@@ -3539,12 +3839,16 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
-    for arch, lrows, llaunches in ((LORA_ARCH, lora_rows, lora_launches),
-                                   (RG_ARCH, rg_lora_rows, rg_lora_launches)):
-        for name in ("cross_gram", "gram", "weighted_aggregate", "topk_mask_rows"):
+    # the FL kernels at phase 6's and 7's operands (LoRA), and at phase 2f's
+    # async round, with those runs' launches
+    for tag in (f"{LORA_ARCH}-lora", f"{RG_ARCH}-lora", "async"):
+        if tag not in fl_rows:
+            continue
+        lrows, llaunches = fl_rows[tag]
+        for name in lrows:
             r = lrows[name]
             kernels.append({
-                "name": f"{name}@{arch}-lora", "route": r["route"], "source": r["source"],
+                "name": f"{name}@{tag}", "route": r["route"], "source": r["source"],
                 "replaces": r["replaces"], "launches": llaunches[name],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.distributed import conflict_pairs_from_gram
+from repro_torch.core.distributed import conflict_pairs_from_gram, cossim_from_gram
 from repro_torch.kernels import ops as kops
 
 
@@ -27,6 +27,20 @@ def conflict_pairs(updates: torch.Tensor) -> torch.Tensor:
     """``|{(k, j) : k != j, cossim(u_k, u_j) < 0}|`` for (P, D) updates, as an
     integer-valued fp32 scalar."""
     return conflict_pairs_from_gram(kops.gram(updates.float().contiguous()))
+
+
+def masked_conflict_pairs(updates: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """:func:`conflict_pairs` over the rows where ``valid`` is True: a pair
+    counts only if both of its rows are valid (the async round's arrival
+    buffer, where only the rows landing this round take part in Alg. 3).
+    With ``valid`` all True the mask multiplies by exactly 1.0 and the count
+    is bitwise :func:`conflict_pairs`'s."""
+    gram = kops.gram(updates.float().contiguous())
+    k = gram.shape[0]
+    cos = cossim_from_gram(gram)
+    vm = valid.to(cos.dtype)
+    mask = vm[:, None] * vm[None, :] * (1.0 - torch.eye(k, dtype=cos.dtype, device=cos.device))
+    return torch.sum((cos < 0.0).float() * mask)
 
 
 def decide_from_pairs(pairs, p: int, psi: float) -> ESDecision:

@@ -104,7 +104,7 @@ def relationship_block(
     updates: torch.Tensor,      # (M, D) update map V (rows ids already = u)
     anchors: torch.Tensor,      # (M, D) anchor map A (rows ids already = w_t)
     last_rounds: torch.Tensor,  # (M,) time map R; -1 = never seen
-    t: int,
+    t,                          # the round, or (K,) departure rounds (async)
     omega_rows: torch.Tensor,   # (K, M) previous Ω rows for ids
 ) -> torch.Tensor:
     """Fused Algorithm 1: all K fresh rows of Ω, (K, M).
@@ -154,10 +154,13 @@ def rows_from_relationship_dots(
     ids: torch.Tensor,
     dots: Sequence[torch.Tensor],   # (uv, ur, vv, rq, rr) of relationship_dots
     last_rounds: torch.Tensor,
-    t: int,
+    t,                              # the round (int or () tensor), or (K,) departure rounds
     omega_rows: torch.Tensor,
 ) -> torch.Tensor:
-    """Assemble the K fresh Ω rows from the five inner-product groups."""
+    """Assemble the K fresh Ω rows from the five inner-product groups.
+
+    ``t`` is the round, or for async arrivals a (K,) tensor of each row's
+    departure round, against which that row's Eq. 5/6 freshness is judged."""
     uv, ur, vv, rq, rr = dots
     k = uv.shape[0]
     arange_k = torch.arange(k, device=uv.device)
@@ -174,8 +177,14 @@ def rows_from_relationship_dots(
     )
 
     seen = last_rounds >= 0
-    fresh = last_rounds >= (t - 1)
-    rows = torch.where(fresh[None, :], sync, asyncr)
+    if isinstance(t, torch.Tensor) and t.dim() == 1:
+        # async arrivals: row k's stored peers are judged fresh against the
+        # round row k's own update left, ``t[k]``
+        fresh = last_rounds[None, :] >= (t[:, None] - 1)
+        rows = torch.where(fresh, sync, asyncr)
+    else:
+        fresh = last_rounds >= (t - 1)
+        rows = torch.where(fresh[None, :], sync, asyncr)
     rows = torch.where(seen[None, :], rows, omega_rows)
     # Ω[k, k] keeps its previous value (self-relationship excluded, Eq. 7)
     rows[arange_k, ids] = omega_rows[arange_k, ids]

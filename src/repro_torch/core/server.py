@@ -293,6 +293,10 @@ class FLrceServer:
         decision is :meth:`check_early_stop`'s.  The Gram runs every round;
         explore rounds never stop.  Returns this round's decision."""
         pairs = early_stopping.conflict_pairs(selected_updates)
+        return self._scan_stop(carry, pairs, t, exploited, live)
+
+    def _scan_stop(self, carry, pairs, t, exploited, live) -> torch.Tensor:
+        """Alg. 3's decision from the ordered-pair count, written to the carry."""
         stop = torch.logical_and(exploited,
                                  pairs >= float(early_stopping.stop_count(self.psi, self.p)))
         prev = carry["es_stopped"]
@@ -302,6 +306,65 @@ class FLrceServer:
         carry["es_stopped"].copy_(torch.logical_or(prev, torch.logical_and(live, stop)))
         carry["pairs"].copy_(torch.where(live, torch.where(exploited, pairs, 0.0), carry["pairs"]))
         return stop
+
+    # -- the async round's pieces (out-of-order arrival) ---------------------
+    # The async driver keeps departed updates in a fixed-shape buffer of
+    # K = (S+1)·P rows and lands a subset each round.  With every row landing
+    # in the round it left (max_staleness=0) both pieces are bitwise
+    # scan_ingest and scan_check_early_stop.
+
+    def scan_ingest_async(self, carry, w_t, ids, t_depart, client_updates, anchor_rows,
+                          arrived, live) -> None:
+        """:meth:`scan_ingest` over the arrival buffer: ``ids``, ``t_depart``
+        (K,), ``client_updates`` and ``anchor_rows`` (K, D, the global model
+        at each row's departure), ``arrived`` (K,) the rows landing now.
+
+        V/A/R rows take the update with its departure anchor and round, so
+        Eq. 5/6 judge freshness against the round the update left.  When a
+        client lands twice in one round the freshest departure wins.  Losers,
+        rows that did not arrive and every row once the job has stopped
+        write nothing: their scatter goes to the first winner's row with the
+        winner's values (a duplicate index with equal values, so the result
+        is the winner's whatever the order), or, with no winner, rewrites
+        row ``ids[0]`` of each map with its own contents.  Shapes stay fixed
+        and nothing is read back to the host."""
+        if self.sketched:
+            raise ValueError("async ingest needs exact V/A maps (va_rows=None): the sketch's "
+                             "LRU row assignment is departure-ordered")
+        ids = ids.long()
+        w32 = w_t.float()
+        u32 = client_updates.float()
+        a32 = anchor_rows.float()
+        dep = t_depart.to(torch.int32)
+        upd, anc, last, omega = (carry[k] for k in ("updates", "anchors", "last_round", "omega"))
+        # freshest departure wins: row i loses if an arrived row j holds the
+        # same client with a later departure
+        newer = (ids[:, None] == ids[None, :]) & arrived[None, :] & (dep[None, :] > dep[:, None])
+        win = arrived & ~newer.any(dim=1) & live
+        any_win = win.any()
+        k = ids.shape[0]
+        rows_k = torch.arange(k, device=ids.device)
+        src = torch.where(win, rows_k, torch.argmax(win.to(torch.int32)))   # first winner
+        tgt = ids[src]
+
+        def scatter(dst, values):
+            dst[tgt] = torch.where(any_win, values[src], dst[tgt])
+
+        scatter(upd, u32)
+        scatter(anc, a32)
+        scatter(last, dep)
+        rows = relationship.relationship_block(ids, u32, w32, upd, anc, last, dep, omega[ids])
+        scatter(omega, rows)
+        h = carry["heuristic"]
+        h.copy_(torch.where(any_win, heuristics.update_heuristic_rows(h, omega, tgt), h))
+
+    def scan_check_early_stop_async(self, carry, arrived_updates, arrived, t, exploited,
+                                    live) -> torch.Tensor:
+        """Alg. 3 over this round's arrivals: a pair counts only if both of
+        its rows landed, the count is still judged against the cohort size
+        P's host threshold, and ``exploited`` is the landing round's phase."""
+        pairs = early_stopping.masked_conflict_pairs(arrived_updates, arrived)
+        return self._scan_stop(carry, pairs, t, exploited, live)
 
     def load_scan_carry(self, carry, t_next: int, last_exploit: bool) -> None:
         """Write a settled carry back into the state (no chunk in flight)."""

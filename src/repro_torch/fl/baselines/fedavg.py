@@ -7,6 +7,8 @@ class TorchFedAvg(TorchStrategy):
     """Uniform random selection, full local training (the base strategy)."""
 
     supports_scan = True
+    # no per-round bookkeeping: under staleness only Eq. 4's timing changes
+    supports_async = True
 
 
 FedAvg = TorchFedAvg

@@ -26,6 +26,9 @@ from repro_torch.fl.strategy import ScanProgram, TorchStrategy
 class TorchFLrce(TorchStrategy):
     name = "flrce"
     supports_scan = True
+    # ingest and Alg. 3 are redone for out-of-order arrival; sketched V/A
+    # maps withhold the async hook (their LRU rows are departure-ordered)
+    supports_async = True
 
     def __init__(
         self,
@@ -129,12 +132,21 @@ class TorchFLrce(TorchStrategy):
             stop = server.scan_check_early_stop(carry, u32, t, exploited, live)
             return stop if use_es else torch.zeros_like(stop)
 
+        def post_round_async(carry, t, w_before, ids, t_depart, update_matrix, anchor_rows,
+                             arrived, exploited, live):
+            u32 = update_matrix.float()
+            server.scan_ingest_async(carry, w_before, ids, t_depart, u32, anchor_rows, arrived,
+                                     live)
+            stop = server.scan_check_early_stop_async(carry, u32, arrived, t, exploited, live)
+            return stop if use_es else torch.zeros_like(stop)
+
         def finalize(carry, t_next, last_exploit):
             server.load_scan_carry(carry, t_next, last_exploit)
             self._heur_snapshot = server.state.heuristic.cpu().numpy()
 
         return ScanProgram(carry=carry, draws=server.explore_draws, select=server.scan_select,
-                           post_round=post_round, finalize=finalize)
+                           post_round=post_round, finalize=finalize,
+                           post_round_async=None if server.sketched else post_round_async)
 
 
 FLrce = TorchFLrce

@@ -31,6 +31,10 @@ class ResourceLedger:
     bytes_up: float = 0.0
     bytes_down: float = 0.0
     rounds: int = 0
+    # async rounds: arrivals by staleness τ.  Charges stay at departure (a
+    # client trains and uploads in the round it is selected, whenever its
+    # update lands), so the totals equal the synchronous run's.
+    arrivals_by_staleness: Dict[int, int] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self) -> None:
         if self.device not in DEVICE_PROFILES:
@@ -53,6 +57,13 @@ class ResourceLedger:
 
     def end_round(self) -> None:
         self.rounds += 1
+
+    def record_arrivals(self, tau_hist) -> None:
+        """Fold one round's arrival histogram (index = staleness τ) in."""
+        for tau, count in enumerate(tau_hist):
+            if int(count):
+                self.arrivals_by_staleness[int(tau)] = (
+                    self.arrivals_by_staleness.get(int(tau), 0) + int(count))
 
     @property
     def total_bytes(self) -> float:

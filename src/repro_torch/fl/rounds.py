@@ -25,7 +25,9 @@ Two drivers run Algorithm 4's outer loop:
   chunk's build with the current one, ``client_store="paged"`` keeps the
   client universe in host memory and copies each chunk's candidate rows.
   It runs the batched engine and strategies with ``supports_scan``; the
-  others (PyramidFL) fall back to the loop.
+  others (PyramidFL) fall back to the loop.  ``async_rounds=AsyncConfig(...)``
+  runs its rounds staleness-aware (``fl/async_rounds.py``), for strategies
+  with ``supports_async`` (FLrce with exact maps, FedAvg, Fedprox).
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from repro_torch.core.distributed import flatten_params
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fl.aggregation import aggregation_weights
+from repro_torch.fl.async_rounds import AsyncConfig
 from repro_torch.fl.client import (
     BatchedCohortTrainer,
     ClientTrainer,
@@ -222,7 +225,7 @@ def run_federated(
     scan_chunk_rounds: int = 8,
     pipeline: Optional[bool] = None,
     client_store: str = "resident",
-    async_rounds=None,
+    async_rounds: Optional[AsyncConfig] = None,
     torch_device: DeviceLike = "cuda",
 ) -> FLResult:
     if engine == "sharded" or mesh is not None:
@@ -249,8 +252,17 @@ def run_federated(
             f"has no meaning for driver={driver!r} (pass driver='scan')")
     check_param_subset(model, strategy)
     if async_rounds is not None:
-        raise NotImplementedError(
-            "async_rounds (staleness-aware rounds) is not ported yet: ROADMAP A.6, remaining")
+        if not isinstance(async_rounds, AsyncConfig):
+            raise ValueError(
+                f"async_rounds must be an AsyncConfig, got {type(async_rounds).__name__}")
+        async_rounds.validate(len(dataset.client_indices))
+        if driver != "scan":
+            raise ValueError(
+                "async_rounds runs staleness-aware rounds on the compiled chunk driver; it has "
+                f"no meaning for driver={driver!r} (pass driver='scan')")
+        if not strategy.supports_async:
+            raise ValueError(
+                f"{strategy.name} does not support async_rounds (supports_async is False)")
     dev = resolve_device(torch_device)
     if driver == "scan":
         if engine == "sequential":
@@ -265,7 +277,12 @@ def run_federated(
                 batch_size=batch_size, device=device, eval_every=eval_every, seed=seed,
                 init_params=init_params, verbose=verbose, chunk_rounds=scan_chunk_rounds,
                 torch_device=dev, pipeline=True if pipeline is None else pipeline,
-                paged=client_store == "paged")
+                paged=client_store == "paged", async_rounds=async_rounds)
+        if async_rounds is not None:
+            # the loop has no pending cohorts: running it would fake the experiment
+            raise ValueError(
+                f"async_rounds requires the compiled scan path, but {strategy.name} falls back "
+                f"to the {engine} loop driver (supports_scan)")
         if client_store == "paged":
             raise ValueError(
                 f"client_store='paged' requires the compiled scan path, but {strategy.name} "

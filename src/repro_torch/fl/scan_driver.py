@@ -28,6 +28,17 @@ masked by it), and the host drops the outputs of a chunk dispatched after
 the stop unread.  Records, ledger and the written-back state are bitwise
 those of ``pipeline=False``.
 
+**Async rounds** (``async_rounds=AsyncConfig(...)``): the same body runs
+staleness-aware rounds.  A ring of B = max_staleness + 1 pending cohorts
+(updates, sample counts, ids, departure and landing rounds, a valid flag,
+the departure model) lives on the device beside ``w``; the departing cohort
+is written to slot ``t mod B``, the rows landing at ``t`` are aggregated by
+the staleness-weighted Eq. 4 over the (B·P, D) buffer, the strategy's
+``post_round_async`` ingests them, and they leave the ring.  Charges stay
+at departure; each round's arrival histogram by staleness goes to the
+ledger.  With ``max_staleness=0`` the run is bitwise the synchronous one.
+Synchronous jobs run the body they always ran.
+
 Dispatch runs under ``torch.cuda.set_sync_debug_mode("error")``: a hidden
 sync there raises.  A capture that fails raises; nothing falls back to
 eager replay.  Evaluation runs every round inside the graph (a graph has no
@@ -55,6 +66,7 @@ from repro_torch.data.device import (
     place_schedule,
 )
 from repro_torch.data.synthetic import FederatedDataset
+from repro_torch.fl.async_rounds import AsyncConfig, AsyncPlan, resolve_async_plan, staleness_of
 from repro_torch.fl.client import (
     BatchedCohortTrainer,
     client_batch_rng,
@@ -119,7 +131,8 @@ class _ChunkRunner:
     def __init__(self, model, trainer: BatchedCohortTrainer, w: torch.Tensor, unflatten,
                  program: ScanProgram, transform, store: Optional[DeviceClientStore], *,
                  clients_per_round: int, eval_every: int, max_rounds: int, chunk_rounds: int,
-                 eval_x: torch.Tensor, eval_y: torch.Tensor, capture: bool):
+                 eval_x: torch.Tensor, eval_y: torch.Tensor, capture: bool,
+                 async_plan: Optional[AsyncPlan] = None):
         self.model, self.trainer = model, trainer
         self.w, self.unflatten = w, unflatten
         self.program, self.transform, self.store = program, transform, store
@@ -134,6 +147,22 @@ class _ChunkRunner:
         self.programs: Dict[tuple, _Program] = {}
         self.captures = 0
         self.capture_s = 0.0     # warm-up rounds and captures, host clock
+        self.async_plan = async_plan
+        self.ring: Dict[str, torch.Tensor] = {}
+        if async_plan is not None:
+            # the pending cohorts of async rounds, slot t mod B: written in
+            # place by the body like ``w`` (landing -1: nothing lands)
+            b, p, d, dev = async_plan.depth, clients_per_round, w.shape[0], self.device
+            self.ring = {
+                "u": torch.zeros((b, p, d), dtype=torch.float32, device=dev),
+                "sizes": torch.zeros((b, p), dtype=torch.float64, device=dev),   # store.sizes
+                "ids": torch.zeros((b, p), dtype=torch.int64, device=dev),
+                "depart": torch.zeros((b, p), dtype=torch.int32, device=dev),
+                "land": torch.full((b, p), -1, dtype=torch.int32, device=dev),
+                "valid": torch.zeros((b, p), dtype=torch.bool, device=dev),
+                "anchor": torch.zeros((b, d), dtype=torch.float32, device=dev),
+            }
+            self.taus = torch.arange(b, dtype=torch.int32, device=dev)
         if self.stream is not None:
             # the carry, the store and the eval set were made on the caller's stream
             self.stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -160,10 +189,13 @@ class _ChunkRunner:
             "step_valid": torch.zeros((r, p, s), dtype=torch.float32, device=dev),
             "valid": torch.zeros((r,), dtype=torch.bool, device=dev),
         }
+        if self.async_plan is not None:
+            outs["tau_hist"] = torch.zeros((r, self.async_plan.depth), dtype=torch.int32,
+                                           device=dev)
         return _Program(inputs, outs, torch.zeros((1,), dtype=torch.int64, device=dev))
 
     def live_bytes(self) -> int:
-        tensors = [self.w, *self.program.carry.values()]
+        tensors = [self.w, *self.program.carry.values(), *self.ring.values()]
         if self.store is not None:
             tensors += [self.store.x, self.store.y, self.store.sizes]
         for prog in self.programs.values():
@@ -212,14 +244,18 @@ class _ChunkRunner:
             step_valid, mask, row("freeze"), row("prox")[slots], use_prox)
         if self.transform is not None:
             flat = self.transform(t, ids, flat)
-        # Eq. 4: n_k / Σn in float64, then float32, as the loop's host weights
-        total = sizes.sum()
-        weights = torch.where(total > 0, sizes / total, torch.full_like(sizes, 1.0 / p)).float()
-        w_new = kops.weighted_aggregate(w, flat, weights)
-        if program.post_round is not None:
-            stop = program.post_round(program.carry, t, w, ids, flat, exploited, live)
+        if self.async_plan is not None:
+            w_new, stop = self._async_round(t, w, ids, sizes, flat, exploited, live, put)
         else:
-            stop = torch.zeros((), dtype=torch.bool, device=w.device)
+            # Eq. 4: n_k / Σn in float64, then float32, as the loop's host weights
+            total = sizes.sum()
+            weights = torch.where(total > 0, sizes / total,
+                                  torch.full_like(sizes, 1.0 / p)).float()
+            w_new = kops.weighted_aggregate(w, flat, weights)
+            if program.post_round is not None:
+                stop = program.post_round(program.carry, t, w, ids, flat, exploited, live)
+            else:
+                stop = torch.zeros((), dtype=torch.bool, device=w.device)
         evaluated = (t % self.eval_every == 0) | stop | (t == self.max_rounds - 1)
         acc = model.accuracy(self.unflatten(w_new), self.eval_x, self.eval_y).float()
         acc = torch.where(evaluated, acc, self.last_acc)
@@ -231,6 +267,48 @@ class _ChunkRunner:
         self.last_acc.copy_(torch.where(live, acc, self.last_acc))
         self.stopped.copy_(torch.logical_or(self.stopped, stop))
         counter.add_(1)
+
+    def _async_round(self, t, w, ids, sizes, flat, exploited, live, put):
+        """The async round after training: park the departing cohort in slot
+        ``t mod B``, aggregate what lands at ``t`` by the staleness-weighted
+        Eq. 4, hand the arrivals to ``post_round_async``, drop them from the
+        ring and write the arrival histogram.  Every ring write is masked by
+        ``live``.  Returns ``(w_new, stop)``."""
+        plan, ring, program, p = self.async_plan, self.ring, self.program, self.p
+        b = plan.depth
+        slot = torch.remainder(t, b).reshape(1)
+        t32 = t.to(torch.int32)
+        for name, value in (("u", flat), ("sizes", sizes), ("ids", ids),
+                            ("depart", t32.expand(p)), ("land", t32 + plan.delays(t, ids)),
+                            ("valid", torch.ones_like(ring["valid"][0])), ("anchor", w)):
+            buf = ring[name]
+            old = buf.index_select(0, slot).squeeze(0)
+            buf.index_copy_(0, slot, torch.where(live, value, old).unsqueeze(0))
+        buf_u = ring["u"].view(b * p, -1)
+        buf_ids, buf_depart = ring["ids"].view(-1), ring["depart"].view(-1)
+        buf_valid = ring["valid"].view(-1)
+        arrived = buf_valid & (ring["land"].view(-1) == t32)
+        tau = staleness_of(buf_depart, t32).clamp(0, plan.max_staleness)
+        # Eq. 4 over the arrivals, n_k·decay(τ_k) in float64 then float32 as
+        # the synchronous weights (decay(0) = 1.0 changes no bit); a round
+        # with no arrival has all-zero weights and leaves w as it was
+        scaled = torch.where(arrived, ring["sizes"].view(-1) * plan.decay_table[tau.long()], 0.0)
+        total = scaled.sum()
+        n_arr = arrived.sum().to(scaled.dtype)
+        weights = torch.where(total > 0, scaled / total,
+                              torch.where(arrived, 1.0 / n_arr.clamp_min(1.0), 0.0)).float()
+        w_new = kops.weighted_aggregate(w, buf_u, weights)
+        if program.post_round_async is not None:
+            stop = program.post_round_async(
+                program.carry, t, w, buf_ids, buf_depart, buf_u,
+                ring["anchor"][:, None].expand(b, p, -1).reshape(b * p, -1), arrived, exploited,
+                live)
+        else:
+            stop = torch.zeros((), dtype=torch.bool, device=w.device)
+        ring["valid"].copy_(torch.where(live, (buf_valid & ~arrived).view(b, p), ring["valid"]))
+        put("tau_hist", ((tau[None, :] == self.taus[:, None]) & arrived[None, :]).sum(1)
+            .to(torch.int32))
+        return w_new, stop
 
     def _capture(self, prog: _Program, key: tuple) -> None:
         """Warm the body up once with the job marked stopped, a round that
@@ -338,9 +416,14 @@ def run_scan_driver(
     pipeline: bool = True,
     paged: bool = False,
     capture: Optional[bool] = None,
+    async_rounds: Optional[AsyncConfig] = None,
 ):
     """Algorithm 4's outer loop in chunks of ``chunk_rounds`` rounds; called
     by ``run_federated(driver="scan")``, returns its :class:`FLResult`.
+
+    ``async_rounds`` runs staleness-aware rounds (see the module docstring):
+    it needs the resident store and, from a strategy with ``post_round``,
+    ``post_round_async``.
 
     ``capture`` (default: on CUDA) replays each chunk from a CUDA graph;
     ``capture=False`` runs the same body eagerly on the card, which is what
@@ -368,6 +451,15 @@ def run_scan_driver(
                          "chunk cannot react to a device stop mid-chunk")
     if program.select is not None and program.draws is None:
         raise ValueError("a ScanProgram with device select must provide draws")
+    if async_rounds is not None:
+        if paged:
+            raise ValueError("async_rounds requires client_store='resident': the paged store's "
+                             "per-chunk pages cannot hold cohorts that land in a later chunk")
+        if program.post_round is not None and program.post_round_async is None:
+            raise ValueError(
+                f"{strategy.name}'s ScanProgram has per-round bookkeeping (post_round) but no "
+                "post_round_async: async rounds would feed stale arrivals to the synchronous "
+                "hook (FLrce withholds the async hook under sketched V/A maps)")
     w, unflatten = flatten_params(params)
     if paged:
         host_store, store = HostClientStore.from_dataset(dataset), None
@@ -378,12 +470,15 @@ def run_scan_driver(
     m = len(sizes_host)
     ledger = ResourceLedger(device=device)
     transform = strategy.update_transform(params)
+    async_plan = None if async_rounds is None else resolve_async_plan(
+        async_rounds, num_clients=m, seed=seed, device=dev)
     runner = _ChunkRunner(
         model, BatchedCohortTrainer(model, learning_rate, batch_size, dev), w, unflatten,
         program, transform, store, clients_per_round=strategy.p, eval_every=eval_every,
         max_rounds=max_rounds, chunk_rounds=chunk_rounds,
         eval_x=torch.from_numpy(dataset.eval_x).to(dev),
-        eval_y=torch.from_numpy(dataset.eval_y).to(dev), capture=capture)
+        eval_y=torch.from_numpy(dataset.eval_y).to(dev), capture=capture,
+        async_plan=async_plan)
     stager = PinnedStager(dev, consumer=runner.stream)
     # host selection materialises masks from a CPU template of the params
     template = {k: torch.empty(v.shape, dtype=v.dtype) for k, v in params.items()}
@@ -475,6 +570,9 @@ def run_scan_driver(
         "captures_chunk": 0, "captures_total": 0, "programs": 0, "host_syncs": 0,
         "replays": 0, "replay_launches": {}, "steps": [],
     }
+    if async_plan is not None:
+        stats["async_max_staleness"] = async_plan.max_staleness
+        stats["async_arrivals"] = 0
 
     def flush_chunk(plan: _ChunkPlan, outs) -> Tuple[int, bool]:
         """Ledger and records of one chunk's host outputs:
@@ -493,6 +591,11 @@ def run_scan_driver(
                 ledger.charge_training(flops)
                 ledger.charge_download(n_params, cfg.download_fraction)
                 ledger.charge_upload(n_params, cfg.upload_fraction)
+            if "tau_hist" in outs:
+                # charged above at departure; what lands now is only counted
+                hist = outs["tau_hist"][i]
+                ledger.record_arrivals(hist)
+                stats["async_arrivals"] += int(hist.sum())
             ledger.end_round()
             means = mean_losses(outs["losses"][i], outs["step_valid"][i])
             rec = RoundRecord(
@@ -564,6 +667,9 @@ def run_scan_driver(
             program.finalize(program.carry, t_final, last_exploit)
 
     runner.settle()
+    if async_plan is not None:
+        # departed and charged, never landed
+        stats["async_pending_at_exit"] = int(runner.ring["valid"].sum())
     stats["total_s"] = time.perf_counter() - t_start
     stats["captures_chunk"] = stats["captures_total"] = runner.captures
     stats["capture_s"] = runner.capture_s

@@ -50,6 +50,13 @@ class ScanProgram:
     * ``finalize(carry, t_next, last_exploit)`` — writes a settled carry back
       into the strategy (no chunk in flight), so the host sees the state the
       loop driver would have left.
+    * ``post_round_async(carry, t, w_before, ids, t_depart, update_matrix,
+      anchor_rows, arrived, exploited, live) -> stop`` — ``post_round`` for
+      async rounds (``async_rounds=``), over the (K,) / (K, D) arrival
+      buffer: ``arrived`` marks the rows landing this round, ``t_depart``
+      each row's departure round, ``anchor_rows`` the global model it left
+      from.  Required with ``post_round`` under async rounds: the driver
+      never feeds stale arrivals to the synchronous hook.
     """
 
     carry: Dict[str, torch.Tensor]
@@ -57,6 +64,7 @@ class ScanProgram:
     select: Optional[Callable] = None
     post_round: Optional[Callable] = None
     finalize: Optional[Callable] = None
+    post_round_async: Optional[Callable] = None
 
 
 # The port's classes carry names of their own and are exported under the
@@ -131,6 +139,13 @@ class TorchStrategy:
     model, and ``param_subset_reason`` says why."""
 
     param_subset_reason: Optional[str] = None
+
+    supports_async: bool = False
+    """True: ``async_rounds=AsyncConfig(...)`` may run this strategy's scan
+    rounds staleness-aware: an update trained at round t may be folded in at
+    t + τ under the staleness-weighted Eq. 4, a strategy with ``post_round``
+    also provides ``post_round_async``, and at ``max_staleness=0`` the run is
+    bitwise the synchronous scan run."""
 
     def propose_candidates(self, ts) -> Optional[np.ndarray]:
         """Sorted unique global ids (P_cand >= P) that device selection may

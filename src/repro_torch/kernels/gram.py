@@ -34,6 +34,9 @@ from repro_torch.kernels.grid import arrival_counters, device_index, sm_count
 #: launches of each kernel by its wrapper (nothing else touches them)
 CROSS_GRAM_LAUNCHES = 0
 GRAM_LAUNCHES = 0
+#: of GRAM_LAUNCHES, those that ran as the cross kernel (P > 16 or unaligned
+#: data): on the device they are xgram_partial/sum_splits launches
+GRAM_VIA_CROSS = 0
 
 MAX_TRI_ROWS = 16      # csrc/gram.cu kMaxTriRows: above it gram takes the cross kernel
 TRI_THREADS = 256      # csrc/gram.cu kTriThreads
@@ -184,13 +187,14 @@ def cross_gram_cuda(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def gram_cuda(u: torch.Tensor) -> torch.Tensor:
     """(P, D) → (P, P) fp32 on the card: one launch for P ≤ 16 (16-byte
     aligned data), the cross kernel's two otherwise."""
-    global GRAM_LAUNCHES
+    global GRAM_LAUNCHES, GRAM_VIA_CROSS
     check_cuda_f32("gram u", u, 2)
     _check_pair(u, u)
     p, d = u.shape
     out = torch.empty((p, p), dtype=torch.float32, device=u.device)
     stream = torch.cuda.current_stream(u.device)
-    if one_launch(u):
+    tri = one_launch(u)
+    if tri:
         plan = gram_plan(u)
         n_splits, chunk, vec = plan.n_splits, 0, 1
         partial = torch.empty((n_splits, p * (p + 1) // 2), dtype=torch.float32, device=u.device)
@@ -204,4 +208,5 @@ def gram_cuda(u: torch.Tensor) -> torch.Tensor:
                                     p, d, n_splits, chunk, vec, stream.cuda_stream)
     build.check(rc, "gram")
     GRAM_LAUNCHES += 1
+    GRAM_VIA_CROSS += not tri
     return out

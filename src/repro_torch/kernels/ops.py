@@ -119,6 +119,7 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     _gram.CROSS_GRAM_LAUNCHES = 0
     _gram.GRAM_LAUNCHES = 0
+    _gram.GRAM_VIA_CROSS = 0
     _aggregate.AGGREGATE_LAUNCHES = 0
     _topk_mask.TOPK_MASK_LAUNCHES = 0
     _decode_attention.DECODE_ATTENTION_LAUNCHES = 0

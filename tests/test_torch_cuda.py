@@ -106,7 +106,9 @@ def test_gram_kernel_on_unaligned_data(cuda, p, d):
     for shift, one in ((1, False), (4, True)):
         u = flat[shift:shift + p * d].view(p, d)
         assert gram.one_launch(u) == one
+        ops.reset_launch_counts()
         got = ops.gram(u)
+        assert gram.GRAM_VIA_CROSS == (not one)
         assert torch.all((got - gram.gram_plain(u)).abs() <= 1e-4 * _scale(u, u))
         assert torch.equal(got, got.T)
 
@@ -440,6 +442,131 @@ def test_scan_matches_loop_on_the_card(cuda, name, pipeline, store):
     assert st["replay_launches"] == want
     if store == "paged":
         assert st["page_bytes_h2d"] > 0
+
+
+# --- async rounds (async_rounds=AsyncConfig) on the card -------------------------
+@pytest.mark.parametrize("name", ["flrce", "flrce_stop", "FedAvg", "Fedprox"])
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_async_s0_on_the_card_is_sync_bitwise(cuda, name, pipeline):
+    """max_staleness=0 on the card: records, ledger, final params and FLrce's
+    written-back state bitwise the synchronous scan run's, both captured."""
+    from repro_torch.fl import AsyncConfig, run_federated
+    from repro_torch.fl.stats_schema import validate_driver_stats
+
+    ds, model = _scan_fed()
+    init = model.init(0, "cpu")
+    make = _scan_strategy(name, sum(p.numel() for p in init.values()))
+    stop = name == "flrce_stop"
+    kw = dict(max_rounds=40 if stop else 6, learning_rate=0.8 if stop else 0.1, batch_size=16,
+              init_params=init, torch_device=cuda, driver="scan", scan_chunk_rounds=3,
+              pipeline=pipeline)
+    sa, sb = make(), make()
+    sync = run_federated(model, ds, sa, **kw)
+    asy = run_federated(model, ds, sb, async_rounds=AsyncConfig(max_staleness=0), **kw)
+    assert sync.rounds_run == asy.rounds_run and sync.stopped_early == asy.stopped_early
+    for ra, rb in zip(sync.records, asy.records):
+        assert (ra.selected, ra.exploited, ra.stopped, ra.evaluated, ra.accuracy,
+                ra.energy_kj, ra.bytes_gb) == (rb.selected, rb.exploited, rb.stopped,
+                                               rb.evaluated, rb.accuracy, rb.energy_kj,
+                                               rb.bytes_gb)
+        assert ra.mean_client_loss == rb.mean_client_loss
+    for k in sync.final_params:
+        assert torch.equal(sync.final_params[k], asy.final_params[k]), k
+    assert sync.ledger.energy_j == asy.ledger.energy_j
+    assert sync.ledger.total_bytes == asy.ledger.total_bytes
+    if stop:
+        assert asy.stopped_early
+    if name.startswith("flrce"):
+        a, b = sa.server.state, sb.server.state
+        for field in ("omega", "heuristic", "updates", "anchors", "last_round"):
+            assert torch.equal(getattr(a, field), getattr(b, field)), field
+        assert (a.t, a.stopped, a.stop_round) == (b.t, b.stopped, b.stop_round)
+    st = asy.driver_stats
+    validate_driver_stats(st)
+    assert st["captures_chunk"] == st["programs"] >= 1 and st["host_syncs"] == st["chunks"]
+    assert st["async_pending_at_exit"] == 0
+    assert st["replay_launches"] == sync.driver_stats["replay_launches"]
+
+
+def test_async_s2_on_the_card_matches_cpu(cuda):
+    """FLrce at max_staleness=2, captured on the card against the CPU: the
+    discrete results and the arrival accounting equal, accuracy within 2e-3,
+    and per replay one weighted_aggregate, two cross_gram and one gram over
+    the (3·P, D) arrival buffer."""
+    from repro_torch.fl import AsyncConfig, run_federated
+    from repro_torch.fl.stats_schema import validate_driver_stats
+
+    ds, model = _scan_fed()
+    init = model.init(0, "cpu")
+    make = _scan_strategy("flrce", sum(p.numel() for p in init.values()))
+    kw = dict(max_rounds=8, learning_rate=0.1, batch_size=16, init_params=init,
+              driver="scan", scan_chunk_rounds=3, async_rounds=AsyncConfig(max_staleness=2))
+    gpu = run_federated(model, ds, make(), torch_device=cuda, **kw)
+    cpu = run_federated(model, ds, make(), torch_device="cpu", **kw)
+    assert gpu.rounds_run == cpu.rounds_run and gpu.stopped_early == cpu.stopped_early
+    for ra, rb in zip(gpu.records, cpu.records):
+        assert (ra.selected, ra.exploited, ra.stopped, ra.energy_kj) == \
+            (rb.selected, rb.exploited, rb.stopped, rb.energy_kj)
+        assert abs(ra.accuracy - rb.accuracy) <= 2e-3
+    assert gpu.ledger.arrivals_by_staleness == cpu.ledger.arrivals_by_staleness
+    assert any(tau > 0 for tau in gpu.ledger.arrivals_by_staleness)
+    st = gpu.driver_stats
+    validate_driver_stats(st)
+    for key in ("async_arrivals", "async_pending_at_exit"):
+        assert st[key] == cpu.driver_stats[key]
+    assert st["async_arrivals"] + st["async_pending_at_exit"] == 3 * gpu.rounds_run
+    assert st["captures_chunk"] == st["programs"] == 1
+    n = st["replays"]
+    assert st["replay_launches"] == {"cross_gram": 2 * n, "gram": n, "weighted_aggregate": n,
+                                     "topk_mask_rows": 0, "decode_attention": 0,
+                                     "threefry_normal": 0, "threefry_rounding": 0}
+
+
+def test_synthetic_delays_in_a_captured_graph_match_cpu(cuda):
+    """The delay hash from device round and id tensors inside a captured
+    graph, replayed at several rounds, equals the CPU's; no host read."""
+    from repro_torch.fl.async_rounds import synthetic_delays
+
+    ids = torch.arange(0, 300, 7, dtype=torch.int64, device=cuda)
+    t = torch.zeros((), dtype=torch.int64, device=cuda)
+    out = torch.zeros(ids.shape, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        out.copy_(synthetic_delays(0xBEEF, t, ids, 3))       # warm-up
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.graph(graph, stream=stream):
+            out.copy_(synthetic_delays(0xBEEF, t, ids, 3))
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    for rnd in (0, 1, 17, 2**31 - 1):
+        t.fill_(rnd)
+        graph.replay()
+        want = synthetic_delays(0xBEEF, torch.tensor(rnd), ids.cpu(), 3)
+        assert torch.equal(out.cpu(), want), rnd
+    assert 0 < int(out.max()) <= 3
+
+
+@pytest.mark.parametrize("k", [17, 30])
+@pytest.mark.parametrize("d", [2049, 595914])
+def test_gram_kernel_at_async_buffer_rows(cuda, k, d):
+    """Above 16 rows ``gram`` takes the two-launch cross kernel: the async
+    round's (3·P, D) arrival buffer at P = 10, and a ring's row slices."""
+    from repro_torch.kernels import gram, ops
+
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    ring = torch.randn(3, k, d, generator=gen, device=cuda)
+    for u in (ring[1], ring.view(3 * k, d)[:k]):
+        ops.reset_launch_counts()
+        got = ops.gram(u)
+        assert torch.all((got - gram.gram_plain(u)).abs() <= 1e-4 * _scale(u, u))
+        assert torch.equal(got, got.T)
+        assert ops.launch_counts()["gram"] == 1 and ops.launch_counts()["cross_gram"] == 0
+        assert gram.GRAM_VIA_CROSS == 1
 
 
 # --- decode_attention and the serving path ------------------------------------

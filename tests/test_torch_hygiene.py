@@ -43,7 +43,8 @@ def test_every_module_imports_without_jax_or_reference():
                 "repro_torch.data.tokens", "repro_torch.optim", "repro_torch.optim.optimizers",
                 "repro_torch.optim.schedules", "repro_torch.launch.train",
                 "repro_torch.models.rglru", "repro_torch.configs.recurrentgemma_2b",
-                "repro_torch.kernels.threefry"):
+                "repro_torch.kernels.threefry", "repro_torch.fl.async_rounds",
+                "repro_torch.fl.stats_schema"):
         assert new in mods, new
     code = (
         "import sys, importlib\n"
@@ -108,6 +109,28 @@ def test_cuda_requested_without_cuda_raises():
         run_federated(model, ds, FLrce(4, 2, 1, dim=26), max_rounds=1)
     with pytest.raises(RuntimeError):
         model.init(0)
+
+
+def test_async_rounds_have_no_cpu_fallback():
+    """Async rounds asked of the card raise without one: the ring of pending
+    cohorts is made on the run's device, never quietly on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available; the no-CUDA contract cannot be observed")
+    from repro_torch.data import make_federated_classification
+    from repro_torch.fl import AsyncConfig, FLrce, run_federated
+    from repro_torch.fl.async_rounds import resolve_async_plan
+    from repro_torch.models import MLPClassifier
+
+    model = MLPClassifier(3, 2, (4,))
+    ds = make_federated_classification(num_clients=4, num_samples=60, num_eval=10,
+                                       feature_dim=3, num_classes=2, seed=0)
+    for device in ("cuda", None):
+        kw = {} if device is None else {"torch_device": device}
+        with pytest.raises(RuntimeError, match="cuda"):
+            run_federated(model, ds, FLrce(4, 2, 1, dim=26), max_rounds=1, driver="scan",
+                          async_rounds=AsyncConfig(max_staleness=1), **kw)
+    with pytest.raises((RuntimeError, AssertionError)):
+        resolve_async_plan(AsyncConfig(max_staleness=1), num_clients=4, seed=0, device="cuda")
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):

@@ -153,12 +153,17 @@ def test_apply_rope_matches(theta):
 def test_attention_decode_step_matches(local, cache_len):
     """A global layer, a local ring buffer (cache_len = window = 8) and a local
     full-length cache masked by the window (cache_len 12 > window 8), over 12
-    positions."""
+    positions.  V holds ``x @ wv``, an fp32 product that XLA and PyTorch may
+    sum in other orders (on an 8-thread CPU up to 2e-7 of max|V| apart), so
+    it is held to the reference's within LAYER_RTOL of its max; what is exact
+    is held bitwise: the port's cache is its own ``x @ wv`` in slot
+    ``pos % cache_len``."""
     jcfg, tcfg = _gemma_family()
     jp = jattn.init_attention(jax.random.PRNGKey(5), jcfg, jnp.float32)
     tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
     jc = jattn.init_kv_cache(jcfg, 2, cache_len, jnp.float32)
     tc = tattn.init_kv_cache(tcfg, 2, cache_len, torch.float32, torch.device("cpu"))
+    own_v = torch.zeros_like(tc["v"])
     xs = np.random.default_rng(6).normal(size=(12, 2, 1, jcfg.d_model)).astype(np.float32)
     for pos in range(12):
         want, jc = jattn.attention_decode_step(jp, jnp.asarray(xs[pos]), jc, jnp.int32(pos), jcfg,
@@ -167,8 +172,14 @@ def test_attention_decode_step_matches(local, cache_len):
                                               local=local)
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
-        # V is the same product; K has been through RoPE, whose cos/sin differ by an ulp
-        np.testing.assert_array_equal(tc["v"].numpy(), np.asarray(jc["v"]))
+        slot = pos % cache_len
+        own_v[:, slot:slot + 1] = (torch.from_numpy(xs[pos]) @ tp["wv"]).reshape(
+            own_v[:, slot:slot + 1].shape)
+        assert torch.equal(tc["v"], own_v)
+        jv = np.asarray(jc["v"])
+        np.testing.assert_allclose(tc["v"].numpy(), jv, rtol=LAYER_RTOL,
+                                   atol=LAYER_RTOL * float(np.abs(jv).max()))
+        # K has been through RoPE, whose cos/sin differ by an ulp
         np.testing.assert_allclose(tc["k"].numpy(), np.asarray(jc["k"]), rtol=LAYER_RTOL,
                                    atol=LAYER_RTOL)
 

@@ -268,7 +268,7 @@ def test_scan_rejects_non_batched_engines_and_unported_paths(tiny_fed):
         with pytest.raises(ValueError, match="A.8"):
             run_federated(model, ds, FedAvg(8, 3, 1, seed=0), max_rounds=1, driver="scan",
                           **kw, **CPU)
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(ValueError, match="AsyncConfig"):   # async rounds: test_torch_async.py
         run_federated(model, ds, FedAvg(8, 3, 1, seed=0), max_rounds=1, driver="scan",
                       async_rounds=object(), **CPU)
     with pytest.raises(ValueError, match="chunk_rounds"):
