@@ -18,8 +18,9 @@ ran.
    kernel (``KERNEL_INSTANCES``: 48 ``decode_attention``, one per dtype,
    head_dim and 1..8 query heads a block, as groups of 9..16 run as two
    sub-groups; 4 ``gram_tri_kernel``, 12 ``topk_mask_kernel``, 12
-   ``xgram_partial_kernel``, 1 ``sum_splits_kernel``, 3 ``aggregate_kernel``,
-   1 ``threefry_normal_kernel``, 1 ``threefry_rounding_kernel``)
+   ``cross_gram_stream_kernel``, 1 ``cross_gram_ring_kernel``, 3
+   ``aggregate_kernel``, 1
+   ``threefry_normal_kernel``, 1 ``threefry_rounding_kernel``)
    must compile without a spill or a stack frame, and no other may appear.
    Kernel phase: holds each kernel against its plain PyTorch version on the
    card, at the main paths' shapes (K = P = 10, Q = M = 100, D = 595,914;
@@ -30,9 +31,14 @@ ran.
    flushed before every launch), beside the least time the card could take.
    ``topk_mask_rows`` must equal its plain version bitwise, ties, NaN, ±inf,
    -0.0, one-exponent tiles and P = 64 included; ``gram`` must be exactly
-   symmetric and repeatable, and one kernel launch at P = 10 under
-   ``torch.profiler``; both print their planned grid, resident blocks per SM
-   and registers; ``decode_attention`` within 1e-5·max|V| in fp32 and
+   symmetric and repeatable, and one kernel launch at P = 10 and at P = 30
+   under ``torch.profiler``; ``cross_gram`` is held at K = 17, 30 and 64
+   (Q = 100), at K = 30 with Q = 1,000 and on data 4 bytes past a 16-byte
+   boundary too, must be bitwise repeatable there and on a second stream,
+   leave its arrival counters at zero and be one kernel launch at the main
+   shape, and is timed at K = 17, 30 and 64 beside ``torch.mm`` and its
+   bound; all three print their planned grid, resident blocks per SM and
+   registers; ``decode_attention`` within 1e-5·max|V| in fp32 and
    one ulp in bf16, in one kernel launch per call, with its planned grid,
    resident blocks per SM and shared memory printed at each timed shape.
    The Threefry kernels (``jax.random`` on the card) must equal their plain
@@ -210,8 +216,8 @@ kernel (other ring shapes, the split pass alone, an empty kernel on the
 same grid; ``DECODE_VARIANTS``); ``--kernel-variants`` does the same for
 ``topk_mask_rows`` and ``gram`` (the stream without the select, the split
 pass alone, empty kernels; ``KERNEL_VARIANTS``); ``--time-kernels [--src
-DIR]`` times ``gram`` and ``topk_mask_rows`` at the main shape from the
-port under DIR (default ``src``), so that two trees, such as a ``git
+DIR]`` times ``gram`` and ``topk_mask_rows`` at the main shape, and
+``cross_gram`` at ``CROSS_TIMED``, from the port under DIR (default ``src``), so that two trees, such as a ``git
 archive`` of a parent commit, compare in one call; ``--numerics`` measures
 the FL path's float32 error against float64 at the CIFAR width (one
 gradient through cuDNN's convolution and through the patch GEMM, alone and
@@ -253,6 +259,10 @@ K_MAIN, Q_MAIN, D_MAIN = 10, 100, 595_914
 GRAM_RTOL = 1e-4           # |Δ| ≤ 1e-4·‖u_k‖‖v_j‖: fp32 sums over D reordered
 AGG_ATOL = AGG_RTOL = 1e-6
 GRAM_KERNEL = "gram_tri_kernel"         # the one kernel a gram call at P <= 16 launches
+# the kernels a cross_gram call launches, one of them (K <= 16: the stream
+# kernel; above, and gram above 16 rows: the ring kernel): the names share
+# this prefix
+CROSS_KERNEL = "cross_gram_"
 TOPK_KERNEL = "topk_mask_kernel"
 FP32_PEAK_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores (data sheet)
 # H100 SXM: 132 SMs x 64 INT32 units x 1.98 GHz (Hopper white paper); the
@@ -434,6 +444,66 @@ def topk_inputs(torch, gen) -> list:
                   ("one exponent, all-NaN and all -0.0 rows P=10 D=4096", one_exp)]
 
 
+def cross_plan_line(plan) -> str:
+    if plan.route == "stream":
+        how = (f"{plan.warps} warps, chunks of {plan.chunk} columns, loads {plan.vec} floats "
+               f"wide")
+    else:
+        how = (f"{plan.wk}x{plan.wq}x{plan.wc} warps, {plan.slab}-column slabs in {plan.stages} "
+               f"stages ({plan.smem} B){', one copy for u = v' if plan.same else ''}")
+    return (f"{plan.route} kernel: {plan.n_kt}x{plan.n_qt} tiles of {plan.kt}x{plan.qt} rows x "
+            f"{plan.n_splits} blocks of {how}, sums in groups of {plan.group}; "
+            f"{plan.blocks_per_sm} resident blocks per SM (occupancy query), {plan.registers} "
+            f"registers")
+
+
+def cross_gram_rows(torch, timer, bandwidth, gen) -> None:
+    """cross_gram at K = 17, 30 and 64 rows of U against Q = 100 (the async
+    round's ingest at K = 30), at K = 30 against Q = 1,000, and on data 4
+    bytes past a 16-byte boundary: within GRAM_RTOL of its plain version,
+    bitwise repeatable on this stream and on another, arrival counters at 0
+    after; the first three timed beside torch.mm and the bound."""
+    from repro_torch.kernels import grid
+    from repro_torch.kernels import gram as kgram
+
+    def bound(k, q, d):
+        t_bytes, t_ops = 4 * (k * d + q * d + k * q) / bandwidth, 2 * k * q * d / FP32_PEAK_FLOPS
+        return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+    side = torch.cuda.Stream()
+    for k, q, shift in [(17, Q_MAIN, 0), (30, Q_MAIN, 0), (64, Q_MAIN, 0), (30, 1000, 0),
+                        (30, Q_MAIN, 1)]:
+        d = D_MAIN
+        if shift:   # views 4 bytes past a 16-byte boundary
+            u = torch.randn(k * d + 4, generator=gen, device="cuda")[shift:shift + k * d].view(k, d)
+            v = torch.randn(q * d + 4, generator=gen, device="cuda")[shift:shift + q * d].view(q, d)
+        else:
+            u = torch.randn(k, d, generator=gen, device="cuda")
+            v = torch.randn(q, d, generator=gen, device="cuda")
+        label = f"cross_gram K={k} Q={q} D={d}" + (" (data 4 bytes past 16)" if shift else "")
+        got = kgram.cross_gram_cuda(u, v)
+        err, rel = check_gram(label, got, kgram.cross_gram_plain(u, v), u, v, torch)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            other = kgram.cross_gram_cuda(u, v)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, kgram.cross_gram_cuda(u, v)) and torch.equal(got, other)):
+            fail(f"{label}: not bitwise repeatable on one stream and on another")
+        torch.cuda.synchronize()
+        if any(int(c.abs().sum()) for c in grid.ARRIVALS.values()):
+            fail(f"{label}: arrival counters not back at zero")
+        print(f"  {label}: max |Δ| {err:.3e}, |Δ|/(‖u‖‖v‖) {rel:.2e}, bitwise repeatable on two "
+              f"streams, counters at 0; plan {cross_plan_line(kgram.cross_plan(u, v))}")
+        if q == Q_MAIN and not shift:
+            b_ms, b_by = bound(k, q, d)
+            ms, mm_ms = timer(lambda: kgram.cross_gram_cuda(u, v)), timer(lambda: torch.mm(u, v.t()))
+            print(f"  cross_gram K={k} Q={q} D={d}: kernel {ms:.4f} ms, torch.mm {mm_ms:.4f} ms "
+                  f"({ms / mm_ms:.3f}x), bound {b_ms:.4f} ms ({b_by}) -> "
+                  f"{100 * b_ms / ms:.1f}% of bound")
+        del u, v, got, other
+    torch.cuda.empty_cache()
+
+
 def kernel_phase(torch, timer, bandwidth) -> dict:
     from repro_torch.kernels import aggregate as kagg
     from repro_torch.kernels import gram as kgram
@@ -444,16 +514,18 @@ def kernel_phase(torch, timer, bandwidth) -> dict:
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.float32)
 
-    # edge shapes: D = 1, ragged D, K = 1, Q = 1, K over one 16-row tile,
-    # Q not a multiple of the 32-row tile, 16-byte-aligned D
+    # edge shapes: D = 1, ragged D, K = 1, Q = 1, K = 17 past the 16-row
+    # instance, Q past a warp's rows, odd D, 16-byte-aligned D
     for k, q, d in [(10, 100, 1), (10, 100, 2049), (1, 100, D_MAIN), (10, 1, D_MAIN),
                     (1, 1, 1), (17, 33, 5000), (10, 100, 4096)]:
         u, v = randn(k, d), randn(q, d)
         _, rel = check_gram(f"cross_gram K={k} Q={q} D={d}",
                             kgram.cross_gram_cuda(u, v), kgram.cross_gram_plain(u, v), u, v, torch)
         print(f"  cross_gram edge K={k:3d} Q={q:3d} D={d:7d}: max |Δ|/(‖u‖‖v‖) {rel:.2e}")
+    cross_gram_rows(torch, timer, bandwidth, gen)
     for p, d in [(10, 1), (10, 2049), (1, D_MAIN), (17, 5000), (10, 4096), (4, D_MAIN),
-                 (5, D_MAIN), (12, D_MAIN), (16, D_MAIN), (17, D_MAIN)]:
+                 (5, D_MAIN), (12, D_MAIN), (16, D_MAIN), (17, D_MAIN), (30, D_MAIN),
+                 (64, D_MAIN)]:
         u = randn(p, d)
         got = kgram.gram_cuda(u)
         _, rel = check_gram(f"gram P={p} D={d}", got, kgram.gram_plain(u), u, u, torch)
@@ -671,31 +743,42 @@ def threefry_phase(torch, timer, bandwidth) -> dict:
 
 
 def launch_plans(torch, kgram, ktopk, u) -> None:
-    """The planned grids of gram and topk_mask_rows at the main shape, and a
-    profiled gram call, which must be one kernel launch."""
+    """The planned grids of gram, cross_gram and topk_mask_rows at the main
+    shape (gram at P = 30 too), and profiled gram calls at P = 10 and 30 and
+    a cross_gram call, each of which must be one kernel launch."""
     from torch.profiler import ProfilerActivity, profile
 
     g = kgram.gram_plan(u)
     print(f"  gram plan P={u.shape[0]}: {g.n_splits} blocks of {kgram.TRI_THREADS} threads taking "
           f"the {kgram.TRI_SLAB}-column slabs in turn, tile {g.tile} rows, on {g.sms} SMs "
           f"x {g.blocks_per_sm} resident blocks (occupancy query), {g.registers} registers")
+    v = torch.randn(Q_MAIN, u.shape[1], device="cuda")
+    u30 = torch.randn(30, u.shape[1], device="cuda")
+    print(f"  cross_gram plan K={u.shape[0]} Q={Q_MAIN}: {cross_plan_line(kgram.cross_plan(u, v))}")
+    print(f"  gram plan P=30 (the ring kernel, u = v): "
+          f"{cross_plan_line(kgram.cross_plan(u30, u30))}")
     t = ktopk.launch_plan(u, torch.empty_like(u), ktopk.DEFAULT_BLOCK_D)
     print(f"  topk_mask_rows plan P={u.shape[0]}: {t.grid} blocks of {ktopk.THREADS} threads "
           f"walking {t.n_tiles} tiles ({t.n_tiles / t.grid:.2f} a block), {t.items} elements a "
           f"thread, {t.vec} floats a load, on {t.sms} SMs x {t.blocks_per_sm} resident blocks "
           f"(occupancy query), {t.registers} registers")
-    kgram.gram_cuda(u)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        kgram.gram_cuda(u)
+    for label, call, want in ((f"gram at P={u.shape[0]}", lambda: kgram.gram_cuda(u), GRAM_KERNEL),
+                              ("gram at P=30", lambda: kgram.gram_cuda(u30), CROSS_KERNEL),
+                              (f"cross_gram at K={u.shape[0]} Q={Q_MAIN}",
+                               lambda: kgram.cross_gram_cuda(u, v), CROSS_KERNEL)):
+        call()
         torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and "memcpy" not in e.name.lower()
-               and "memset" not in e.name.lower()]
-    print(f"  one gram call at P={u.shape[0]} under the profiler: {len(kernels)} kernel launch "
-          f"({', '.join(n[:80] for n in kernels)})")
-    if len(kernels) != 1 or GRAM_KERNEL not in kernels[0]:
-        fail(f"gram at P={u.shape[0]}: kernels {kernels}, want one {GRAM_KERNEL}")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+        print(f"  one {label} call under the profiler: {len(kernels)} kernel launch "
+              f"({', '.join(n[:80] for n in kernels)})")
+        if len(kernels) != 1 or want not in kernels[0]:
+            fail(f"{label}: kernels {kernels}, want one {want}")
+    del v, u30
 
 
 def cifar_federation(torch) -> tuple:
@@ -1107,7 +1190,7 @@ def profile_phase(torch, ds, model, params, round_wall_s: float, rounds: int = 3
           f"median round ({round_wall_s:.3f} s)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {us / 1e3 / rounds:9.3f} ms/round  {100 * us / total_us:5.1f}%  {name[:110]}")
-    for name in ("xgram_partial_kernel", "sum_splits_kernel", GRAM_KERNEL, "aggregate_kernel"):
+    for name in (CROSS_KERNEL, GRAM_KERNEL, "aggregate_kernel"):
         us = sum(t for n, t in by_name.items() if name in n)
         print(f"  {us / 1e3 / rounds:9.3f} ms/round  {100 * us / total_us:5.1f}%  {name} (this port)")
     # vmap has no batching rule for the patch convolution's backward and
@@ -1262,8 +1345,8 @@ def compare_runs(label, a, b) -> None:
 # ---------------------------------------------------------------------------
 SCAN_ROUNDS, SCAN_CHUNK = 8, 4
 # the kernel whose launches stand for a wrapper's call under the profiler
-# (cross_gram: its split pass; at P = 10, gram takes the one-launch kernel)
-PROFILED_KERNEL = {"cross_gram": "xgram_partial_kernel", "gram": GRAM_KERNEL,
+# (each is one kernel; at P = 10, gram takes the triangle kernel)
+PROFILED_KERNEL = {"cross_gram": CROSS_KERNEL, "gram": GRAM_KERNEL,
                    "weighted_aggregate": "aggregate_kernel", "topk_mask_rows": TOPK_KERNEL,
                    "threefry_rounding": "threefry_rounding_kernel"}
 
@@ -1771,8 +1854,8 @@ KERNEL_INSTANCES = {
     DECODE_KERNEL: DECODE_INSTANCES,
     GRAM_KERNEL: GRAM_INSTANCES,
     TOPK_KERNEL: TOPK_INSTANCES,
-    "xgram_partial_kernel": 3 * 4,          # load width 1/2/4 x U row tile 4/8/12/16
-    "sum_splits_kernel": 1,
+    "cross_gram_stream_kernel": 3 * 4,      # load width 1/2/4 x U rows 4/8/12/16
+    "cross_gram_ring_kernel": 1,            # 8x8 sums a lane
     "aggregate_kernel": 3,                  # load width 1/2/4
     "threefry_normal_kernel": 1,
     "threefry_rounding_kernel": 1,
@@ -2658,10 +2741,19 @@ def kernel_variants(torch, timer, bandwidth) -> None:
         reset()
 
 
+# ``--time-kernels``' cross_gram shapes (K, Q, D): the main path, the async
+# round (and its gram at P = 30), K = 17 and 64, the fleet's Q = 1,000, and
+# the LoRA phases' ingests on gemma3-4b and recurrentgemma-2b
+CROSS_TIMED = [(K_MAIN, Q_MAIN, D_MAIN), (30, Q_MAIN, D_MAIN), (30, 30, D_MAIN), (17, Q_MAIN, D_MAIN),
+               (64, Q_MAIN, D_MAIN), (K_MAIN, 1000, D_MAIN), (4, 16, 14_901_248),
+               (4, 16, 3_258_656)]
+
+
 def time_kernels(torch, timer, bandwidth) -> None:
     """gram and topk_mask_rows at the main shape, each held against its plain
-    version first, beside their library calls: the measurement that compares
-    two source trees (``--src``) in one call."""
+    version first, beside their library calls, then cross_gram (and gram
+    where K = Q) at ``CROSS_TIMED``: the measurement that compares two source
+    trees (``--src``) in one call."""
     from repro_torch.kernels import gram as kgram
     from repro_torch.kernels import topk_mask as ktopk
 
@@ -2683,6 +2775,25 @@ def time_kernels(torch, timer, bandwidth) -> None:
               f"{warm_ms:.4f} ms")
     print(f"  reading u ({4 * K_MAIN * D_MAIN / 1e6:.1f} MB) once, torch.sum: "
           f"{timer(lambda: u.sum()):.4f} ms")
+    del u, padded
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for k, q, d in CROSS_TIMED:
+        u = torch.randn(k, d, generator=gen, device="cuda")
+        v = torch.randn(q, d, generator=gen, device="cuda")
+        check_gram(f"cross_gram K={k} Q={q} D={d}", kgram.cross_gram_cuda(u, v),
+                   kgram.cross_gram_plain(u, v), u, v, torch)
+        ms, mm_ms = timer(lambda: kgram.cross_gram_cuda(u, v)), timer(lambda: torch.mm(u, v.t()))
+        nbytes, flops = 4 * (k * d + q * d + k * q), 2 * k * q * d
+        bound = max(nbytes / bandwidth, flops / FP32_PEAK_FLOPS) * 1e3
+        print(f"  cross_gram      K={k} Q={q} D={d}: kernel {ms:.4f} ms, torch.mm {mm_ms:.4f} ms "
+              f"({ms / mm_ms:.3f}x), bound {bound:.4f} ms ({100 * bound / ms:.1f}%)")
+        if k == q:
+            ms, mm_ms = timer(lambda: kgram.gram_cuda(u)), timer(lambda: torch.mm(u, u.t()))
+            bound = max(4 * (k * d + k * k) / bandwidth, 2 * k * k * d / FP32_PEAK_FLOPS) * 1e3
+            print(f"  gram            P={k} D={d}: kernel {ms:.4f} ms, torch.mm {mm_ms:.4f} ms "
+                  f"({ms / mm_ms:.3f}x), bound {bound:.4f} ms ({100 * bound / ms:.1f}%)")
+        del u, v
+        torch.cuda.empty_cache()
 
 
 def numerics(torch) -> None:
@@ -3204,7 +3315,7 @@ def lora_group(name: str, label, op: str) -> str:
     then its ``LORA_GROUPS`` label; unlabelled GEMMs are the model's
     projections and unembedding."""
     low = name.lower()
-    if any(kernel in name for kernel in PROFILED_KERNEL.values()) or "sum_splits" in name:
+    if any(kernel in name for kernel in PROFILED_KERNEL.values()):
         return "FL server kernels (this port's)"
     if "memcpy htod" in low:
         return "H2D copies"
@@ -3636,7 +3747,7 @@ def main() -> int:
           f"({'compiled' if info.get('built') else 'cached'}) -> {info['path']}")
     bandwidth, bw_src = memory_bandwidth(torch)
     if mode == "--time-kernels":
-        print(f"gram and topk_mask_rows from {src}")
+        print(f"gram, topk_mask_rows and cross_gram from {src}")
         time_kernels(torch, Timer(torch), bandwidth)
         return 0
     ptxas = ptxas_summary(str(info.get("log", "")))

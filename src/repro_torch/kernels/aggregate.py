@@ -25,7 +25,15 @@ _BLOCKS_PER_SM = 8
 
 
 def weighted_aggregate_plain(w: torch.Tensor, u: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    return w.float() + p.float() @ u.float()
+    """w + Σ_k p_k·u_k, the weighted rows added one at a time in row order and
+    w last, as the kernel groups them.  So rows weighted 0 (an async round's
+    empty ring slots) leave the sum bitwise unchanged; a BLAS product's
+    reduction order depends on the row count."""
+    u32, p32 = u.float(), p.float()
+    acc = torch.zeros_like(w, dtype=torch.float32)
+    for k in range(u32.shape[0]):
+        acc = acc + p32[k] * u32[k]
+    return w.float() + acc
 
 
 def weighted_aggregate_cuda(w: torch.Tensor, u: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

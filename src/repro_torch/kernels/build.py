@@ -110,9 +110,19 @@ def build() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.flrce_cross_gram.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i32, p]
-    lib.flrce_cross_gram.restype = i32
-    lib.flrce_gram.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, p]
+    lib.flrce_cross_gram_stream.argtypes = [p, p, p, p, p, i64, i64, i64, i32, i32, i32, i64, i64,
+                                            i32, p]
+    lib.flrce_cross_gram_stream.restype = i32
+    lib.flrce_cross_gram_stream_occupancy.argtypes = [i32, i32, i32, ctypes.POINTER(i32),
+                                                      ctypes.POINTER(i32)]
+    lib.flrce_cross_gram_stream_occupancy.restype = i32
+    lib.flrce_cross_gram_ring.argtypes = [p, p, p, p, p, i64, i64, i64, i32, i32, i32, i32, i32,
+                                          i64, i32, i32, i32, p]
+    lib.flrce_cross_gram_ring.restype = i32
+    lib.flrce_cross_gram_ring_occupancy.argtypes = [i32, i32, ctypes.POINTER(i32),
+                                                    ctypes.POINTER(i32), ctypes.POINTER(i32)]
+    lib.flrce_cross_gram_ring_occupancy.restype = i32
+    lib.flrce_gram.argtypes = [p, p, p, p, i64, i64, i64, p]
     lib.flrce_gram.restype = i32
     lib.flrce_weighted_aggregate.argtypes = [p, p, p, p, i64, i64, i64, i32, p]
     lib.flrce_weighted_aggregate.restype = i32
@@ -128,8 +138,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flrce_decode_attention_occupancy.argtypes = [i32, i64, i64, ctypes.POINTER(i32),
                                                      ctypes.POINTER(i32)]
     lib.flrce_decode_attention_occupancy.restype = i32
-    lib.flrce_xgram_plan.argtypes = [i64, i64, i64, i32, ctypes.POINTER(i64), ctypes.POINTER(i64)]
-    lib.flrce_xgram_plan.restype = i32
     u32 = ctypes.c_uint32
     lib.flrce_threefry_normal.argtypes = [u32, u32, p, i64, i64, p]
     lib.flrce_threefry_normal.restype = i32

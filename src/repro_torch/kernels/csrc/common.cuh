@@ -105,4 +105,45 @@ __device__ __forceinline__ void bulk_to_shared(void* dst, const void* src, uint3
       : "memory");
 }
 
+// N bytes (16, 8 or 4; both addresses aligned to N) global -> shared by
+// cp.async, of which only the first src_bytes are read and the rest are
+// zeros.
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, uint32_t src_bytes) {
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "r"(src_bytes)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "n"(N), "r"(src_bytes)
+                 : "memory");
+  }
+}
+
+// cp.async groups: commit closes this thread's copies issued since the last
+// commit into a group; wait_pending blocks until at most n of its groups
+// are still in flight (n < 8).
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
+
 }  // namespace flrce

@@ -28,7 +28,9 @@ def _scale(u, v):
 
 
 @pytest.mark.parametrize("k,q,d", [(10, 100, 1), (10, 100, 2049), (1, 1, 7), (17, 33, 5000),
-                                   (10, 100, 4096), (3, 40, 65536)])
+                                   (10, 100, 4096), (3, 40, 65536), (17, 100, 595914),
+                                   (30, 100, 595914), (64, 100, 595914), (30, 1000, 595914),
+                                   (70, 150, 3001)])
 def test_cross_gram_kernel_matches_plain(cuda, k, q, d):
     from repro_torch.kernels import gram, ops
 
@@ -59,6 +61,101 @@ def test_cross_gram_kernel_at_fleet_shapes(cuda, q):
     assert ops.launch_counts()["cross_gram"] == 2
 
 
+def test_cross_gram_is_one_kernel_launch(cuda):
+    """One cross_gram call is one kernel launch: the stream kernel at
+    K ≤ 16, the ring kernel above and for gram above 16 rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import gram, ops
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    u = torch.randn(30, 100_003, generator=g, device=cuda)
+    v = torch.randn(100, 100_003, generator=g, device=cuda)
+    for call, want in ((lambda: ops.cross_gram(u, v), "cross_gram_ring_kernel"),
+                       (lambda: ops.gram(u), "cross_gram_ring_kernel"),
+                       (lambda: ops.cross_gram(u[:10], v), "cross_gram_stream_kernel")):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+        assert len(kernels) == 1 and want in kernels[0], kernels
+    assert gram.GRAM_VIA_CROSS == 2
+
+
+@pytest.mark.parametrize("shift_u,shift_v", [(1, 1), (1, 0), (2, 3), (4, 2)])
+@pytest.mark.parametrize("k,q,d", [(30, 100, 595914), (10, 100, 2049), (3, 5, 7)])
+def test_cross_gram_kernel_on_unaligned_data(cuda, k, q, d, shift_u, shift_v):
+    """Views 4, 8 or 12 bytes past a 16-byte boundary: the stream kernel
+    loads them 1 or 2 floats wide, the ring kernel copies them in 4- or
+    8-byte granules; within tolerance and bitwise repeatable."""
+    from repro_torch.kernels import gram, ops
+
+    g = torch.Generator(device=cuda).manual_seed(k * q + shift_u)
+    u = torch.randn(k * d + 4, generator=g, device=cuda)[shift_u:shift_u + k * d].view(k, d)
+    v = torch.randn(q * d + 4, generator=g, device=cuda)[shift_v:shift_v + q * d].view(q, d)
+    got = ops.cross_gram(u, v)
+    assert torch.all((got - gram.cross_gram_plain(u, v)).abs() <= 1e-4 * _scale(u, v))
+    assert torch.equal(got, ops.cross_gram(u, v))
+    assert ops.launch_counts()["cross_gram"] == 2
+
+
+@pytest.mark.parametrize("k,q", [(10, 100), (30, 100), (64, 100), (10, 1000)])
+def test_cross_gram_two_streams_agree(cuda, k, q):
+    """The same product on the current stream and on another (each with its
+    own arrival counters): bitwise equal, counters at zero after."""
+    from repro_torch.kernels import grid, ops
+
+    g = torch.Generator(device=cuda).manual_seed(k + q)
+    u = torch.randn(k, 595914, generator=g, device=cuda)
+    v = torch.randn(q, 595914, generator=g, device=cuda)
+    got = ops.cross_gram(u, v)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = ops.cross_gram(u, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, other)
+    for counters in grid.ARRIVALS.values():
+        assert int(counters.abs().sum()) == 0
+
+
+def test_cross_gram_counters_back_to_zero_between_shapes(cuda):
+    """cross_gram calls of different tilings back to back on one stream,
+    sharing the stream's counters with gram and decode attention: each
+    leaves them at 0, so a call after the others equals a fresh one."""
+    from repro_torch.kernels import grid, ops
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    u = torch.randn(30, 200_001, generator=gen, device=cuda)
+    v = torch.randn(1000, 200_001, generator=gen, device=cuda)
+    fresh = ops.cross_gram(u[:10], v[:100])
+    torch.cuda.synchronize()
+    ops.cross_gram(u, v)                      # 8 tiles
+    ops.gram(u)                               # the cross kernel with u = v
+    ops.gram(u[:10])                          # the triangle kernel
+    ops.decode_attention(*_decode_case(cuda, 1, 8, 1600, 4, 2, 256, torch.bfloat16, [1600] * 8))
+    after = ops.cross_gram(u[:10], v[:100])
+    torch.cuda.synchronize()
+    assert torch.equal(after, fresh)
+    counters = grid.arrival_counters(torch.device(cuda), torch.cuda.current_stream(), 0)
+    assert int(counters.abs().sum()) == 0
+
+
+def test_cross_plan_is_one_wave(cuda):
+    from repro_torch.kernels import gram
+
+    u, v = torch.zeros(30, 595914, device=cuda), torch.zeros(100, 595914, device=cuda)
+    plan = gram.cross_plan(u, v)
+    assert plan.blocks_per_sm >= 1 and plan.registers > 0
+    assert plan.blocks <= plan.sms * plan.blocks_per_sm
+    assert plan.tiles == 1 and plan.smem <= gram.CROSS_SMEM_BUDGET
+    assert gram.cross_plan(u, u).same
+
+
 @pytest.mark.parametrize("p,d", [(10, 1), (10, 2049), (1, 595914), (17, 5000)])
 def test_gram_kernel_matches_plain(cuda, p, d):
     from repro_torch.kernels import gram, ops
@@ -76,7 +173,8 @@ def test_gram_kernel_matches_plain(cuda, p, d):
 def test_gram_kernel_symmetric_and_repeatable(cuda, p, d):
     """Within 1e-4·‖u_i‖‖u_j‖ of the plain version, exactly symmetric, and
     bitwise equal on a second call and on a second stream; one wrapper
-    launch per call (one kernel for P ≤ 16, the cross kernel's two above)."""
+    launch per call (the triangle kernel for P ≤ 16, the cross kernel
+    above)."""
     from repro_torch.kernels import gram, ops
 
     u = torch.randn(p, d, generator=torch.Generator(device=cuda).manual_seed(p * d), device=cuda)
@@ -97,8 +195,8 @@ def test_gram_kernel_symmetric_and_repeatable(cuda, p, d):
 @pytest.mark.parametrize("p,d", [(10, 595914), (3, 2049)])
 def test_gram_kernel_on_unaligned_data(cuda, p, d):
     """Data 4 bytes past a 16-byte boundary takes the cross kernel; data 16
-    bytes past one the one-launch kernel, whose copies start at 16-byte
-    floors: both within tolerance and exactly symmetric."""
+    bytes past one the triangle kernel, whose copies start at 16-byte
+    floors: both one launch, within tolerance and exactly symmetric."""
     from repro_torch.kernels import gram, ops
 
     flat = torch.randn(p * d + 4, generator=torch.Generator(device=cuda).manual_seed(d),
@@ -554,7 +652,7 @@ def test_synthetic_delays_in_a_captured_graph_match_cpu(cuda):
 @pytest.mark.parametrize("k", [17, 30])
 @pytest.mark.parametrize("d", [2049, 595914])
 def test_gram_kernel_at_async_buffer_rows(cuda, k, d):
-    """Above 16 rows ``gram`` takes the two-launch cross kernel: the async
+    """Above 16 rows ``gram`` takes the cross kernel with u = v: the async
     round's (3·P, D) arrival buffer at P = 10, and a ring's row slices."""
     from repro_torch.kernels import gram, ops
 
@@ -567,6 +665,29 @@ def test_gram_kernel_at_async_buffer_rows(cuda, k, d):
         assert torch.equal(got, got.T)
         assert ops.launch_counts()["gram"] == 1 and ops.launch_counts()["cross_gram"] == 0
         assert gram.GRAM_VIA_CROSS == 1
+
+
+@pytest.mark.parametrize("d", [2049, 595914])
+@pytest.mark.parametrize("p", [17, 20, 30, 32, 33, 48, 64, 65])
+def test_gram_above_16_rows_through_the_cross_kernel(cuda, p, d):
+    """gram at P = 17..65 runs the ring kernel with u = v (one copy of each
+    slab for both operands; 65 rows take two tiles): within tolerance,
+    exactly symmetric, bitwise equal on a second call and a second stream."""
+    from repro_torch.kernels import gram, ops
+
+    u = torch.randn(p, d, generator=torch.Generator(device=cuda).manual_seed(p + d), device=cuda)
+    got = ops.gram(u)
+    assert gram.GRAM_VIA_CROSS == 1 and ops.launch_counts()["cross_gram"] == 0
+    assert gram.cross_plan(u, u).same == (p <= 64)
+    assert torch.all((got - gram.gram_plain(u)).abs() <= 1e-4 * _scale(u, u))
+    assert torch.equal(got, got.T)
+    assert torch.equal(got, ops.gram(u))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = ops.gram(u)
+    torch.cuda.synchronize()
+    assert torch.equal(got, other)
 
 
 # --- decode_attention and the serving path ------------------------------------

@@ -337,3 +337,106 @@ def test_gram_one_launch_needs_few_aligned_rows():
 def test_gram_plan_splits_refuses_an_empty_card():
     with pytest.raises(ValueError):
         tgram.plan_gram_splits(595914, 0, 1)
+
+
+# --- launch planning of the cross kernels (cross_gram, gram above 16 rows) ------
+
+
+@pytest.mark.parametrize("k,route,kt", [(1, "stream", 4), (4, "stream", 4), (5, "stream", 8),
+                                        (12, "stream", 12), (16, "stream", 16), (17, "ring", 32),
+                                        (32, "ring", 32), (33, "ring", 64), (64, "ring", 64),
+                                        (1000, "ring", 64)])
+def test_cross_route_and_u_tile(k, route, kt):
+    p = tgram.plan_cross_gram(k, 100, 595914, 132, 1)
+    assert (p.route, p.kt) == (route, kt)
+
+
+@pytest.mark.parametrize("k,q,d,per_sm,vec,same,want", [
+    # stream: (kt, qt, n_qt, warps, n_splits, chunk, group); ring: (kt, qt, n_qt, slab,
+    # stages, n_splits, group).  Ingest at the main path: 4 V tiles of 32 rows.
+    (10, 100, 595914, 4, 2, False, (12, 32, 4, 8, 132, 4544, 12)),
+    # the fleet's exact maps: Q = 1,000 in 32 tiles
+    (10, 1000, 595914, 4, 2, False, (12, 32, 32, 8, 16, 37248, 4)),
+    (10, 40, 595914, 4, 2, False, (12, 32, 2, 8, 259, 2304, 17)),
+    # the LoRA and RG-LRU ingests
+    (4, 16, 14901248, 8, 4, False, (4, 16, 1, 4, 1049, 14208, 33)),
+    (4, 16, 3258656, 8, 4, False, (4, 16, 1, 4, 1019, 3200, 32)),
+    (1, 1, 1, 8, 1, False, (4, 4, 1, 1, 1, 32, 1)),
+    # the async round's K = 30: one ring tile, so U and V each cross memory once
+    (30, 100, 595914, 1, 2, False, (32, 128, 1, 128, 3, 132, 12)),
+    (17, 100, 595914, 1, 2, False, (32, 128, 1, 128, 3, 132, 12)),
+    (64, 100, 595914, 1, 2, False, (64, 128, 1, 64, 4, 132, 12)),
+    # gram above 16 rows: one copy of each slab serves both operands
+    (30, 30, 595914, 1, 2, True, (32, 32, 1, 512, 3, 132, 12)),
+    (64, 64, 595914, 1, 2, True, (64, 64, 1, 256, 3, 132, 12)),
+    (100, 300, 5000, 1, 2, False, (64, 128, 3, 64, 4, 22, 5)),
+])
+def test_plan_cross_gram(k, q, d, per_sm, vec, same, want):
+    p = tgram.plan_cross_gram(k, q, d, 132, per_sm, same, vec)
+    if p.route == "stream":
+        assert (p.kt, p.qt, p.n_qt, p.warps, p.n_splits, p.chunk, p.group) == want
+    else:
+        assert (p.kt, p.qt, p.n_qt, p.slab, p.stages, p.n_splits, p.group) == want
+        assert p.same == same and p.smem <= tgram.CROSS_SMEM_BUDGET <= 227 * 1024
+
+
+@pytest.mark.parametrize("d,sms,per_sm,vec", [(1, 132, 1, 1), (7, 132, 1, 1), (2049, 132, 2, 1),
+                                              (595914, 132, 1, 2), (595914, 16, 3, 2),
+                                              (14901248, 132, 8, 4)])
+def test_plan_cross_gram_lays_out_any_shape(d, sms, per_sm, vec):
+    """Any K, Q, D: tiles cover the rows, the blocks make at most one wave
+    where the tiles allow, the splits cover D (a chunk a multiple of a
+    warp's loads; or every ring block takes a slab, its warps make 8, its
+    ring and its block's sum fit the shared memory and that fits 227 KB),
+    and the groups cover the splits."""
+    for k in (1, 2, 3, 4, 5, 7, 8, 9, 10, 12, 16, 17, 30, 31, 32, 33, 40, 64, 65, 129, 300):
+        for q in (1, 3, 16, 17, 33, 100, 128, 129, 1000):
+            p = tgram.plan_cross_gram(k, q, d, sms, per_sm, vec=vec)
+            assert p.n_kt * p.kt >= k > (p.n_kt - 1) * p.kt
+            assert p.n_qt * p.qt >= q > (p.n_qt - 1) * p.qt
+            assert p.blocks <= max(sms * per_sm, p.tiles)
+            assert p.group * p.n_groups >= p.n_splits > p.group * (p.n_groups - 1)
+            assert p.counters == p.tiles * (p.n_groups + 1)
+            assert p.slot == min(k, p.kt) * min(q, p.qt)
+            assert p.partial_floats == p.tiles * p.n_splits * p.slot
+            if p.route == "stream":
+                assert k <= tgram.STREAM_MAX_K and p.n_kt == 1 and p.kt in tgram.STREAM_TILES
+                assert p.qt == tgram.STREAM_ROWS_PER_WARP * p.warps and p.warps <= 8
+                assert p.chunk % (32 * vec) == 0
+                assert p.n_splits * p.chunk >= d > (p.n_splits - 1) * p.chunk
+                continue
+            assert k > tgram.STREAM_MAX_K
+            assert p.kt == 32 * p.wk and p.qt == 32 * p.wq <= tgram.CROSS_MAX_QT
+            assert p.wk * p.wq * p.wc == p.warps in tgram.RING_WARPS
+            rows = min(k, p.kt) + min(q, p.qt)
+            assert p.slab % 32 == 0 and p.stage_bytes == rows * (p.slab + tgram.CROSS_ROW_PAD) * 4
+            assert 2 <= p.stages <= tgram.CROSS_MAX_STAGES and p.stages * p.stage_bytes <= p.smem
+            assert p.wc * p.kt * p.qt * 4 <= p.smem <= tgram.CROSS_SMEM_BUDGET
+            assert 1 <= p.n_splits <= -(-d // p.slab)
+
+
+def test_plan_cross_gram_fills_stages_before_slabs():
+    """The ring's widest slab whose stages fit three times: more rows a
+    stage take narrower slabs, and a stage never holds fewer than 3 slabs'
+    rows where 32 columns allow."""
+    wide = tgram.plan_cross_gram(64, 128, 595914, 132, 1)
+    narrow = tgram.plan_cross_gram(17, 1, 595914, 132, 1)
+    assert wide.slab < narrow.slab == tgram.CROSS_SLABS[0]
+    for p in (wide, narrow):
+        assert p.stages >= tgram.CROSS_MIN_STAGES
+
+
+def test_plan_cross_gram_same_needs_one_ring_tile():
+    assert tgram.plan_cross_gram(30, 30, 1000, 132, 1, same=True).same
+    assert not tgram.plan_cross_gram(100, 100, 1000, 132, 1, same=True).same   # two K tiles
+    assert not tgram.plan_cross_gram(10, 10, 1000, 132, 1, same=True).same     # the stream kernel
+    with pytest.raises(ValueError):
+        tgram.plan_cross_gram(30, 31, 1000, 132, 1, same=True)
+
+
+@pytest.mark.parametrize("args", [(10, 100, 595914, 0, 1), (10, 100, 595914, 132, 0),
+                                  (0, 100, 595914, 132, 1), (10, 0, 595914, 132, 1),
+                                  (10, 100, 0, 132, 1), (10, 100, 595914, 132, 1, False, 3)])
+def test_plan_cross_gram_refuses_an_empty_card_or_operand(args):
+    with pytest.raises(ValueError):
+        tgram.plan_cross_gram(*args)
