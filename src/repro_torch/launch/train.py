@@ -46,7 +46,6 @@ from repro_torch.kernels import ops as kops
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import MLPClassifier, TransformerLM, param_count
 from repro_torch.models.lm import flat_from_lm, lm_from_flat
-from repro_torch.models.transformer import check_trainable
 from repro_torch.optim import sgd
 
 STRATS = {
@@ -82,7 +81,6 @@ def run_pretrain_mode(args, params: Optional[Dict[str, Any]] = None) -> dict:
     ``params`` (``TransformerLM`` parameters on the device) replaces the
     random draw, so a caller can start from given weights."""
     cfg = get_arch(args.arch, reduced=not args.full_config)
-    check_trainable(cfg, "launch.train --mode pretrain")
     dev = resolve_device(args.device)
     model = TransformerLM(cfg, remat=True)
     if params is None:

@@ -50,7 +50,6 @@ import torch
 from repro_torch import random
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.transformer import check_trainable
 
 Params = Dict[str, torch.Tensor]
 
@@ -68,8 +67,6 @@ class LoRAClassifier:
     def __init__(self, base, base_params: Params, rank: int, *, scale: float = 1.0,
                  targets: Sequence[str] = DEFAULT_TARGETS, exact: bool = False,
                  train_rest: bool = False):
-        if getattr(base, "cfg", None) is not None:
-            check_trainable(base.cfg, "LoRAClassifier")
         self.base = base
         self.base_params = dict(base_params)
         self.rank = int(rank)

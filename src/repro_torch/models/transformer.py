@@ -35,8 +35,10 @@ reference returns them beside a zero aux term.  ``remat`` is a memory
 policy, not semantics: each layer is recomputed in the backward pass
 (``torch.utils.checkpoint``) where the reference checkpoints each scanned
 cycle and each rest block; each loss chunk is recomputed either way, as in
-the reference.  Gradients flow through every block kind, but the federated
-and launch-level training paths refuse xLSTM (``check_trainable``).
+the reference.  Gradients flow through every block kind: autograd carries
+them through the mLSTM's chunkwise form and the RG-LRU's scan, and the
+sLSTM's loop carries its derivatives written out (``ssm._SLSTMSequence``);
+the in-place decode steps stay off training.
 """
 from __future__ import annotations
 
@@ -79,18 +81,6 @@ def check_supported(cfg: ArchConfig) -> None:
             f"{cfg.name}: {', '.join(later)} wait for a later slice of the port; this one runs "
             f"the dense attention-only architectures, the RG-LRU hybrid and xLSTM"
         )
-
-
-def check_trainable(cfg: ArchConfig, who: str) -> None:
-    """Raise ``NotImplementedError`` for a model with xLSTM (mLSTM or sLSTM)
-    blocks where the federated and launch-level training paths would take
-    it: the port serves xLSTM models; their training waits for ROADMAP
-    A.7.7."""
-    kinds = sorted({MLSTM, SLSTM} & set(cfg.layer_kinds()))
-    if kinds:
-        raise NotImplementedError(
-            f"{who}: {cfg.name} has xLSTM blocks {kinds}, whose training waits for ROADMAP "
-            f"A.7.7 (xLSTM training); this slice of the port serves them")
 
 
 # ===========================================================================

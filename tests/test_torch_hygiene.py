@@ -214,40 +214,39 @@ def test_training_entry_points_default_to_cuda():
 
 
 def test_training_entry_points_refuse_rglru_models():
-    """RG-LRU training is ported (the name is this test's from when the
-    entry points refused it): LMClassifier, LoRAClassifier and launch/
-    train.py's pretrain mode run recurrentgemma-2b on the CPU, while xLSTM
-    training waits for a later slice and each of them raises
-    NotImplementedError naming its ROADMAP item."""
-    import types
-
+    """RG-LRU and xLSTM training are ported (the name is this test's from
+    when the entry points refused them): LMClassifier, LoRAClassifier and
+    launch/train.py's pretrain mode train reduced recurrentgemma-2b and
+    reduced xlstm-1.3b on the CPU to a finite loss with finite gradients."""
     from repro_torch.configs import get_arch
     from repro_torch.launch import train
+
+    for arch in ("recurrentgemma-2b", "xlstm-1.3b"):
+        _trains_to_a_finite_loss(get_arch(arch, reduced=True))
+        out = train.run_pretrain_mode(train.build_parser().parse_args(
+            ["--mode", "pretrain", "--arch", arch, "--device", "cpu", "--rounds", "1",
+             "--silos", "2", "--participants", "1", "--local-steps", "1", "--batch", "1",
+             "--seq", "8"]))
+        assert out["rounds"] == 1 and math.isfinite(out["final_loss"]), arch
+
+
+def _trains_to_a_finite_loss(cfg):
+    """LMClassifier and LoRAClassifier on ``cfg``: finite losses and
+    gradients for the full model and for the adapters."""
     from repro_torch.models import LMClassifier, LoRAClassifier
 
-    cfg = get_arch("recurrentgemma-2b", reduced=True)
     model = LMClassifier(cfg, seq_len=6)
     params = model.init(0, "cpu")
-    lora = LoRAClassifier(model, params, rank=2)
     x = torch.randint(0, cfg.vocab_size, (2, 6), generator=torch.Generator().manual_seed(0))
+    live = {k: v.requires_grad_(True) for k, v in params.items()}
+    loss = model.loss(live, x.float(), x[:, 0])
+    grads = torch.autograd.grad(loss, list(live.values()))
+    assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
+    lora = LoRAClassifier(model, {k: v.detach() for k, v in params.items()}, rank=2)
     adapters = {k: v.requires_grad_(True) for k, v in lora.init(0, "cpu").items()}
     loss = lora.loss(adapters, x.float(), x[:, 0])
     grads = torch.autograd.grad(loss, list(adapters.values()))
     assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
-    out = train.run_pretrain_mode(train.build_parser().parse_args(
-        ["--mode", "pretrain", "--arch", "recurrentgemma-2b", "--device", "cpu", "--rounds", "1",
-         "--silos", "2", "--participants", "1", "--local-steps", "1", "--batch", "1",
-         "--seq", "8"]))
-    assert out["rounds"] == 1 and math.isfinite(out["final_loss"])
-
-    xl = get_arch("xlstm-1.3b", reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7.7"):
-        LMClassifier(xl, seq_len=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7.7"):
-        LoRAClassifier(types.SimpleNamespace(cfg=xl, name="lm"), {}, rank=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7.7"):
-        train.main(["--mode", "pretrain", "--arch", "xlstm-1.3b", "--device", "cpu",
-                    "--rounds", "1"])
 
 
 def test_lora_example_defaults_to_cuda():
