@@ -6,8 +6,8 @@
 
 With no argument every phase below runs.  ``--phases`` runs only the named
 phases (``PHASES``: 1, 2, 2b, 2c, 2e, 2f, 2d, 3, 4, 4b, 5, 5b, 6, 6b, 7,
-7b, 8, 8b, 9, 9b, 10, 11), after the same build and ptxas gate and with the
-same checks;
+7b, 8, 8b, 9, 9b, 10, 11, 12, 12b, 12c, 12d), after the same build and
+ptxas gate and with the same checks;
 phases 2b, 2e and 2f then build phase 2's federation without its run, and
 phase 2c needs phase 2.  The kernels line lists the rows of the phases that
 ran.
@@ -26,8 +26,10 @@ ran.
    Kernel phase: holds each kernel against its plain PyTorch version on the
    card, at the main paths' shapes (K = P = 10, Q = M = 100, D = 595,914;
    gemma3-4b's decode attention at the serve run's last step and at a 32k
-   cache, recurrentgemma-2b's ring layer at G = 10) and at edge shapes (G = 9,
-   10 and 16 among them), and times the kernel, the plain version and one
+   cache, recurrentgemma-2b's ring layer at G = 10, the MoE models' layers
+   at G = 6, head_dim 128: dbrx-132b's global cache and mixtral-8x22b's ring
+   at phase 12's last step, and mixtral's 4,096-slot ring wrapped) and at
+   edge shapes (G = 9, 10 and 16 among them), and times the kernel, the plain version and one
    PyTorch library call computing the same function (CUDA events, L2
    flushed before every launch), beside the least time the card could take.
    ``topk_mask_rows`` must equal its plain version bitwise, ties, NaN, ±inf,
@@ -119,32 +121,32 @@ ran.
    plain versions) must make the same selections, exploit flags, stop
    decision and ledger charges, with accuracies and losses within fp32
    tolerance; the no-ES run must run all 25 rounds as ``flrce_no_es``.
-4. Serving: gemma3-4b at full width (3.88 B parameters, bf16, 34 layers,
-   the reference's ``init(PRNGKey(0))`` drawn on the card by the Threefry
+4. Serving: gemma3-4b at full width, 12 of its 34 layers (1.80 B
+   parameters, bf16: two cycles of 5 local layers and a global one; the reference's ``init(PRNGKey(0))`` drawn on the card by the Threefry
    kernel, one launch a leaf: every leaf at 4,096 sampled indices, the
    embedding's last row among them, bitwise the plain version's draw under
    the reference's key; init time printed) through
    ``repro_torch.launch.serve.generate``:
    8 requests × (1088 prompt + 64 generated) tokens, cache_len 1152, so the
-   29 local layers' 1024-slot rings wrap.  ``decode_attention`` must launch
-   34 times per decode step (34 × 1151), with the counts reset just before
+   10 local layers' 1024-slot rings wrap.  ``decode_attention`` must launch
+   12 times per decode step (12 × 1151), with the counts reset just before
    and read just after.  Prints prefill and generation wall time, tokens/s,
    per-step wall time and peak memory; then 8 decode steps under
    ``torch.profiler``: device time by kernel and the busy share, with
    exactly one ``decode_attention_kernel`` launch per layer per step.
-   4b. Serving recurrentgemma-2b at full width (26 layers: 18 RG-LRU blocks
-   and 8 local attention layers with 10 query heads over one KV head; the
-   tree ``init`` builds holds 2,304,888,320 parameters, fp32 RG-LRU gates
+   4b. Serving recurrentgemma-2b at full width, 11 of its 26 layers (8
+   RG-LRU blocks and 3 local attention layers with 10 query heads over one
+   KV head; the tree ``init`` builds holds 1,347,704,320 parameters, fp32 RG-LRU gates
    and bf16 elsewhere; seed 0's weights drawn and checked as in phase 4,
    fp32 RG-LRU gates and Λ included), the reference serve
    CLI's default model: 8 requests × (2112 prompt + 64 generated) tokens,
    cache_len 2176, so the 2,048-slot rings wrap.  ``decode_attention`` must
-   launch 8 × 2175 times; at the last step each attention layer's kernel
+   launch 3 × 2175 times; at the last step each attention layer's kernel
    output on its own ring is held against the plain version.  Prints the
    same serving numbers as phase 4; then 8 steps under ``torch.profiler``
    by group (RG-LRU fp32 gate products, bf16 projections, conv and
    recurrence work, q/k/v/o, MLP, decode attention, unembed, the rest) and
-   the busy share.  Then the model in fp32 (9.2 GB): decode-step logits
+   the busy share.  Then the whole 26-layer model in fp32 (9.2 GB): decode-step logits
    over 64 positions at B = 2 within 1e-3 of max|logit| of ``forward``'s.
 5. A small gemma3-family model (8 layers, window 8, fp32) teacher-forced over
    20 positions on the card and on the CPU: logits within 1e-4 of
@@ -152,12 +154,12 @@ ran.
    5b. The same for a small recurrentgemma-family model (the CPU tests'
    config: 8 layers, 10 heads over one KV head, window 8) over 24
    positions.
-6. Federated LoRA fine-tuning of gemma3-4b at full width (3.88 B bf16
-   parameters, 34 layers, seed 0's weights drawn and checked as in phase 4;
+6. Federated LoRA fine-tuning of gemma3-4b at full width, 12 of its 34
+   layers (1.80 B bf16 parameters, seed 0's weights drawn and checked as in phase 4;
    the adapters drawn on the card too, each A at 4,096 sampled indices
    against the plain version) through
    ``run_federated``: ``LMClassifier(cfg, seq_len=128)`` wrapped in
-   ``LoRAClassifier(rank=8)`` (D = 14,901,248 over 70 target leaves), 16
+   ``LoRAClassifier(rank=8)`` (D = 5,259,264 over 42 target leaves), 16
    clients of 32 sequences from ``make_federated_lm`` (vocab 262,144) and 64
    eval sequences; FLrce (P = 4, 3 rounds, lr 0.01, batch 8, batched
    engine, loop driver), then FedAvg and Fedcom (keep 0.1) for 1 round
@@ -181,11 +183,11 @@ ran.
    ``driver="scan"`` (a captured round) against the loop: selections,
    exploit flags, stops and ledger equal, accuracy within 2e-3, losses
    within 1e-4.
-7. Federated LoRA fine-tuning of recurrentgemma-2b at full width (26
-   layers, bf16 with fp32 RG-LRU gates, seed 0's weights drawn and checked
+7. Federated LoRA fine-tuning of recurrentgemma-2b at full width (11 of
+   its 26 layers, bf16 with fp32 RG-LRU gates, seed 0's weights drawn and checked
    as in phase 4b) as phase 6 runs gemma3-4b: ``LoRAClassifier(rank=8)``
    adapts the attention layers' and MLPs' projections and every RG-LRU
-   block's conv ``w`` (D = 3,258,656 over 11 stacked target leaves), the
+   block's conv ``w`` (D = 1,241,216 over 11 stacked target leaves), the
    same federation at vocab 256,000, FLrce 3 rounds, FedAvg and Fedcom 1
    each, checks (a) to (d), the four FL kernels at the phase's operands,
    and its FedAvg round's profile by group (RG-LRU blocks among them).
@@ -212,10 +214,10 @@ ran.
    fp32) teacher-forced over 20 positions on the card and on the CPU as in
    phase 5, and the reference CLI's serve case (``--arch xlstm-1.3b --batch
    2 --prompt-len 4 --gen 4``, reduced, fp32): tokens equal.
-9. Federated LoRA fine-tuning of xlstm-1.3b at full width (seed 0's
-   weights drawn and checked as in phase 4) as phase 6 runs gemma3-4b:
+9. Federated LoRA fine-tuning of xlstm-1.3b at full width, 16 of its 48
+   layers (seed 0's weights drawn and checked as in phase 4) as phase 6 runs gemma3-4b:
    ``LoRAClassifier(rank=8)`` adapts each mLSTM's ``wq``, ``wk``, ``wv``,
-   ``wo`` and fp32 ``wi`` and each sLSTM's ``wi`` (D = 8,798,880 over 36
+   ``wo`` and fp32 ``wi`` and each sLSTM's ``wi`` (D = 2,932,960 over 36
    stacked leaves), vocab 50,304, each client's 32 sequences in one batch;
    checks (a) to (d) ((d)'s batched side is the run's own round-0 rows,
    one batch being a client's round), the four FL kernels, the FedAvg
@@ -240,6 +242,43 @@ ran.
    equal).  The CPU runs, and phase 2d's federation, are made by a worker
    process (``--cpu-side DIR PARTS``) that the smoke starts after the build
    and stops at its end.
+12. Serving mixtral-8x22b at full width, 12 of its 56 layers (d_model
+   6,144, 48 heads over 8 KV heads, d_ff 16,384, 8 experts top-2, a 4,096
+   window, vocab 32,768, bf16 with the routers fp32: 30,451,390,464
+   parameters, 60.9 GB; seed 0's weights drawn and checked as in phase 4,
+   the router and each expert of each stacked leaf at 4,096 indices)
+   through ``generate``: 8 requests × (128 prompt + 32 generated) tokens,
+   159 steps, ``decode_attention`` launched 12 times a step; the serving
+   numbers of phase 4, the step's two bounds at the measured bandwidth
+   (the implementation's: the bytes the drop-free step reads, every expert
+   included; the function's: only the experts this run's tokens were
+   routed to, each step's, and the KV slots it reads), two decode steps under
+   ``set_sync_debug_mode("error")`` (the routing reads nothing back to the
+   host) and 8 steps under ``torch.profiler`` by group (attention,
+   ``decode_attention``, router and top-k, slotting, expert products,
+   dispatch and combine, norms) with the busy share.  Then a second run
+   drives the ring past its window: the first layer alone at full width
+   (2,906,720,256 parameters), 8 requests × (4,468 prompt + 32 generated)
+   tokens, 4,499 steps, 403 of them past the 4,096 slots; the counts are
+   reset around it and give the wrapped row's launches, and the last
+   step's kernel output is held against the plain version.
+   12b. The same for dbrx-132b, 9 of its 40 layers (16 experts top-4,
+   global attention, layernorm, vocab 100,352: 30,564,894,720 parameters
+   by the config's count, 30,565,011,456 in the built tree with the
+   layernorms' biases; 61.1 GB).
+   12c. Both models at full width in fp32, 2 layers each (5.41 B and 7.75 B
+   parameters), one after the other: decode-step logits over 48 positions
+   at B = 2 within 1e-4 of max|logit| of the drop-free ``forward``'s; every
+   token's experts equal in both runs, a difference allowed only where the
+   forward side's gap between the k-th and (k+1)-th router probability is
+   under 1e-6 (the smallest gap printed); two planted faults in the
+   decode's routing (the (k+1)-th expert in place of the k-th, the gates
+   not renormalised) must each pass the limit.
+   12d. The reduced mixtral and dbrx models in fp32 on the card against
+   the CPU: ``forward`` and ``loss`` (nll + aux) at capacity factor 1.25 in
+   one group, in groups of 16 that pad 40 tokens, and at 0.5 (tokens
+   dropped, as many on both), logits within 1e-4 of max|logit| and loss
+   within 1e-5 relative; greedy tokens through ``generate`` equal.
 
 Measurement modes, which print no result line:
 ``--decode-variants`` builds and times variants of the ``decode_attention``
@@ -259,7 +298,11 @@ phase 2c's norm check reads for a sequential engine with a planted fault.
 
 The second-to-last line is the kernels' JSON record (the five kernels at
 their phase 1 shapes, ``decode_attention@recurrentgemma-2b`` at its ring
-layer with phase 4b's launches, the two Threefry kernels at their phase 1
+layer with phase 4b's launches, ``decode_attention@mixtral-8x22b`` (its
+ring at the serve run's last step), ``decode_attention@mixtral-8x22b-wrapped``
+(its 4,096-slot ring wrapped) and ``decode_attention@dbrx-132b`` (its global
+cache) at their phase 1 shapes with phase 12's two runs' and 12b's launches, the two
+Threefry kernels at their phase 1
 shapes with phase 2b's QuantizedFL and phase 4's init launches, then the
 four FL kernels at phase 6's as ``<name>@gemma3-4b-lora``, with phase 6's
 launches, and at phase 7's as ``<name>@recurrentgemma-2b-lora``, with phase
@@ -311,7 +354,7 @@ THREEFRY_INT_OPS = 43
 L2_FLUSH_BYTES = 1 << 30
 # the phases, in the order they run; ``--phases`` picks some of them
 PHASES = ("1", "2", "2b", "2c", "2e", "2f", "2d", "3", "4", "4b", "5", "5b", "6", "6b", "7", "7b",
-          "8", "8b", "9", "9b", "10", "11")
+          "8", "8b", "9", "9b", "10", "11", "12", "12b", "12c", "12d")
 # measurement modes: they print no result line
 MODES = ("--decode-variants", "--kernel-variants", "--time-kernels", "--numerics",
          "--xlstm-gap")
@@ -1963,17 +2006,22 @@ def async_phase(torch, timer, bandwidth, ds, model, params, scan_runs) -> tuple:
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 1088, 64
 SERVE_CACHE = SERVE_PROMPT + SERVE_GEN           # 1152: the 1,024-slot local rings wrap
 SERVE_STEPS = SERVE_PROMPT + SERVE_GEN - 1       # 1151 decode steps
-GEMMA3_LAYERS, GEMMA3_PARAMS = 34, 3_879_907_840
-# recurrentgemma-2b at serving: 18 RG-LRU blocks and 8 local attention layers
-# (2,048-slot rings; 10 query heads over one KV head, head_dim 256)
+# served at 12 of its 34 layers (10 local, whose rings wrap, and 2 global)
+# to keep the smoke within its time: the step is host-bound, about 1.4 ms a
+# layer
+SERVE_LAYERS, SERVE_PARAMS = 12, 1_803_614_720
+# recurrentgemma-2b at serving, 11 of its 26 layers (3 cycles of 2 RG-LRU
+# blocks and a local attention layer, then the 2 RG-LRU rest layers), cut as
+# gemma3-4b is; 2,048-slot rings; 10 query heads over one KV head, head_dim 256
 RG_ARCH = "recurrentgemma-2b"
+RG_LAYERS = 11
 RG_B, RG_PROMPT, RG_GEN = 8, 2112, 64
 RG_CACHE = RG_PROMPT + RG_GEN                    # 2176: the rings wrap
 RG_STEPS = RG_CACHE - 1                          # 2175 decode steps
 RG_WINDOW, RG_GROUP = 2048, 10
-RG_ATTN_LAYERS = 8
-RG_PARAMS = 2_304_888_320          # the tree init builds (an RG-LRU block has no MLP)
-RG_CONFIG_PARAMS = 2_835_637_760   # ArchConfig.param_count(): the reference books one anyway
+RG_ATTN_LAYERS = 3
+RG_PARAMS = 1_347_704_320          # the tree init builds (an RG-LRU block has no MLP)
+RG_CONFIG_PARAMS = 1_583_592_960   # ArchConfig.param_count(): the reference books one anyway
 RG_FP32_B, RG_FP32_POSITIONS = 2, 64
 RG_FP32_RTOL = 1e-3        # decode-step logits against forward's on the card, |Δ| / max|logit|:
                            # fp32 through 26 layers, the scan against the step recurrence
@@ -1981,6 +2029,9 @@ DECODE_FP32_RTOL = 1e-5    # |Δ| ≤ 1e-5·max|V|: fp32 sums reordered across s
                            # (+ half a bf16 ulp for a bf16 output's rounding)
 SERVE_LOGIT_RTOL = 1e-4    # GPU vs CPU logits, |Δ| / max|logit|, fp32 end to end
 DECODE_KERNEL = "decode_attention_kernel"   # the one kernel a decode_attention call launches
+# the kernel of ``torch.cuda._sleep``, launched as a marker in a profile, and
+# its cycles (about half a microsecond)
+PROFILE_MARK, PROFILE_MARK_CYCLES = "spin_kernel", 1000
 DECODE_INSTANCES = 2 * 3 * 8                # fp32/bf16 x hd 64/128/256 x a block's G 1..8
                                             # (groups of 9..16 run as two sub-groups)
 GRAM_INSTANCES = 4                          # row tile 4/8/12/16
@@ -2023,6 +2074,13 @@ DECODE_EDGES = [
     ("G16 hd64", 2, 1000, 1, 16, 64, "fp32", [1000, 999], 0, False),
 ]
 RG_ROW = "ring@recurrentgemma-2b"   # phase 1's timed shape at recurrentgemma-2b's ring layer
+# phase 1's timed shapes at the MoE models' layers: dbrx-132b's global cache
+# and mixtral-8x22b's ring at the serve run's last step (160 slots), and
+# mixtral's whole 4,096-slot window wrapped
+DBRX_ROW, MX_ROW, MX_WRAPPED_ROW = "global@dbrx-132b", "ring@mixtral-8x22b", "wrapped@mixtral-8x22b"
+MX_WINDOW, MX_WRAPPED_LENGTH = 4096, 4500
+# phase 12's wrapping run: mixtral's first layer alone at full width
+MX_WRAPPED_LAYERS, MX_WRAPPED_PARAMS = 1, 2_906_720_256
 
 
 def decode_inputs(torch, gen, b, s, kv, g, hd, dtype, lengths):
@@ -2097,23 +2155,30 @@ def decode_kernel_phase(torch, timer, bandwidth) -> dict:
         print(f"  decode_attention edge {label:<28} B={b} S={s:5d} K={kv} G={g} hd={hd} {dtype}: "
               f"max |Δ| {err:.2e}")
     rows = {}
-    # (label, B, S, length, window, ring, K, G): gemma3-4b's global layer at the
-    # serve run's last step, a local ring layer there, decode_32k's cache (B
-    # cut to 16), and recurrentgemma-2b's ring layer at phase 4b's last step
-    for label, b, s, length, window, ring, kv, g in (
-            ("global", SERVE_B, SERVE_CACHE, SERVE_CACHE, 0, False, 4, 2),
-            ("ring", SERVE_B, 1024, SERVE_CACHE, 1024, True, 4, 2),
-            ("32k", 16, 32_768, 32_768, 0, False, 4, 2),
-            (RG_ROW, RG_B, RG_WINDOW, RG_STEPS, RG_WINDOW, True, 1, RG_GROUP)):
-        q, k, v, lens = decode_inputs(torch, gen, b, s, kv, g, 256, "bf16", [length] * b)
+    # (label, B, S, length, window, ring, K, G, hd): gemma3-4b's global layer at
+    # the serve run's last step, a local ring layer there, decode_32k's cache
+    # (B cut to 16), recurrentgemma-2b's ring layer at phase 4b's last step,
+    # and the MoE models' layers at phases 12's and 12b's last step (dbrx's
+    # global cache; mixtral's 160-slot ring under its 4,096 window) and
+    # mixtral's 4,096-slot ring wrapped
+    for label, b, s, length, window, ring, kv, g, hd in (
+            ("global", SERVE_B, SERVE_CACHE, SERVE_CACHE, 0, False, 4, 2, 256),
+            ("ring", SERVE_B, 1024, SERVE_CACHE, 1024, True, 4, 2, 256),
+            ("32k", 16, 32_768, 32_768, 0, False, 4, 2, 256),
+            (RG_ROW, RG_B, RG_WINDOW, RG_STEPS, RG_WINDOW, True, 1, RG_GROUP, 256),
+            (DBRX_ROW, MOE_B, MOE_CACHE, MOE_CACHE, 0, False, 8, MOE_GROUP, MOE_HEAD_DIM),
+            (MX_ROW, MOE_B, MOE_CACHE, MOE_CACHE, MX_WINDOW, True, 8, MOE_GROUP, MOE_HEAD_DIM),
+            (MX_WRAPPED_ROW, MOE_B, MX_WINDOW, MX_WRAPPED_LENGTH, MX_WINDOW, True, 8, MOE_GROUP,
+             MOE_HEAD_DIM)):
+        q, k, v, lens = decode_inputs(torch, gen, b, s, kv, g, hd, "bf16", [length] * b)
         kern = lambda: kdec.decode_attention_cuda(q, k, v, lens, window=window, ring=ring)  # noqa: E731
         plain = lambda: kdec.decode_attention_plain(q, k, v, lens, window=window, ring=ring)  # noqa: E731
         err = check_decode(f"decode_attention {label}", kern(),
                            kdec.decode_attention_plain(q.float(), k.float(), v.float(), lens,
                                                        window=window, ring=ring), v, torch)
         valid = min(length, s)
-        nbytes = 2 * b * valid * kv * 256 * 2 + 2 * q.numel() * 2  # valid K/V + q + out
-        flops = 4 * b * kv * g * valid * 256                        # QKᵀ and PV
+        nbytes = 2 * b * valid * kv * hd * 2 + 2 * q.numel() * 2   # valid K/V + q + out
+        flops = 4 * b * kv * g * valid * hd                         # QKᵀ and PV
         t_bytes, t_ops = nbytes / bandwidth, flops / FP32_PEAK_FLOPS
         lib_fn, lib_name = sdpa_call(torch, q, k, v)
         rows[label] = dict(
@@ -2123,7 +2188,7 @@ def decode_kernel_phase(torch, timer, bandwidth) -> dict:
             ms=timer(kern), plain_ms=timer(plain),
             bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=timer(lib_fn), library_name=lib_name,
-            shape=f"{label} B={b} S={s} valid={valid} K={kv} G={g} hd=256 bf16",
+            shape=f"{label} B={b} S={s} valid={valid} K={kv} G={g} hd={hd} bf16",
         )
         r = rows[label]
         plan = kdec.launch_plan(q, k, window=window, ring=ring)
@@ -2167,20 +2232,31 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
-def serve_phase(torch, arch, b, prompt_len, gen, want_params, want_config_params,
-                keep_calls=0) -> tuple:
-    """``arch`` at full width through repro_torch.launch.serve.generate: b
-    requests × (prompt_len prompt + gen generated) tokens, every step timed.
-    The tree ``init`` builds must hold ``want_params`` parameters, and the
-    config's analytic count must read ``want_config_params``.  The last
-    ``keep_calls`` decode_attention calls (operands and output) are kept for
-    a check.  Returns (model, params, launches, median step wall, calls)."""
+def cut_config(arch: str, layers=None):
+    """``arch``'s full config, cut to its first ``layers`` layers where
+    given: the same widths, pattern and block kinds, less depth."""
+    import dataclasses
+
     from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def serve_phase(torch, arch, b, prompt_len, gen, want_params, want_config_params,
+                keep_calls=0, layers=None) -> tuple:
+    """``arch`` at full width (its first ``layers`` layers where given)
+    through repro_torch.launch.serve.generate: b requests × (prompt_len
+    prompt + gen generated) tokens, every step timed.  The tree ``init``
+    builds must hold ``want_params`` parameters, and the config's analytic
+    count must read ``want_config_params``.  The last ``keep_calls``
+    decode_attention calls (operands and output) are kept for a check.
+    Returns (model, params, launches, median step wall, calls)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import generate
     from repro_torch.models import TransformerLM
 
-    cfg = get_arch(arch)
+    cfg = cut_config(arch, layers)
     model = TransformerLM(cfg)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2275,7 +2351,9 @@ def init_leaf_check(torch, cfg, params, seed, launches) -> None:
     version's index-set draw under the reference's key for that leaf,
     scaled and rounded as the reference's ``dense_init``, ``embed_init`` and
     ``init_conv1d`` do (and the sLSTM's recurrent matrices as
-    ``(0.1 · normal / sqrt(hd)).astype(dtype)``); Λ whole against the
+    ``(0.1 · normal / sqrt(hd)).astype(dtype)``, and an MoE MLP's fp32
+    router and each expert of its stacked leaves, under ``fold_in`` of its
+    leaf's key, as ``init_moe`` draws them); Λ whole against the
     reference's linspace, the forget biases whole at 3."""
     import numpy as np
 
@@ -2324,7 +2402,18 @@ def init_leaf_check(torch, cfg, params, seed, launches) -> None:
             for name, key in zip(("wq", "wk", "wv", "wo"), prng.split(r1, 4)):
                 checks.append((f"{i}.{name}", mix[name], key, 1.0 / math.sqrt(mix[name].shape[0]),
                                None))
-        if "mlp" in layer:
+        if "mlp" in layer and "router" in layer["mlp"]:
+            # an MoE MLP: the fp32 router, then expert e of each stacked leaf
+            # drawn alone under fold_in(its leaf's key, e)
+            mlp = layer["mlp"]
+            rr, ri, rg, ro = prng.split(r3, 4)
+            checks.append((f"{i}.mlp.router", mlp["router"], rr, 1.0 / math.sqrt(d), None))
+            for name, key in (("wi", ri), ("wo", ro), ("wg", rg)):
+                if name in mlp:
+                    checks += [(f"{i}.mlp.{name}.{e}", w, prng.fold_in(key, e),
+                                1.0 / math.sqrt(w.shape[0]), None)
+                               for e, w in enumerate(mlp[name])]
+        elif "mlp" in layer:
             for name, key in zip(("wi", "wo", "wg"), prng.split(r3, 3)):
                 if name in layer["mlp"]:
                     w = layer["mlp"][name]
@@ -2347,7 +2436,10 @@ def init_leaf_check(torch, cfg, params, seed, launches) -> None:
         if not torch.equal(got.view(view), z.to(got.dtype).view(view)):
             fail(f"init {cfg.name}: leaf {label} differs from the reference's draw")
         kinds[f"{tuple(leaf.shape)} {str(leaf.dtype).removeprefix('torch.')}"] += 1
-    drawn = sum(t.dim() >= 2 for t in tensors(params))
+    # a stacked (E, …) expert leaf is E draws
+    drawn = sum(t.dim() >= 2 for t in tensors(params)) + sum(
+        (layer["mlp"][name].shape[0] - 1) for layer in params["layers"]
+        if "router" in layer.get("mlp", {}) for name in ("wi", "wo", "wg") if name in layer["mlp"])
     forget = [layer["mixer"]["bf"] for kind, layer in zip(cfg.layer_kinds(), params["layers"])
               if kind in ("mlstm", "slstm")]
     if not all(bool((b == 3.0).all()) and b.dtype == torch.float32 for b in forget):
@@ -2450,9 +2542,9 @@ def serve_profile(torch, model, params, step_wall_s: float, steps: int = 8) -> N
     decode_launches = sum(DECODE_KERNEL in e.name for e in events)
     print(f"  {decode_launches} {DECODE_KERNEL} launches in {steps} steps "
           f"({decode_launches / steps:.0f} per step)")
-    if decode_launches != GEMMA3_LAYERS * steps:
+    if decode_launches != SERVE_LAYERS * steps:
         fail(f"serve profile: {decode_launches} decode attention kernel launches in {steps} steps, "
-             f"want one per layer per step ({GEMMA3_LAYERS * steps})")
+             f"want one per layer per step ({SERVE_LAYERS * steps})")
     categories["elementwise and reductions (norms, RoPE, casts, residuals)"] = sum(
         us for n, us in by_name.items() if "elementwise_kernel" in n or "reduce_kernel" in n)
     categories["other"] = total_us - sum(categories.values())
@@ -2598,12 +2690,18 @@ def group_profile(torch, model, params, b: int, last: int, spans, labels: tuple,
         state_line(cache, params)
     tok = torch.zeros(b, 1, dtype=torch.long, device="cuda")
     first = last - steps
-    for pos in range(first - 2, first):                  # warm-up, not profiled
-        tok, logits, cache = serve(params, tok, cache, pos)
-        tok = tok[:, None]
+    tok, logits, cache = serve(params, tok, cache, first - 2)     # warm-up, not profiled
+    tok = tok[:, None]
     torch.cuda.synchronize()
     with annotated(spans), profile(activities=[ProfilerActivity.CPU,
                                                ProfilerActivity.CUDA]) as prof:
+        # the profiler can lose the records of the first kernels it sees: a
+        # second warm-up step runs inside it, then a marker kernel; only the
+        # kernels after the marker are read
+        tok, logits, cache = serve(params, tok, cache, first - 1)
+        tok = tok[:, None]
+        torch.cuda._sleep(PROFILE_MARK_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for pos in range(first, last):
             tok, logits, cache = serve(params, tok, cache, pos)
@@ -2613,7 +2711,7 @@ def group_profile(torch, model, params, b: int, last: int, spans, labels: tuple,
     if (not torch.isfinite(logits.float()).all()
             or tuple(logits.shape) != (b, 1, model.cfg.vocab_size)):
         fail(f"{name} serve profile: logits not finite or of the wrong shape")
-    groups, busy_us, n_kernels, top = device_groups(prof, labels, group)
+    groups, busy_us, n_kernels, top = device_groups(prof, labels, group, since=PROFILE_MARK)
     if not n_kernels:
         fail("the profiler saw no device activity")
     decode_launches = sum(n for kernel, (_, n) in top if DECODE_KERNEL in kernel)
@@ -2720,6 +2818,348 @@ def fp32_decode_check(torch, arch: str, b: int, positions: int, rtol: float,
             fail(f"{arch} fp32: a decode with {label} stays within the limit {rtol:.0e} "
                  f"({gap:.2e}): the check cannot tell it from a sound one")
     del params, full, kept
+
+
+# ---------------------------------------------------------------------------
+# phases 12-12d: the mixture-of-experts models served
+# ---------------------------------------------------------------------------
+MX_ARCH, DBRX_ARCH = "mixtral-8x22b", "dbrx-132b"
+# 8 requests x (128 prompt + 32 generated) tokens: mixtral's cache of 160
+# slots is a ring under its 4,096 window, dbrx's a global cache
+MOE_B, MOE_PROMPT, MOE_GEN = 8, 128, 32
+MOE_CACHE = MOE_PROMPT + MOE_GEN                 # 160
+MOE_STEPS = MOE_CACHE - 1                        # 159 decode steps
+MOE_GROUP, MOE_HEAD_DIM = 6, 128                 # 48 query heads over 8 KV heads
+# (layers of the cut model, parameters of the tree init builds, the config's
+# param_count()): full width, depth cut so that the bf16 weights fit the card
+# beside nothing else (a full-depth model is 281 or 263 GB); dbrx's built
+# tree holds the layernorms' biases, which the config's count leaves out
+MOE_SERVE = {
+    MX_ARCH: (12, 30_451_390_464, 30_451_390_464),     # 12 of 56 layers
+    DBRX_ARCH: (9, 30_565_011_456, 30_564_894_720),    # 9 of 40 layers
+}
+# phase 12c: fp32 at full width, 2 layers (5.41 B and 7.75 B parameters)
+MOE_FP32_LAYERS, MOE_FP32_B, MOE_FP32_POSITIONS = 2, 2, 48
+MOE_FP32_RTOL = 1e-4       # decode-step logits against forward's, |Δ| / max|logit|
+MOE_TIE_GAP = 1e-6         # a token's experts may differ only below this top-k gap
+MOE_TRAIN_RTOL = 1e-5      # phase 12d: the loss (nll + aux), card against CPU, relative
+MOE_SPANS = ("attention", "moe", "moe_route", "moe_slots", "moe_experts", "unembed")
+
+
+def moe_group(name: str, label, op: str) -> str:
+    """Phases 12 and 12b's group of a kernel, from its innermost
+    ``MOE_SPANS`` label and the op that launched it."""
+    product = op.endswith("mm")
+    if DECODE_KERNEL in name:
+        return f"decode attention (this port's kernel, G = {MOE_GROUP}, hd {MOE_HEAD_DIM})"
+    if label == "moe_route":
+        return "router, softmax and top-k (fp32)"
+    if label == "moe_slots":
+        return "slotting (one-hot, cumsum over the group)"
+    if label == "moe_experts":
+        return "expert products (bmm over the experts)" if product else "expert activation"
+    if label == "moe":
+        return "dispatch and combine (gathers, scatter, gated sum)"
+    if label == "attention":
+        return "q/k/v/o projections" if product else "attention's RoPE, casts and cache writes"
+    if label == "unembed":
+        return "unembed"
+    return "norms, residuals, embedding, argmax"
+
+
+def moe_serve_phase(torch, arch: str, bandwidth: float) -> dict:
+    """Phase 12 (mixtral-8x22b) or 12b (dbrx-132b): the cut model at full
+    width through ``generate``, its step's bound (the bytes a step reads:
+    every weight but the embedding's unused rows, and the KV caches, at the
+    measured bandwidth), decode steps that read nothing back to the host,
+    and 8 steps under the profiler by group.  Returns the run's launches."""
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import attention, moe, transformer
+
+    layers, want_params, want_config = MOE_SERVE[arch]
+    routes = []
+    with recorded_routes(routes):
+        model, params, launches, step_s, _ = serve_phase(
+            torch, arch, MOE_B, MOE_PROMPT, MOE_GEN, want_params, want_config, layers=layers)
+    cfg = model.cfg
+    e, k, n_layers = cfg.moe.num_experts, cfg.moe.top_k, cfg.num_layers
+    if len(routes) != MOE_STEPS * n_layers:
+        fail(f"serve {arch}: {len(routes)} routings recorded, want {MOE_STEPS * n_layers}")
+    emb = params["embed"]
+    weight_bytes = (sum(t.numel() * t.element_size() for t in tensors(params))
+                    - emb.numel() * emb.element_size() + MOE_B * cfg.d_model * emb.element_size())
+    slot_bytes = 2 * n_layers * MOE_B * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    kv_bytes = MOE_CACHE * slot_bytes
+    bound_s = (weight_bytes + kv_bytes) / bandwidth
+    print(f"  implementation's step bound: {weight_bytes / 1e9:.2f} GB of weights (all but the "
+          f"embedding's unread rows; the drop-free step runs every expert) and "
+          f"{kv_bytes / 1e6:.1f} MB of KV caches a step at {bandwidth / 1e12:.3f} TB/s = "
+          f"{1e3 * bound_s:.2f} ms; the median step {1e3 * step_s:.2f} ms is "
+          f"{100 * bound_s / step_s:.1f}% of it; bound tokens/s {MOE_B / bound_s:.1f}")
+    # the function's bound: of each layer, the experts this step's tokens
+    # were routed to, and the KV slots the step reads
+    ids = torch.stack([r[1] for r in routes]).reshape(MOE_STEPS, n_layers, MOE_B * k)
+    used = torch.zeros(MOE_STEPS, n_layers, e, dtype=torch.bool, device=ids.device)
+    idle = (~used.scatter_(2, ids, True)).sum(dim=(1, 2)).tolist()        # (steps,)
+    mlp = params["layers"][0]["mlp"]
+    expert_bytes = sum(mlp[n][0].numel() * mlp[n].element_size()
+                       for n in ("wi", "wg", "wo") if n in mlp)
+    need = [weight_bytes - idle[pos] * expert_bytes
+            + min(pos + 1, cfg.window or MOE_CACHE) * slot_bytes for pos in range(MOE_STEPS)]
+    routed_s = sum(need) / MOE_STEPS / bandwidth
+    print(f"  function's step bound, this run's routes: of the {n_layers} x {e} experts, "
+          f"{sum(idle) / MOE_STEPS:.2f} a step got no token ({100 * sum(idle) / (MOE_STEPS * n_layers * e):.1f}%; "
+          f"{expert_bytes / 1e6:.1f} MB each), so a step needs {sum(need) / MOE_STEPS / 1e9:.2f} GB "
+          f"(its KV slots included) = {1e3 * routed_s:.2f} ms; the median step is "
+          f"{100 * routed_s / step_s:.1f}% of it; bound tokens/s {MOE_B / routed_s:.1f}")
+    del routes, ids, used
+    # the MoE decode step reads nothing back to the host: a sync there raises
+    serve = build_serve_step(model)
+    cache = model.init_cache(MOE_B, MOE_CACHE, "cuda")
+    tok = torch.zeros(MOE_B, 1, dtype=torch.long, device="cuda")
+    tok, _, cache = serve(params, tok, cache, 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for pos in range(1, 3):
+            tok, _, cache = serve(params, tok[:, None], cache, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("  two decode steps under set_sync_debug_mode('error'): no host read")
+    del cache, tok
+    print(f"profile: device time by group of the {arch} serve step")
+    spans = [(attention, "attention_decode_step", "attention"), (moe, "mix", "moe"),
+             (moe, "route", "moe_route"), (moe, "slots", "moe_slots"),
+             (moe, "experts", "moe_experts"), (transformer.TransformerLM, "unembed", "unembed")]
+    group_profile(torch, model, params, MOE_B, MOE_STEPS, spans, MOE_SPANS, moe_group, step_s,
+                  cfg.num_layers)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def recorded_routes(store: list, fault=None):
+    """While the block runs, every ``moe.route`` call appends its (probs,
+    expert ids) to ``store``; ``fault``, where given, routes in its place."""
+    from repro_torch.models import moe
+
+    inner = moe.route
+
+    def recording(params, xt, k):
+        probs, gates, ids = (fault or inner)(params, xt, k)
+        store.append((probs, ids))
+        return probs, gates, ids
+
+    moe.route = recording
+    try:
+        yield
+    finally:
+        moe.route = inner
+
+
+def route_k_plus_one(params, xt, k):
+    """A planted fault: the (k+1)-th expert routed in place of the k-th."""
+    probs = torch_softmax_router(params, xt)
+    vals, ids = probs.sort(dim=-1, descending=True, stable=True)
+    pick = list(range(k - 1)) + [k]
+    gates = vals[:, pick]
+    return probs, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), ids[:, pick]
+
+
+def route_unnormalised(params, xt, k):
+    """A planted fault: the top-k gates left as their raw probabilities."""
+    probs = torch_softmax_router(params, xt)
+    vals, ids = probs.sort(dim=-1, descending=True, stable=True)
+    return probs, vals[:, :k], ids[:, :k]
+
+
+def torch_softmax_router(params, xt):
+    return (xt.float() @ params["router"]).softmax(dim=-1)
+
+
+MOE_FAULTS = (("the (k+1)-th expert routed in place of the k-th", route_k_plus_one),
+              ("the gates not renormalised", route_unnormalised))
+
+
+def moe_wrapped_serve(torch) -> int:
+    """Phase 12's second run: mixtral-8x22b at full width, its first layer
+    alone, through ``generate`` past its window: 8 requests × (4,468 prompt
+    + 32 generated) tokens into a 4,096-slot ring, so the last 403 steps
+    write over the oldest slots.  Every ``decode_attention`` launch of the
+    run is at the kernels line's wrapped row's shape (B = 8, 4,096 slots, 8
+    KV heads, G = 6, hd 128); the last step's kernel output is held against
+    the plain version.  Returns the run's launches of the kernel."""
+    from repro_torch.kernels import decode_attention as kdec
+
+    t0 = time.perf_counter()
+    model, params, launches, _, calls = serve_phase(
+        torch, MX_ARCH, MOE_B, MX_WRAPPED_LENGTH - MOE_GEN, MOE_GEN, MX_WRAPPED_PARAMS,
+        MX_WRAPPED_PARAMS, keep_calls=1, layers=MX_WRAPPED_LAYERS)
+    (q, k, v, length, window, ring, out), = calls
+    last = MX_WRAPPED_LENGTH - 1
+    if (not ring or window != MX_WINDOW or tuple(k.shape[:3]) != (MOE_B, MX_WINDOW, 8)
+            or int(length.min()) != last or q.shape[1] != MOE_GROUP * k.shape[2]):
+        fail(f"serve {MX_ARCH} past its window: the last step's attention is not a wrapped "
+             f"{MX_WINDOW}-slot ring at G = {MOE_GROUP} (ring {ring}, window {window}, cache "
+             f"{tuple(k.shape)}, length {int(length.min())})")
+    err = check_decode(f"serve {MX_ARCH} past its window, last step", out,
+                       kdec.decode_attention_plain(q.float(), k.float(), v.float(), length,
+                                                   window=window, ring=ring), v, torch)
+    print(f"  {launches['decode_attention']} decode_attention launches at the {MX_WINDOW}-slot "
+          f"ring, {last - MX_WINDOW} steps past the window; the last step (length {last}) "
+          f"against the plain version: max |Δ| {err:.3e}, within 1e-5·max|V| + half a bf16 ulp "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del model, params, calls, q, k, v, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["decode_attention"]
+
+
+def moe_fp32_check(torch, arch: str) -> None:
+    """Phase 12c for one model: ``arch`` at full width, 2 layers, fp32;
+    decode-step logits over 48 positions at B = 2 against the drop-free
+    ``forward``'s within 1e-4 of max|logit|; every token's experts equal in
+    both runs, a difference allowed only where the forward side's gap
+    between the k-th and (k+1)-th router probabilities is under 1e-6; and
+    each planted fault in the decode's routing beyond the limit."""
+    import dataclasses
+
+    from repro_torch.models import TransformerLM
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cut_config(arch, MOE_FP32_LAYERS), dtype="float32")
+    model = TransformerLM(cfg, moe_capacity_factor=None)
+    params = model.init(0, "cuda")
+    n_params = sum(t.numel() for t in tensors(params))
+    b, positions, k = MOE_FP32_B, MOE_FP32_POSITIONS, cfg.moe.top_k
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (b, positions), generator=gen, device="cuda")
+    forward_routes, decode_routes = [], []
+    with torch.no_grad(), recorded_routes(forward_routes):
+        full = model.forward(params, {"tokens": tokens})
+    if not torch.isfinite(full).all() or tuple(full.shape) != (b, positions, cfg.vocab_size):
+        fail(f"{arch} fp32 forward: logits not finite or of the wrong shape")
+    with recorded_routes(decode_routes):
+        worst, same, _ = decode_gap(torch, model, params, tokens, full,
+                                    model.init_cache(b, positions, "cuda"))
+    if worst > MOE_FP32_RTOL:
+        fail(f"{arch} fp32: decode-step logits |Δ|/max {worst:.2e} from forward's (limit "
+             f"{MOE_FP32_RTOL:.0e})")
+    layers = cfg.num_layers
+    if len(forward_routes) != layers or len(decode_routes) != layers * positions:
+        fail(f"{arch} fp32: {len(forward_routes)} forward and {len(decode_routes)} decode routings")
+    flips, min_gap = 0, float("inf")
+    for layer, (probs, ids) in enumerate(forward_routes):
+        top = probs.sort(dim=-1, descending=True).values
+        gap = (top[:, k - 1] - top[:, k]).reshape(b, positions)
+        min_gap = min(min_gap, float(gap.min()))
+        want = ids.sort(dim=-1).values.reshape(b, positions, k)
+        for pos in range(positions):
+            got = decode_routes[pos * layers + layer][1].sort(dim=-1).values
+            differ = (got != want[:, pos]).any(-1)
+            if bool((differ & (gap[:, pos] >= MOE_TIE_GAP)).any()):
+                fail(f"{arch} fp32 layer {layer} position {pos}: decode routed to other experts "
+                     f"than forward where the top-{k} gap is {float(gap[:, pos].min()):.2e}")
+            flips += int(differ.sum())
+    print(f"  {cfg.name} fp32, {layers} layers ({n_params / 1e9:.2f} B parameters, "
+          f"{4 * n_params / 1e9:.1f} GB), drop-free: decode-step logits against forward's over "
+          f"{positions} positions at B={b}: |Δ|/max|logit| ≤ {worst:.3e} (limit "
+          f"{MOE_FP32_RTOL:.0e}), argmax equal at {same} of {b * positions}; each token's "
+          f"top-{k} of {cfg.moe.num_experts} experts equal in both runs at "
+          f"{layers * b * positions - flips} of {layers * b * positions} (token, layer) pairs; "
+          f"smallest forward-side gap between a token's k-th and (k+1)-th router "
+          f"probabilities {min_gap:.3e} (a difference allowed below {MOE_TIE_GAP:.0e}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    for label, fault in MOE_FAULTS:
+        with recorded_routes([], fault):
+            gap, same, _ = decode_gap(torch, model, params, tokens, full,
+                                      model.init_cache(b, positions, "cuda"))
+        print(f"  planted fault, {label}: |Δ|/max|logit| {gap:.3e}, argmax equal at {same} of "
+              f"{b * positions}")
+        if gap <= MOE_FP32_RTOL:
+            fail(f"{arch} fp32: a decode with {label} stays within the limit "
+                 f"{MOE_FP32_RTOL:.0e} ({gap:.2e}): the check cannot tell it from a sound one")
+    del model, params, full, forward_routes, decode_routes
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_reference_check(torch) -> None:
+    """Phase 12d: the reduced MoE models in fp32 on the card against the CPU
+    (mixtral's window cut to 8, so that its rings wrap): ``forward`` at
+    capacity factor 1.25 in one group, in groups of 16 that pad the 40
+    tokens, and at factor 0.5 in those groups (tokens dropped); ``loss``
+    (nll + aux) at each; greedy tokens through ``generate``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import TransformerLM, moe
+
+    for arch in (MX_ARCH, DBRX_ARCH):
+        kw = dict(window=8) if arch == MX_ARCH else {}
+        cfg = dataclasses.replace(get_arch(arch, reduced=True), dtype="float32", **kw)
+        params = TransformerLM(cfg).init(0, "cpu")
+        on_card = tree_to(params, "cuda")
+        gen = torch.Generator().manual_seed(2)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 20), generator=gen)
+        labels = torch.randint(0, cfg.vocab_size, (2, 20), generator=gen)
+        worst_logit = worst_loss = 0.0
+        dropped = {}
+        for cf, group in ((1.25, 2048), (1.25, 16), (0.5, 16)):
+            model = TransformerLM(cfg, moe_capacity_factor=cf, moe_group_size=group)
+            out = {}
+            for dev, p in (("cuda", on_card), ("cpu", params)):
+                batch = {"tokens": tokens.to(dev), "labels": labels.to(dev)}
+                kept = []
+                inner = moe.slots
+
+                def counting(*args, _inner=inner, _kept=kept):
+                    slot, keep = _inner(*args)
+                    _kept.append(keep)
+                    return slot, keep
+
+                moe.slots = counting
+                try:
+                    with torch.no_grad():
+                        logits = model.forward(p, batch).cpu()
+                finally:
+                    moe.slots = inner
+                with torch.no_grad():
+                    out[dev] = (logits, float(model.loss(p, batch)))
+                dropped[(cf, group, dev)] = sum(int((~keep).sum()) for keep in kept)
+            (lg, lo), (lc, lc_loss) = out["cuda"], out["cpu"]
+            rel = float((lg - lc).abs().max() / lc.abs().max())
+            rel_loss = abs(lo - lc_loss) / abs(lc_loss)
+            worst_logit, worst_loss = max(worst_logit, rel), max(worst_loss, rel_loss)
+            if rel > SERVE_LOGIT_RTOL or rel_loss > MOE_TRAIN_RTOL \
+                    or dropped[(cf, group, "cuda")] != dropped[(cf, group, "cpu")]:
+                fail(f"small {arch} forward at capacity factor {cf}, groups of {group}: logits "
+                     f"|Δ|/max {rel:.2e}, loss {rel_loss:.2e} relative, dropped (token, choice) "
+                     f"pairs {dropped[(cf, group, 'cuda')]} on the card, "
+                     f"{dropped[(cf, group, 'cpu')]} on the CPU")
+        if not dropped[(0.5, 16, "cpu")]:
+            fail(f"small {arch}: capacity factor 0.5 dropped nothing")
+        model = TransformerLM(cfg)
+        prompt = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen)
+        want = generate(model, params, prompt, 8, 20)
+        ops.reset_launch_counts()
+        got = generate(model, on_card, prompt.cuda(), 8, 20)
+        if ops.launch_counts()["decode_attention"] != cfg.num_layers * 19 or \
+                not torch.equal(got.cpu(), want):
+            fail(f"small {arch} generate: tokens differ on the card or "
+                 f"{ops.launch_counts()['decode_attention']} kernel launches")
+        print(f"  small {arch}-family model ({cfg.num_layers} layers, {cfg.moe.num_experts} "
+              f"experts top-{cfg.moe.top_k}, window {cfg.window}, fp32) GPU == CPU: forward at "
+              f"capacity factor 1.25 (one group, groups of 16 padding 40 tokens) and 0.5 "
+              f"({dropped[(0.5, 16, 'cpu')]} of the layers' "
+              f"{40 * cfg.moe.top_k * cfg.num_layers} (token, choice) pairs dropped on both) logits |Δ|/max ≤ {worst_logit:.2e}, loss (nll + aux) ≤ "
+              f"{worst_loss:.2e} relative; 8 greedy tokens after 12 equal, "
+              f"{cfg.num_layers * 19} kernel launches")
 
 
 # ``--decode-variants``: csrc/decode_attention.cu with these substitutions,
@@ -3140,9 +3580,15 @@ def decode_variants(torch, timer, bandwidth) -> None:
 # ---------------------------------------------------------------------------
 LORA_ARCH, LORA_RANK, LORA_SEQ = "gemma3-4b", 8, 128
 LORA_M, LORA_N, LORA_P, LORA_EVAL, LORA_BATCH = 16, 32, 4, 64, 8
-LORA_D = 14_901_248          # rank-8 adapters on gemma3-4b's 70 target leaves
-RG_LORA_D = 3_258_656        # rank-8 adapters on recurrentgemma-2b's 11 stacked target leaves
-XL_LORA_D = 8_798_880        # rank-8 adapters on xlstm-1.3b's 36 stacked target leaves
+# the base models at full width, depth cut to keep the smoke within its
+# time (a LoRA round is host-bound, its work in proportion to the layers):
+# gemma3-4b 12 of 34 layers (2 whole cycles: 10 local, 2 global),
+# recurrentgemma-2b 11 of 26 (3 cycles and the 2 rest layers), xlstm-1.3b
+# 16 of 48 (2 cycles of 7 mLSTM and 1 sLSTM blocks)
+LORA_LAYERS, RG_LORA_LAYERS, XL_LORA_LAYERS = 12, 11, 16
+LORA_D = 5_259_264           # rank-8 adapters on gemma3-4b's 42 target leaves
+RG_LORA_D = 1_241_216        # rank-8 adapters on recurrentgemma-2b's 11 stacked target leaves
+XL_LORA_D = 2_932_960        # rank-8 adapters on xlstm-1.3b's 36 stacked target leaves
 # phase 9 trains each client's 32 sequences as one batch: a client step's
 # host work (the sLSTM loop's autograd graph, 128 steps x 6 layers, and its
 # recomputation) does not grow with the batch, and at 4 steps a client a
@@ -3162,15 +3608,15 @@ LORA_ROUNDS, LORA_BASELINE_ROUNDS = 3, 1
 
 
 def lora_phase(torch, timer, bandwidth, arch=LORA_ARCH, want_dim=LORA_D, tag="6",
-               batch=LORA_BATCH) -> tuple:
+               batch=LORA_BATCH, layers=LORA_LAYERS) -> tuple:
     """Phase 6 (gemma3-4b), 7 (recurrentgemma-2b) and 9 (xlstm-1.3b):
     FLrce, FedAvg and Fedcom over rank-8 LoRA adapters on the full-width
-    bf16 model ``arch``, with checks (a) to (d), the kernels at the phase's
-    own operands, and a profile of FedAvg's round (its wall then includes
-    the profiler's overhead); ``batch`` sequences a local step."""
+    bf16 model ``arch`` at ``layers`` of its layers, with checks (a) to (d),
+    the kernels at the phase's own operands, and a profile of FedAvg's
+    round (its wall then includes the profiler's overhead); ``batch``
+    sequences a local step."""
     import numpy as np
 
-    from repro_torch.configs import get_arch
     from repro_torch.data import make_federated_lm
     from repro_torch.fl import FLrce, run_federated
     from repro_torch.fl.baselines import FedAvg, Fedcom
@@ -3180,7 +3626,7 @@ def lora_phase(torch, timer, bandwidth, arch=LORA_ARCH, want_dim=LORA_D, tag="6"
     from repro_torch.models.lm import lm_from_flat
 
     t_phase = time.perf_counter()
-    cfg = get_arch(arch)
+    cfg = cut_config(arch, layers)
     base = LMClassifier(cfg, seq_len=LORA_SEQ)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3505,7 +3951,7 @@ def lora_group(name: str, label, op: str) -> str:
     return "other kernels (norms, RoPE, MLP activations, residuals, gathers, SGD)"
 
 
-def device_groups(prof, labels: tuple, group_of, host: bool = False) -> tuple:
+def device_groups(prof, labels: tuple, group_of, host: bool = False, since=None) -> tuple:
     """(device µs by group, busy µs, kernel count, top kernels) from the
     profiler's raw records.  A kernel belongs to the CPU op that launched it
     (its linked correlation id); the op to the innermost span around it on
@@ -3517,7 +3963,9 @@ def device_groups(prof, labels: tuple, group_of, host: bool = False) -> tuple:
     kernels and are left out.  With ``host``, a fifth item: for each label,
     the host seconds inside its spans (annotations and the backward nodes
     they label, merged on each thread so that nested spans count once) and
-    the host ops attributed to it."""
+    the host ops attributed to it.  With ``since``, a kernel name: only the
+    kernels that start after the last kernel of that name are read, and the
+    smoke fails if the profiler has none of that name."""
     import torch
 
     ops, kernels, op_name = [], [], {}
@@ -3562,6 +4010,12 @@ def device_groups(prof, labels: tuple, group_of, host: bool = False) -> tuple:
             if stack:
                 out[key] = stack[-1][3]
         return out
+
+    if since is not None:
+        marks = [start for name, start, _, _ in kernels if since in name]
+        if not marks:
+            fail(f"the profiler has no record of the marker kernel {since}")
+        kernels = [k for k in kernels if k[1] > max(marks)]
 
     # forward ops inside an annotation label the backward nodes they create
     fwd = innermost(annotations, [(tid, s, e_, (tid, seq)) for tid, s, e_, _, seq in ops
@@ -4366,6 +4820,9 @@ def run_phases(torch, selected: set, bandwidth: float, worker, t_start: float) -
         decode_rows = decode_kernel_phase(torch, timer, bandwidth)
         rows["decode_attention"] = decode_rows["global"]
         rows[f"decode_attention@{RG_ARCH}"] = decode_rows[RG_ROW]
+        rows[f"decode_attention@{MX_ARCH}"] = decode_rows[MX_ROW]
+        rows[f"decode_attention@{MX_ARCH}-wrapped"] = decode_rows[MX_WRAPPED_ROW]
+        rows[f"decode_attention@{DBRX_ARCH}"] = decode_rows[DBRX_ROW]
         rows.update(threefry_phase(torch, timer, bandwidth))
         del timer
         torch.cuda.empty_cache()
@@ -4414,10 +4871,11 @@ def run_phases(torch, selected: set, bandwidth: float, worker, t_start: float) -
         reference_check(torch)
         torch.cuda.empty_cache()
 
-    if phase("4", f"serve gemma3-4b at full width, {SERVE_B} requests x ({SERVE_PROMPT} prompt "
-                  f"+ {SERVE_GEN} generated) tokens"):
+    if phase("4", f"serve gemma3-4b at full width, {SERVE_LAYERS} of its layers, {SERVE_B} "
+                  f"requests x ({SERVE_PROMPT} prompt + {SERVE_GEN} generated) tokens"):
         model, params, serve_launches, step_wall_s, _ = serve_phase(
-            torch, "gemma3-4b", SERVE_B, SERVE_PROMPT, SERVE_GEN, GEMMA3_PARAMS, GEMMA3_PARAMS)
+            torch, "gemma3-4b", SERVE_B, SERVE_PROMPT, SERVE_GEN, SERVE_PARAMS, SERVE_PARAMS,
+            layers=SERVE_LAYERS)
         launches["decode_attention"] = serve_launches["decode_attention"]
         launches["threefry_normal"] = serve_launches["threefry_normal"]
         print("profile: device time by kernel of the serve step")
@@ -4425,11 +4883,11 @@ def run_phases(torch, selected: set, bandwidth: float, worker, t_start: float) -
         del model, params
         torch.cuda.empty_cache()
 
-    if phase("4b", f"serve {RG_ARCH} at full width, {RG_B} requests x ({RG_PROMPT} prompt + "
-                   f"{RG_GEN} generated) tokens"):
+    if phase("4b", f"serve {RG_ARCH} at full width, {RG_LAYERS} of its layers, {RG_B} requests "
+                   f"x ({RG_PROMPT} prompt + {RG_GEN} generated) tokens"):
         model, params, rg_launches, rg_step_s, calls = serve_phase(
             torch, RG_ARCH, RG_B, RG_PROMPT, RG_GEN, RG_PARAMS, RG_CONFIG_PARAMS,
-            keep_calls=RG_ATTN_LAYERS)
+            keep_calls=RG_ATTN_LAYERS, layers=RG_LAYERS)
         launches[f"decode_attention@{RG_ARCH}"] = rg_launches["decode_attention"]
         rg_last_step_check(torch, model.cfg, calls)
         del calls
@@ -4450,7 +4908,8 @@ def run_phases(torch, selected: set, bandwidth: float, worker, t_start: float) -
         serve_reference_check(torch, RG_ARCH)
         torch.cuda.empty_cache()
 
-    if phase("6", f"federated LoRA (rank {LORA_RANK}) on {LORA_ARCH} at full width, M={LORA_M}, "
+    if phase("6", f"federated LoRA (rank {LORA_RANK}) on {LORA_ARCH} at full width, "
+                  f"{LORA_LAYERS} of its layers, M={LORA_M}, "
                   f"P={LORA_P}, {LORA_N} sequences of {LORA_SEQ} tokens a client: FLrce, "
                   "FedAvg, Fedcom"):
         timer = Timer(torch)
@@ -4462,11 +4921,13 @@ def run_phases(torch, selected: set, bandwidth: float, worker, t_start: float) -
         lora_reference_check(torch)
         torch.cuda.empty_cache()
 
-    if phase("7", f"federated LoRA (rank {LORA_RANK}) on {RG_ARCH} at full width, M={LORA_M}, "
+    if phase("7", f"federated LoRA (rank {LORA_RANK}) on {RG_ARCH} at full width, "
+                  f"{RG_LORA_LAYERS} of its layers, M={LORA_M}, "
                   f"P={LORA_P}, {LORA_N} sequences of {LORA_SEQ} tokens a client: FLrce, "
                   "FedAvg, Fedcom"):
         timer = Timer(torch)
-        fl_rows[f"{RG_ARCH}-lora"] = lora_phase(torch, timer, bandwidth, RG_ARCH, RG_LORA_D, "7")
+        fl_rows[f"{RG_ARCH}-lora"] = lora_phase(torch, timer, bandwidth, RG_ARCH, RG_LORA_D, "7",
+                                                layers=RG_LORA_LAYERS)
         del timer
         torch.cuda.empty_cache()
 
@@ -4495,12 +4956,13 @@ def run_phases(torch, selected: set, bandwidth: float, worker, t_start: float) -
         xl_cli_reference_check(torch)
         torch.cuda.empty_cache()
 
-    if phase("9", f"federated LoRA (rank {LORA_RANK}) on {XL_ARCH} at full width, M={LORA_M}, "
+    if phase("9", f"federated LoRA (rank {LORA_RANK}) on {XL_ARCH} at full width, "
+                  f"{XL_LORA_LAYERS} of its layers, M={LORA_M}, "
                   f"P={LORA_P}, {LORA_N} sequences of {LORA_SEQ} tokens a client in batches of "
                   f"{XL_LORA_BATCH}: FLrce, FedAvg, Fedcom"):
         timer = Timer(torch)
         fl_rows[f"{XL_ARCH}-lora"] = lora_phase(torch, timer, bandwidth, XL_ARCH, XL_LORA_D, "9",
-                                                XL_LORA_BATCH)
+                                                XL_LORA_BATCH, XL_LORA_LAYERS)
         del timer
         gc.collect()
         torch.cuda.empty_cache()
@@ -4520,17 +4982,44 @@ def run_phases(torch, selected: set, bandwidth: float, worker, t_start: float) -
                    "federated_pretrain --size 5m, serve_decode for every architecture"):
         examples_phase(torch, worker)
 
+    for arch, tag in ((MX_ARCH, "12"), (DBRX_ARCH, "12b")):
+        layers = MOE_SERVE[arch][0]
+        if phase(tag, f"serve {arch} at full width, {layers} of its layers, {MOE_B} requests x "
+                      f"({MOE_PROMPT} prompt + {MOE_GEN} generated) tokens"):
+            got = moe_serve_phase(torch, arch, bandwidth)
+            launches[f"decode_attention@{arch}"] = got["decode_attention"]
+            if arch == MX_ARCH:
+                print(f"  {MX_ARCH} past its {MX_WINDOW}-slot window: its first layer at full "
+                      f"width, {MOE_B} requests x ({MX_WRAPPED_LENGTH - MOE_GEN} prompt + "
+                      f"{MOE_GEN} generated) tokens")
+                launches[f"decode_attention@{MX_ARCH}-wrapped"] = moe_wrapped_serve(torch)
+
+    if phase("12c", f"{MX_ARCH} and {DBRX_ARCH} at full width in fp32, {MOE_FP32_LAYERS} layers "
+                    f"each, {MOE_FP32_POSITIONS} positions at B={MOE_FP32_B}: decode steps "
+                    "against the drop-free forward"):
+        for arch in (MX_ARCH, DBRX_ARCH):
+            moe_fp32_check(torch, arch)
+
+    if phase("12d", "small MoE models (mixtral and dbrx families), forward, loss and greedy "
+                    "tokens on the GPU and on the CPU"):
+        moe_reference_check(torch)
+        torch.cuda.empty_cache()
+
     # every kernel row of the phases that ran (with no --phases, all of them)
     kernels = []
     for name in ("cross_gram", "gram", "weighted_aggregate", "topk_mask_rows", "decode_attention",
-                 f"decode_attention@{RG_ARCH}", "threefry_rounding", "threefry_normal"):
+                 f"decode_attention@{RG_ARCH}", f"decode_attention@{MX_ARCH}",
+                 f"decode_attention@{MX_ARCH}-wrapped", f"decode_attention@{DBRX_ARCH}",
+                 "threefry_rounding", "threefry_normal"):
         if name not in rows or name not in launches:
             continue
         r = rows[name]
         kernels.append({
             "name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
             # topk_mask_rows: its path is the Fedcom run; decode_attention: the
-            # gemma3-4b serve run (@recurrentgemma-2b: phase 4b's); threefry_rounding:
+            # gemma3-4b serve run (@recurrentgemma-2b: phase 4b's; @mixtral-8x22b:
+            # phase 12's; its wrapped row: phase 12's run past the window;
+            # @dbrx-132b: 12b's); threefry_rounding:
             # phase 2b's QuantizedFL run; threefry_normal: phase 4's gemma3-4b init;
             # the others: FLrce's
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

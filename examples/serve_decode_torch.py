@@ -6,13 +6,14 @@
 the chosen architecture.  A batch of prompts is prefilled token by token
 and then decoded greedily, through every cache kind the port has: KV ring
 buffers (local attention), full KV caches (global attention), the mLSTM's
-matrix memory and the sLSTM's and RG-LRU's states.  ``--arch`` offers the
-port's architectures (``repro_torch.configs.list_archs()``); the
-reference's whisper (its cross-KV cache), mixture-of-experts and VLM
-architectures wait for ROADMAP A.7.5, A.7.4 and A.7.6.  The weights are
-the reference's ``init(PRNGKey(0))`` and the prompts its NumPy draw, so
-both print the same tokens from the same config.  Runs on CUDA unless
-``--device cpu`` is given.
+matrix memory and the sLSTM's and RG-LRU's states, and through the
+mixture-of-experts MLP's drop-free routing (mixtral-8x22b, dbrx-132b).
+``--arch`` offers the port's architectures
+(``repro_torch.configs.list_archs()``); the reference's whisper (its
+cross-KV cache) and VLM architectures wait for ROADMAP A.7.5 and A.7.6.
+The weights are the reference's ``init(PRNGKey(0))`` and the prompts its
+NumPy draw, so both print the same tokens from the same config.  Runs on
+CUDA unless ``--device cpu`` is given.
 """
 import argparse
 import time

@@ -3,8 +3,9 @@
 
 The registry holds the architectures whose blocks the port has: the dense
 attention-only ones (global and sliding-window attention with a dense MLP),
-the hybrid recurrentgemma-2b (RG-LRU blocks beside local attention) and
-xlstm-1.3b (mLSTM and sLSTM blocks).
+the hybrid recurrentgemma-2b (RG-LRU blocks beside local attention),
+xlstm-1.3b (mLSTM and sLSTM blocks) and the mixture-of-experts
+mixtral-8x22b and dbrx-132b.
 Every other architecture of the reference raises ``KeyError`` until the
 slice that ports its blocks.
 """
@@ -24,13 +25,13 @@ _ARCH_MODULES = {
     "deepseek-7b": "repro_torch.configs.deepseek_7b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
 }
 
 # the reference's other architectures and the blocks they wait for
 _LATER = {
     "phi-3-vision-4.2b": "image tokens",
-    "dbrx-132b": "mixture-of-experts blocks",
-    "mixtral-8x22b": "mixture-of-experts blocks",
     "whisper-medium": "the encoder and cross-attention",
 }
 

@@ -7,11 +7,12 @@ The same loop and defaults as the reference's ``src/repro/launch/serve.py``:
 the prompt is fed one token at a time through the decode step (prefill is
 decode), then the greedy tokens.  Architectures: those of
 ``repro_torch.configs`` (``--arch``; the default recurrentgemma-2b is the
-RG-LRU hybrid, xlstm-1.3b the mLSTM/sLSTM stack, the others dense
-attention-only), reduced unless
-``--full-config``.  Parameters are the reference's ``init(PRNGKey(seed))``
-for ``--seed``, drawn on the device.  Runs on CUDA unless ``--device cpu``
-is given.
+RG-LRU hybrid, xlstm-1.3b the mLSTM/sLSTM stack, mixtral-8x22b and
+dbrx-132b mixture-of-experts models, the others dense attention-only),
+reduced unless ``--full-config`` (a full-depth MoE model, 281 or 263 GB in
+bf16, does not fit one card).  Parameters are the reference's
+``init(PRNGKey(seed))`` for ``--seed``, drawn on the device.  Runs on CUDA
+unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 

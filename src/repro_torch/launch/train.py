@@ -22,7 +22,9 @@ Runs on CUDA unless ``--device cpu`` is given.  Pretrain mode draws the model
 from ``--seed`` with ``TransformerLM.init``, the reference's weights for that
 seed; a bf16 model trains in bf16, each round's flat fp32
 mean cast back to every leaf's dtype, as the reference's ``flatten_pytree``
-inverse does.
+inverse does.  ``--arch`` offers every architecture the port serves, but
+pretraining a mixture-of-experts model (mixtral-8x22b, dbrx-132b) raises
+``NotImplementedError``: it waits for ROADMAP A.7.4's training half.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import MLPClassifier, TransformerLM, param_count
 from repro_torch.models.lm import flat_from_lm, lm_from_flat
+from repro_torch.models.transformer import check_trainable
 from repro_torch.optim import sgd
 
 STRATS = {
@@ -81,6 +84,7 @@ def run_pretrain_mode(args, params: Optional[Dict[str, Any]] = None) -> dict:
     ``params`` (``TransformerLM`` parameters on the device) replaces the
     random draw, so a caller can start from given weights."""
     cfg = get_arch(args.arch, reduced=not args.full_config)
+    check_trainable(cfg, "launch.train --mode pretrain")
     dev = resolve_device(args.device)
     model = TransformerLM(cfg, remat=True)
     if params is None:

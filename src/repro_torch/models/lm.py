@@ -33,7 +33,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.distributed import flatten_tree
 from repro_torch.device import DeviceLike
-from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.transformer import TransformerLM, check_trainable
 
 Params = Dict[str, torch.Tensor]
 
@@ -107,6 +107,9 @@ class LMClassifier:
     # plain autograd: ``remat``'s ``torch.utils.checkpoint`` does not run
     # under ``torch.func``'s transforms, which the vmapped step is made of.
     vmap_clients = False
+
+    def __post_init__(self):
+        check_trainable(self.cfg, "LMClassifier")
 
     @property
     def lm(self) -> TransformerLM:

@@ -1,9 +1,11 @@
 """Decoder-only LM, from the reference's ``src/repro/models/transformer.py``,
 for the dense attention-only architectures (global and sliding-window
-attention, dense MLP), the RG-LRU hybrid (recurrentgemma-2b: Griffin
-recurrent blocks beside local attention) and xLSTM (xlstm-1.3b: seven mLSTM
-blocks to one sLSTM block): the full-sequence forward and the
-sequence-chunked cross-entropy of training and prefill, and cached decoding.
+attention, dense MLP), the mixture-of-experts ones (mixtral-8x22b,
+dbrx-132b: attention with an MoE MLP, ``models/moe.py``), the RG-LRU hybrid
+(recurrentgemma-2b: Griffin recurrent blocks beside local attention) and
+xLSTM (xlstm-1.3b: seven mLSTM blocks to one sLSTM block): the
+full-sequence forward and the sequence-chunked cross-entropy of training
+and prefill, and cached decoding.
 
 Parameters are a dict::
 
@@ -19,7 +21,8 @@ cycle ``i // len(pattern)``, and its kind is ``cfg.block_kind(i)``
 (``convert.lm_params_from_jax`` maps the stacked pytree onto this list).
 Each block is a pre-norm residual: ``norm1`` and the ``mixer`` (attention,
 RG-LRU, mLSTM or sLSTM), then, for attention blocks of a model with
-``d_ff > 0``, ``norm2`` and the MLP; a recurrent block has no MLP, as in the
+``d_ff > 0``, ``norm2`` and the MLP (dense, or ``moe.init_moe``'s router and
+stacked (E, …) experts); a recurrent block has no MLP, as in the
 reference (an RG-LRU block's
 ``ArchConfig.param_count()`` books one anyway: recurrentgemma-2b's built tree
 has 2,304,888,320 parameters, the config's count says 2,835,637,760).
@@ -29,9 +32,16 @@ local layer's cache is ``min(cache_len, window)`` long, a ring buffer;
 layer, ``{"C", "n", "m"}`` for an mLSTM layer and ``{"c", "n", "m", "h"}``
 for an sLSTM layer (fp32).
 
-The dense slice has no mixture-of-experts auxiliary loss, so ``hidden`` and
-``forward`` return the hidden states and the logits alone, where the
-reference returns them beside a zero aux term.  ``remat`` is a memory
+A model with experts sums its layers' load-balance losses (``aux``):
+``hidden_aux`` returns it beside the hidden states, and ``loss`` is the
+mean NLL plus aux, as the reference's.  ``hidden``, ``forward`` and
+``nll_sums`` return the hidden states, the logits and the per-sequence NLL
+alone, where the reference returns the first two beside aux; for a model
+without experts aux is ``None`` and ``loss`` adds nothing.  Full sequences
+route with the model's ``moe_capacity_factor`` and ``moe_group_size`` (the
+reference's 1.25 and 2048), the decode step drop-free.  Training an MoE
+through the federated and launch-level paths waits for ROADMAP A.7.4's
+training half (``check_trainable``).  ``remat`` is a memory
 policy, not semantics: each layer is recomputed in the backward pass
 (``torch.utils.checkpoint``) where the reference checkpoints each scanned
 cycle and each rest block; each loss chunk is recomputed either way, as in
@@ -54,7 +64,7 @@ from repro_torch import random as prng
 from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, MLSTM, RGLRU, SLSTM, ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import rglru, ssm
+from repro_torch.models import moe, rglru, ssm
 from repro_torch.models.layers import apply_mlp, apply_norm, embed_init, init_mlp, init_norm
 
 _ATTN_KINDS = (ATTN_GLOBAL, ATTN_LOCAL)
@@ -70,8 +80,6 @@ def check_supported(cfg: ArchConfig) -> None:
     kinds = sorted(set(cfg.layer_kinds()) - set(_KINDS))
     if kinds:
         later.append(f"block kinds {kinds}")
-    if cfg.moe is not None:
-        later.append("mixture-of-experts MLPs")
     if cfg.is_encdec:
         later.append("the encoder and cross-attention")
     if cfg.image_tokens:
@@ -79,8 +87,23 @@ def check_supported(cfg: ArchConfig) -> None:
     if later:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(later)} wait for a later slice of the port; this one runs "
-            f"the dense attention-only architectures, the RG-LRU hybrid and xLSTM"
+            f"the dense attention-only and mixture-of-experts architectures, the RG-LRU hybrid "
+            f"and xLSTM"
         )
+
+
+def check_trainable(cfg: ArchConfig, who: str) -> None:
+    """Raise ``NotImplementedError`` for a model with experts where the
+    federated and launch-level training paths would take it: their
+    per-example loss is a sequence's loss alone, but an MoE routes each
+    dispatch group's sequences against one another for expert capacity
+    and adds a batch-level load-balance loss.  That design is ROADMAP
+    A.7.4's training half; this slice serves MoE models."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{who}: {cfg.name} has mixture-of-experts MLPs, whose training waits for ROADMAP "
+            f"A.7.4's training half (a sequence's loss alone against group routing and the "
+            f"batch's load-balance loss); this slice of the port serves them")
 
 
 # ===========================================================================
@@ -115,7 +138,10 @@ def init_block(key: np.ndarray, kind: str, cfg: ArchConfig, dtype: torch.dtype,
     p: Dict = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, device), "mixer": mixer}
     if _has_mlp(kind, cfg):
         p["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, device)
-        p["mlp"] = init_mlp(r3, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype, device)
+        if cfg.moe is not None:
+            p["mlp"] = moe.init_moe(r3, cfg, dtype, device)
+        else:
+            p["mlp"] = init_mlp(r3, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype, device)
     return p
 
 
@@ -130,8 +156,12 @@ def layer_key(r_dec: np.ndarray, i: int, cfg: ArchConfig) -> np.ndarray:
 
 
 def apply_block_train(params: Dict, kind: str, x: torch.Tensor, positions: torch.Tensor,
-                      cfg: ArchConfig) -> torch.Tensor:
-    """Pre-norm residual block over whole sequences (causal)."""
+                      cfg: ArchConfig, moe_capacity_factor: Optional[float],
+                      moe_group_size: Optional[int]
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Pre-norm residual block over whole sequences (causal): (x, the MoE
+    MLP's aux loss, or None without experts).  An MoE MLP routes with
+    ``TransformerLM``'s ``moe_capacity_factor`` and ``moe_group_size``."""
     h = apply_norm(cfg.norm, params["norm1"], x)
     if kind == RGLRU:
         x = x + rglru.apply_rglru(params["mixer"], h, cfg)
@@ -141,10 +171,17 @@ def apply_block_train(params: Dict, kind: str, x: torch.Tensor, positions: torch
         x = x + ssm.apply_slstm(params["mixer"], h, cfg)
     else:
         x = x + attn.attention_block(params["mixer"], h, positions, cfg, local=_is_local(kind))
+    aux = None
     if "mlp" in params:
         h2 = apply_norm(cfg.norm, params["norm2"], x)
-        x = x + apply_mlp(params["mlp"], h2, cfg.act)
-    return x
+        if cfg.moe is not None:
+            mlp_out, aux = moe.apply_moe(params["mlp"], h2, cfg,
+                                         capacity_factor=moe_capacity_factor,
+                                         group_size=moe_group_size)
+        else:
+            mlp_out = apply_mlp(params["mlp"], h2, cfg.act)
+        x = x + mlp_out
+    return x, aux
 
 
 def _remat(fn, *args):
@@ -183,7 +220,11 @@ def apply_block_decode(params: Dict, kind: str, x_t: torch.Tensor, cache: Dict, 
     x_t = x_t + mix
     if "mlp" in params:
         h2 = apply_norm(cfg.norm, params["norm2"], x_t)
-        x_t = x_t + apply_mlp(params["mlp"], h2, cfg.act)
+        if cfg.moe is not None:                  # drop-free: a token's experts are its own
+            x_t = x_t + moe.mix(params["mlp"], h2, cfg, capacity_factor=None,
+                                group_size=None)[0]
+        else:
+            x_t = x_t + apply_mlp(params["mlp"], h2, cfg.act)
     return x_t, cache
 
 
@@ -194,13 +235,19 @@ class TransformerLM(nn.Module):
     """The port's decoder LM.  Stateless like the reference's: parameters and
     caches are passed in, so one module serves any number of parameter sets."""
 
-    def __init__(self, cfg: ArchConfig, remat: bool = True, loss_chunk: int = 256):
+    def __init__(self, cfg: ArchConfig, remat: bool = True, loss_chunk: int = 256,
+                 moe_capacity_factor: Optional[float] = 1.25,
+                 moe_group_size: Optional[int] = 2048):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.remat = remat
         # sequence-chunk size of the chunked cross-entropy
         self.loss_chunk = loss_chunk
+        # MoE routing of full sequences (train, prefill): the expert capacity
+        # factor (None: drop-free) and the dispatch group's tokens
+        self.moe_capacity_factor = moe_capacity_factor
+        self.moe_group_size = moe_group_size
 
     @property
     def dtype(self) -> torch.dtype:
@@ -230,20 +277,31 @@ class TransformerLM(nn.Module):
         return h @ params["unembed"]
 
     # -- full-sequence forward (train / prefill) -----------------------------
-    def hidden(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Final-norm hidden states (B, S, D) of ``batch["tokens"]`` (B, S)."""
+    def hidden_aux(self, params: Params, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(final-norm hidden states (B, S, D) of ``batch["tokens"]`` (B, S),
+        the layers' summed MoE aux loss, or None for a model without
+        experts)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
         h = params["embed"][tokens].to(self.dtype)
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
         remat = self.remat and torch.is_grad_enabled()
+        route = (self.moe_capacity_factor, self.moe_group_size)
+        aux = None
         for kind, layer in zip(cfg.layer_kinds(), params["layers"]):
             if remat:
-                h = _remat(apply_block_train, layer, kind, h, positions, cfg)
+                h, a = _remat(apply_block_train, layer, kind, h, positions, cfg, *route)
             else:
-                h = apply_block_train(layer, kind, h, positions, cfg)
-        return apply_norm(cfg.norm, params["final_norm"], h)
+                h, a = apply_block_train(layer, kind, h, positions, cfg, *route)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return apply_norm(cfg.norm, params["final_norm"], h), aux
+
+    def hidden(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Final-norm hidden states (B, S, D) of ``batch["tokens"]`` (B, S)."""
+        return self.hidden_aux(params, batch)[0]
 
     def forward(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Logits (B, S, V).  Materializes full logits; the training loss
@@ -254,10 +312,13 @@ class TransformerLM(nn.Module):
         """(B,) each sequence's summed next-token NLL over its labelled
         positions (labels -1 are not counted): the reference's
         sequence-chunked cross-entropy, summed per sequence.  Each S-chunk's
-        logits are fp32; the gold logit is a row gather of the unembedding."""
+        logits are fp32; the gold logit is a row gather of the unembedding.
+        A model's MoE aux loss is not in it (``loss`` adds it)."""
+        return self._nll_sums(params, self.hidden(params, batch), batch["labels"])
+
+    def _nll_sums(self, params: Params, h: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        h = self.hidden(params, batch)
-        labels = batch["labels"].long()
+        labels = labels.long()
         b, s, _ = h.shape
         w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
         chunk = min(self.loss_chunk, s)
@@ -274,9 +335,11 @@ class TransformerLM(nn.Module):
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Mean next-token NLL: the summed NLL over ``b·s`` (the unpadded
-        sequence length)."""
+        sequence length), plus the MoE aux loss of a model with experts."""
         b, s = batch["tokens"].shape
-        return torch.sum(self.nll_sums(params, batch)) / (b * s)
+        h, aux = self.hidden_aux(params, batch)
+        nll = torch.sum(self._nll_sums(params, h, batch["labels"])) / (b * s)
+        return nll if aux is None else nll + aux
 
     # -- decode ---------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int, device: DeviceLike = "cuda") -> List[Dict]:

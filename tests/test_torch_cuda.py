@@ -733,6 +733,10 @@ def _assert_decode_close(got, want32, v):
     (2, 50, 1, 10, 256, torch.float32, [50, 0], 0, False),              # one split, length 0
     (2, 515, 2, 9, 128, torch.bfloat16, [515, 3], 0, False),            # a dummy head
     (2, 257, 1, 16, 64, torch.float32, [257, 100], 0, False),
+    # mixtral-8x22b / dbrx-132b: 48 heads over 8 KV heads (G = 6), head_dim 128
+    (8, 160, 8, 6, 128, torch.bfloat16, [160] * 8, 0, False),           # the serve run's last step
+    (8, 160, 8, 6, 128, torch.bfloat16, [160] * 8, 4096, True),         # mixtral's ring, unwrapped
+    (8, 4096, 8, 6, 128, torch.bfloat16, [4500] * 8, 4096, True),       # mixtral's ring, wrapped
 ])
 def test_decode_attention_kernel_matches_plain(cuda, b, s, kv, g, hd, dtype, lengths, window,
                                                ring):
@@ -868,6 +872,60 @@ def test_hybrid_generate_on_the_card_matches_cpu(cuda):
     got = generate(model, {k: _to(v, cuda) for k, v in params.items()}, prompt.to(cuda), 10, 24)
     assert ops.launch_counts()["decode_attention"] == 2 * 23       # two attention layers
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("cf,group", [(None, None), (1.25, None), (1.25, 16), (0.5, None)])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "dbrx-132b"])
+def test_apply_moe_on_the_card_matches_cpu(cuda, arch, cf, group):
+    """The reduced MoE MLP in fp32 on 40 tokens, drop-free, with capacity
+    drops and with padded groups of 16: the same output within 1e-5 of its
+    max and the same aux within 1e-6 relative on the card as on the CPU."""
+    import dataclasses
+
+    from repro_torch import random as prng
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_arch(arch, reduced=True), dtype="float32")
+    params = moe.init_moe(prng.PRNGKey(1), cfg, torch.float32, torch.device("cpu"))
+    x = torch.randn(4, 10, cfg.d_model, generator=torch.Generator().manual_seed(2))
+    want, want_aux = moe.apply_moe(params, x, cfg, capacity_factor=cf, group_size=group)
+    got, got_aux = moe.apply_moe(_to(params, cuda), x.to(cuda), cfg, capacity_factor=cf,
+                                 group_size=group)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert abs(float(got_aux) - float(want_aux)) <= 1e-6 * abs(float(want_aux))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "dbrx-132b"])
+def test_moe_generate_on_the_card_matches_cpu(cuda, arch):
+    """A reduced MoE model in fp32 (mixtral's window cut to 8, so its ring
+    wraps): the same tokens on the card as on the CPU, the kernel launched
+    once an attention layer a step, and a decode step that reads nothing
+    back to the host."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import TransformerLM
+
+    cfg = dataclasses.replace(get_arch(arch, reduced=True), window=8, dtype="float32")
+    model = TransformerLM(cfg)
+    params = model.init(0, "cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 12), generator=torch.Generator().manual_seed(0))
+    want = generate(model, params, prompt, 8, 20)
+    ops.reset_launch_counts()
+    on_card = _to(params, cuda)
+    got = generate(model, on_card, prompt.to(cuda), 8, 20)
+    assert ops.launch_counts()["decode_attention"] == cfg.num_layers * 19
+    assert torch.equal(got.cpu(), want)
+    cache, tok = model.init_cache(2, 20, cuda), prompt[:, :1].to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_step(on_card, tok, cache, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def _to(tree, dev):

@@ -190,5 +190,6 @@ def test_serve_decode_offers_the_ports_archs():
     port = _load("serve_decode_torch")
     with pytest.raises(SystemExit):
         port.main(["--arch", "whisper-medium", "--device", "cpu"])
-    assert tconfigs.list_archs() == ["deepseek-7b", "gemma3-4b", "minitron-4b", "qwen1.5-4b",
-                                     "recurrentgemma-2b", "xlstm-1.3b"]
+    assert tconfigs.list_archs() == ["dbrx-132b", "deepseek-7b", "gemma3-4b", "minitron-4b",
+                                     "mixtral-8x22b", "qwen1.5-4b", "recurrentgemma-2b",
+                                     "xlstm-1.3b"]
