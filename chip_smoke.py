@@ -6,15 +6,16 @@
 
 With no argument every phase below runs.  ``--phases`` runs only the named
 phases (``PHASES``: 1, 2, 2b, 2c, 2e, 2f, 2d, 3, 4, 4b, 5, 5b, 6, 6b, 7,
-7b, 8, 8b, 9, 9b, 10, 11, 12, 12b, 12c, 12d), after the same build and
-ptxas gate and with the same checks;
+7b, 8, 8b, 9, 9b, 10, 11, 12, 12b, 12c, 12d, 13, 13b, 13c), after the same
+build and ptxas gate and with the same checks;
 phases 2b, 2e and 2f then build phase 2's federation without its run, and
 phase 2c needs phase 2.  The kernels line lists the rows of the phases that
 ran.
 
 1. Builds the CUDA kernels from the six sources of
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one
-   process per source, started together) and prints the build time and each
+   process per source, ``decode_attention.cu`` as six objects of 8
+   instances, all started together) and prints the build time and each
    kernel's registers, spills and stack frames; every instance of every
    kernel (``KERNEL_INSTANCES``: 48 ``decode_attention``, one per dtype,
    head_dim and 1..8 query heads a block, as groups of 9..16 run as two
@@ -90,9 +91,11 @@ ran.
    bitwise); the pipelined run again with the round body eager on the card
    (no capture; bitwise the graph's); FedAvg, Fedcom and QuantizedFL for 2
    rounds against the loop (QuantizedFL bitwise: the chunk draws its
-   rounding uniforms with the Threefry kernel from device tensors); then ``benchmarks/common.py``'s quick ``BenchConfig`` (MLP
-   16→24→10, M = 30, P = 6, 50 rounds) on the loop driver and the graph,
-   and its first 16 rounds captured and as eager chunks.  Each scan run runs under a device-only ``torch.profiler``
+   rounding uniforms with the Threefry kernel from device tensors); then
+   ``benchmarks/common.py``'s quick ``BenchConfig`` (MLP 16→24→10, M = 30,
+   P = 6, 50 rounds) on the loop driver and the graph, and its first 16
+   rounds captured and as eager chunks of 8.  Each scan run runs under a
+   device-only ``torch.profiler``
    and must show one capture per key, one host sync per chunk (dispatch runs
    under ``set_sync_debug_mode("error")``), each kernel's launches in the
    replays as its round launches it (``gram`` every round), and the
@@ -154,12 +157,12 @@ ran.
    5b. The same for a small recurrentgemma-family model (the CPU tests'
    config: 8 layers, 10 heads over one KV head, window 8) over 24
    positions.
-6. Federated LoRA fine-tuning of gemma3-4b at full width, 12 of its 34
-   layers (1.80 B bf16 parameters, seed 0's weights drawn and checked as in phase 4;
+6. Federated LoRA fine-tuning of gemma3-4b at full width, 6 of its 34
+   layers (1.24 B bf16 parameters, seed 0's weights drawn and checked as in phase 4;
    the adapters drawn on the card too, each A at 4,096 sampled indices
    against the plain version) through
    ``run_federated``: ``LMClassifier(cfg, seq_len=128)`` wrapped in
-   ``LoRAClassifier(rank=8)`` (D = 5,259,264 over 42 target leaves), 16
+   ``LoRAClassifier(rank=8)`` (D = 2,629,632 over 42 target leaves), 16
    clients of 32 sequences from ``make_federated_lm`` (vocab 262,144) and 64
    eval sequences; FLrce (P = 4, 3 rounds, lr 0.01, batch 8, batched
    engine, loop driver), then FedAvg and Fedcom (keep 0.1) for 1 round
@@ -183,11 +186,11 @@ ran.
    ``driver="scan"`` (a captured round) against the loop: selections,
    exploit flags, stops and ledger equal, accuracy within 2e-3, losses
    within 1e-4.
-7. Federated LoRA fine-tuning of recurrentgemma-2b at full width (11 of
+7. Federated LoRA fine-tuning of recurrentgemma-2b at full width (5 of
    its 26 layers, bf16 with fp32 RG-LRU gates, seed 0's weights drawn and checked
    as in phase 4b) as phase 6 runs gemma3-4b: ``LoRAClassifier(rank=8)``
    adapts the attention layers' and MLPs' projections and every RG-LRU
-   block's conv ``w`` (D = 1,241,216 over 11 stacked target leaves), the
+   block's conv ``w`` (D = 434,240 over 11 stacked target leaves), the
    same federation at vocab 256,000, FLrce 3 rounds, FedAvg and Fedcom 1
    each, checks (a) to (d), the four FL kernels at the phase's operands,
    and its FedAvg round's profile by group (RG-LRU blocks among them).
@@ -209,15 +212,17 @@ ran.
    1024) fp32 a layer), 8 steps under ``torch.profiler`` by group and the
    busy share; then the model in fp32: decode-step logits over 300
    positions at B = 2 (a whole chunk of 256 and a padded one) within 1e-3
-   of max|logit| of ``forward``'s.
+   of max|logit| of ``forward``'s, and five planted faults (states emptied
+   before position 256), decoded together as one batch of 10 sequences,
+   each beyond that limit.
    8b. A small xlstm-family model (9 layers: 7 mLSTM, 1 sLSTM, 1 mLSTM;
    fp32) teacher-forced over 20 positions on the card and on the CPU as in
    phase 5, and the reference CLI's serve case (``--arch xlstm-1.3b --batch
    2 --prompt-len 4 --gen 4``, reduced, fp32): tokens equal.
-9. Federated LoRA fine-tuning of xlstm-1.3b at full width, 16 of its 48
+9. Federated LoRA fine-tuning of xlstm-1.3b at full width, 8 of its 48
    layers (seed 0's weights drawn and checked as in phase 4) as phase 6 runs gemma3-4b:
    ``LoRAClassifier(rank=8)`` adapts each mLSTM's ``wq``, ``wk``, ``wv``,
-   ``wo`` and fp32 ``wi`` and each sLSTM's ``wi`` (D = 2,932,960 over 36
+   ``wo`` and fp32 ``wi`` and each sLSTM's ``wi`` (D = 1,466,480 over 36
    stacked leaves), vocab 50,304, each client's 32 sequences in one batch;
    checks (a) to (d) ((d)'s batched side is the run's own round-0 rows,
    one batch being a client's round), the four FL kernels, the FedAvg
@@ -279,6 +284,37 @@ ran.
    one group, in groups of 16 that pad 40 tokens, and at 0.5 (tokens
    dropped, as many on both), logits within 1e-4 of max|logit| and loss
    within 1e-5 relative; greedy tokens through ``generate`` equal.
+13. Federated LoRA fine-tuning of mixtral-8x22b at full width, 4 of its
+   56 layers (the most whose round stays under 72 GiB of device memory:
+   the frozen bf16 base, the merged copy of every target leaf and one
+   stacked expert leaf's fp32 merge are live at once), as phase 6 runs
+   gemma3-4b: ``LoRAClassifier(rank=8)`` over each layer's attention and
+   its stacked (E, d, f) experts' ``wi``, ``wg`` and ``wo`` (D =
+   18,546,688; the routers frozen), each client's sequences routed one by
+   one on the batched engine (the reference's ``jax.vmap`` of
+   ``model.loss``); checks (a) to (c), the FLrce job run twice (equal
+   selections and exploit flags, round 0's (P, D) update bitwise), the
+   peak under 72 GiB, and (d) for an MoE, whose two engines train two
+   functions: at one full-width layer in fp32, each engine's first local
+   step against its own function computed by definition with float64
+   weights and products (the per-sequence one as the mean of one-sequence
+   batches' losses), within the engines' tolerance, the two engines' own
+   steps' gap printed; the four FL kernels at the phase's
+   operands; the FedAvg round's profile by group (MoE MLPs, LoRA merges,
+   cross-entropy among them).
+   13b. The same for dbrx-132b, 3 of its 40 layers (D = 20,398,080).
+   13c. The reduced mixtral and dbrx models' training in fp32 on the card
+   against the CPU worker, at capacity factors 1.25 and 0.5 (drops) and in
+   groups of 16 that pad each 40-token sequence: a per-sequence forward's
+   expert ids and kept pairs (equal where the top-k gap is 1e-6 or more)
+   and each sequence's loss (within 1e-5 relative), one full-model
+   ``LMClassifier`` FLrce round on each engine, one LoRA FLrce round and
+   ``launch.train --mode pretrain`` for 2 rounds (selections, exploit
+   flags and ledger equal, losses within 1e-4, accuracy within 2e-3).
+
+The CPU halves of phases 2f, 3, 6b, 7b, 9b, 11 and 13c, and phase 2d's
+federation, are made by a worker process (``--cpu-side``) on the last 3
+cores, started after the build, in the order the phases need them.
 
 Measurement modes, which print no result line:
 ``--decode-variants`` builds and times variants of the ``decode_attention``
@@ -294,7 +330,9 @@ gradient through cuDNN's convolution and through the patch GEMM, alone and
 vmapped, and the vmapped step's time; Eq. 6's entries in the reference's
 expanded dot form and from r = w − a on the main path's rounds), how
 far the batched and sequential engines part by local step count, and what
-phase 2c's norm check reads for a sequential engine with a planted fault.
+phase 2c's norm check reads for a sequential engine with a planted fault;
+``--moe-lora-peaks`` runs one FLrce round of phases 13 and 13b at their
+depth and one layer deeper and prints each one's peak device memory.
 
 The second-to-last line is the kernels' JSON record (the five kernels at
 their phase 1 shapes, ``decode_attention@recurrentgemma-2b`` at its ring
@@ -308,9 +346,10 @@ four FL kernels at phase 6's as ``<name>@gemma3-4b-lora``, with phase 6's
 launches, and at phase 7's as ``<name>@recurrentgemma-2b-lora``, with phase
 7's, and at phase 2f's async round as ``<name>@async``, with its FLrce
 run's wrapper launches: the warm-up round's and the capture's, and at
-phase 9's as ``<name>@xlstm-1.3b-lora`` and phase 10's as
+phase 9's as ``<name>@xlstm-1.3b-lora``, phase 10's as
 ``<name>@fedlm-100m``, the latter's launches the wrappers' and the
-replays'), after the
+replays', and phase 13's and 13b's as ``<name>@mixtral-8x22b-lora`` and
+``<name>@dbrx-132b-lora``), after the
 seconds of each phase and the total; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the exit code is
 non-zero and no result line is printed.  Exits 1 when CUDA is absent or the
@@ -354,10 +393,10 @@ THREEFRY_INT_OPS = 43
 L2_FLUSH_BYTES = 1 << 30
 # the phases, in the order they run; ``--phases`` picks some of them
 PHASES = ("1", "2", "2b", "2c", "2e", "2f", "2d", "3", "4", "4b", "5", "5b", "6", "6b", "7", "7b",
-          "8", "8b", "9", "9b", "10", "11", "12", "12b", "12c", "12d")
+          "8", "8b", "9", "9b", "10", "11", "12", "12b", "12c", "12d", "13", "13b", "13c")
 # measurement modes: they print no result line
 MODES = ("--decode-variants", "--kernel-variants", "--time-kernels", "--numerics",
-         "--xlstm-gap")
+         "--xlstm-gap", "--moe-lora-peaks")
 # 0.05 diverges on this data: the JAX package's run of the same
 # configuration, like the port's, reaches a NaN loss in round 1.
 MAIN_LR = 0.01
@@ -1041,22 +1080,43 @@ def update_gap(torch, got, want) -> tuple:
     return max(0.0, float(excess.max())), float(err.max()), int((excess > 0).sum())
 
 
+class PlanOrder:
+    """A stand-in for the sequential trainer's generator whose permutation
+    keeps the order, so that it takes a batch in the order the batched
+    engine's plan holds it (a batch-routed MoE fills expert capacity in
+    token order)."""
+
+    @staticmethod
+    def permutation(n):
+        import numpy as np
+
+        return np.arange(n)
+
+
+def first_batch_plan(ds, ids, batch: int, epochs: int):
+    """Round 0's cohort plan of clients ``ids`` (``build_cohort_plan``, as
+    the run draws it)."""
+    from repro_torch.fl.client import build_cohort_plan, client_batch_rng
+
+    return build_cohort_plan([ds.client_data(c) for c in ids], [epochs] * len(ids), batch,
+                             [client_batch_rng(0, 0, c) for c in ids])
+
+
 def first_step_updates(torch, ds, model, params, ids, lr=MAIN_LR, batch=32, epochs=2,
-                       batched=None) -> tuple:
+                       batched=None, in_order=False) -> tuple:
     """Each client's update after its first batch of round 0, from the
-    sequential trainer and from the batched trainer (same batches).
-    ``batched``: the batched engine's round-0 update rows where a client's
-    round is that one batch, which the run has already made."""
+    sequential trainer and from the batched trainer (same batches; with
+    ``in_order`` in the same order too).  ``batched``: the batched engine's
+    round-0 update rows where a client's round is that one batch, which the
+    run has already made."""
     import dataclasses
 
     import numpy as np
 
     from repro_torch.core.distributed import flatten_params
-    from repro_torch.fl.client import (BatchedCohortTrainer, ClientTrainer, build_cohort_plan,
-                                       client_batch_rng)
+    from repro_torch.fl.client import BatchedCohortTrainer, ClientTrainer
 
-    plan = build_cohort_plan([ds.client_data(c) for c in ids], [epochs] * len(ids), batch,
-                             [client_batch_rng(0, 0, c) for c in ids])
+    plan = first_batch_plan(ds, ids, batch, epochs)
     one = dataclasses.replace(plan, x=plan.x[:, :1], y=plan.y[:, :1],
                               sample_w=plan.sample_w[:, :1], step_valid=plan.step_valid[:, :1])
     if batched is None:
@@ -1070,7 +1130,7 @@ def first_step_updates(torch, ds, model, params, ids, lr=MAIN_LR, batch=32, epoc
     for k in range(len(ids)):
         n = int(plan.sample_w[k, 0].sum())
         upd, _ = trainer.local_update(params, plan.x[k, 0, :n], plan.y[k, 0, :n], 1,
-                                      np.random.default_rng(0))
+                                      PlanOrder() if in_order else np.random.default_rng(0))
         rows.append(flatten_params(upd)[0])
     return torch.stack(rows), batched
 
@@ -1439,8 +1499,11 @@ def baselines_phase(torch, ds, model, params) -> dict:
     return {name: run[1] for name, run in runs.items()}
 
 
-def reference_check(torch) -> None:
-    """The same small federations on the card (kernels) and on the CPU (plain)."""
+def reference_runs(dev: str) -> dict:
+    """Phase 3's small federations on ``dev`` (the card's kernels, or the
+    CPU's plain versions): FLrce, Fedcom and QuantizedFL, then
+    ``examples/quickstart.py``'s configuration with and without early
+    stopping, from ``init(0)``, by label."""
     from repro_torch.data import make_federated_classification
     from repro_torch.fl import FLrce, run_federated
     from repro_torch.fl.baselines import Fedcom, QuantizedFL
@@ -1451,37 +1514,56 @@ def reference_check(torch) -> None:
     model = MLPClassifier(10, 4, (16,))
     init = model.init(0, "cpu")
     dim = sum(p.numel() for p in init.values())
+    runs = {}
     for label, make in (
         ("FLrce", lambda: FLrce(8, 3, 2, dim=dim, es_threshold=10.0, explore_decay=0.5, seed=0)),
         ("Fedcom", lambda: Fedcom(8, 3, 2, seed=0, keep_frac=0.1)),
         # the card's rounding uniforms from the Threefry kernel, the CPU's from the host
         ("QuantizedFL", lambda: QuantizedFL(8, 3, 2, seed=0)),
     ):
-        runs = {dev: run_federated(model, ds, make(), max_rounds=6, learning_rate=0.1, batch_size=16,
-                                   seed=0, init_params=init, torch_device=dev)
-                for dev in ("cuda", "cpu")}
-        compare_runs(label, runs["cuda"], runs["cpu"])
-    # examples/quickstart.py's configuration, from init(0) on each device
+        runs[label] = run_federated(model, ds, make(), max_rounds=6, learning_rate=0.1,
+                                    batch_size=16, seed=0, init_params=init, torch_device=dev)
     ds = make_federated_classification(num_clients=20, alpha=0.1, num_samples=4000, num_eval=800,
                                        feature_dim=24, num_classes=10, noise=0.8, seed=0)
     model = MLPClassifier(24, 10, (48, 32))
     dim = sum(p.numel() for p in model.init(0, "cpu").values())
     for use_es in (True, False):
-        runs = {dev: run_federated(model, ds, FLrce(20, 5, 2, dim=dim, es_threshold=2.5,
-                                                    explore_decay=0.9, use_early_stopping=use_es,
-                                                    seed=0),
-                                   max_rounds=25, learning_rate=0.08, batch_size=32, seed=0,
-                                   torch_device=dev)
-                for dev in ("cuda", "cpu")}
-        label = f"quickstart {runs['cuda'].strategy}"
-        compare_runs(label, runs["cuda"], runs["cpu"])
-        if runs["cuda"].strategy != ("flrce" if use_es else "flrce_no_es"):
-            fail(f"{label}: reports the name {runs['cuda'].strategy}")
-        if not use_es and runs["cuda"].rounds_run != 25:
-            fail(f"{label}: ran {runs['cuda'].rounds_run} of 25 rounds")
-        print(f"  {label}: {runs['cuda'].rounds_run} rounds, stopped early "
-              f"{runs['cuda'].stopped_early}, final accuracy GPU {runs['cuda'].final_accuracy:.4f} "
-              f"CPU {runs['cpu'].final_accuracy:.4f}")
+        runs[f"quickstart es={use_es}"] = run_federated(
+            model, ds, FLrce(20, 5, 2, dim=dim, es_threshold=2.5, explore_decay=0.9,
+                             use_early_stopping=use_es, seed=0),
+            max_rounds=25, learning_rate=0.08, batch_size=32, seed=0, torch_device=dev)
+    return runs
+
+
+def cpu_half(worker, tag: str):
+    """The CPU half of phase ``tag``'s card-against-CPU checks
+    (``CPU_HALVES[tag]``), which the CPU worker made beside the earlier
+    phases."""
+    t0 = time.perf_counter()
+    value = worker_result(worker, f"{tag}.pt")
+    print(f"  the CPU half: the CPU worker's ({CPU_SIDE_THREADS} threads, beside the earlier "
+          f"phases), waited for {time.perf_counter() - t0:.1f} s")
+    return value
+
+
+def reference_check(torch, worker) -> None:
+    """The same small federations on the card (kernels) and on the CPU (plain)."""
+    card = reference_runs("cuda")
+    cpu = cpu_half(worker, "3")
+    for label, run in card.items():
+        if not label.startswith("quickstart"):
+            compare_runs(label, run, cpu[label])
+            continue
+        use_es = label.endswith("True")
+        label = f"quickstart {run.strategy}"
+        compare_runs(label, run, cpu[f"quickstart es={use_es}"])
+        if run.strategy != ("flrce" if use_es else "flrce_no_es"):
+            fail(f"{label}: reports the name {run.strategy}")
+        if not use_es and run.rounds_run != 25:
+            fail(f"{label}: ran {run.rounds_run} of 25 rounds")
+        print(f"  {label}: {run.rounds_run} rounds, stopped early {run.stopped_early}, final "
+              f"accuracy GPU {run.final_accuracy:.4f} CPU "
+              f"{cpu[f'quickstart es={use_es}'].final_accuracy:.4f}")
 
 
 def compare_runs(label, a, b) -> None:
@@ -1519,15 +1601,16 @@ def device_busy(prof) -> tuple:
     of ``prof.events()`` over them took minutes)."""
     import torch
 
-    spans, counts = [], dict.fromkeys(PROFILED_KERNEL, 0)
+    cuda = torch.autograd.DeviceType.CUDA
+    spans, names = [], collections.Counter()
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() != torch.autograd.DeviceType.CUDA:
+        if e.device_type() != cuda:
             continue
-        spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
-        name = e.name()
-        for k, kernel in PROFILED_KERNEL.items():
-            if kernel in name:
-                counts[k] += 1
+        start = e.start_ns()
+        spans.append((start, start + e.duration_ns()))
+        names[e.name()] += 1
+    counts = {k: sum(n for name, n in names.items() if kernel in name)
+              for k, kernel in PROFILED_KERNEL.items()}
     busy_ns, last_end = 0, float("-inf")
     for start, end in sorted(spans):
         busy_ns += max(0, end - max(start, last_end))
@@ -1563,10 +1646,13 @@ def scan_run(torch, label, ds, model, params, make, rounds, **kw):
                             torch_device="cuda", **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    stop_s = time.perf_counter() - t0 - wall
     launches = ops.launch_counts()
     via_cross = gram_kernels.GRAM_VIA_CROSS
     peak = torch.cuda.max_memory_allocated()
+    t1 = time.perf_counter()
     busy_us, n_activities, prof_counts = device_busy(prof)
+    read_s = time.perf_counter() - t1
     st = res.driver_stats
     n = st["replays"]
     flrce = strategy.name.startswith("flrce")
@@ -1604,7 +1690,8 @@ def scan_run(torch, label, ds, model, params, make, rounds, **kw):
           + ", ".join(f"{x:.3f}" for x in walls) + " s")
     print(f"  {label}: device busy {busy_us / 1e6:.3f} s of {wall:.3f} s "
           f"({100 * busy_us / 1e6 / wall:.1f}%, device-only profiler; {n_activities} device "
-          f"activities, {n_activities / (n + st['captures_chunk']):.0f} a round); capture "
+          f"activities, {n_activities / (n + st['captures_chunk']):.0f} a round; the profiler "
+          f"stopped in {stop_s:.2f} s and its records were read in {read_s:.2f} s); capture "
           f"(warm-up round "
           f"and capture) {st['capture_s']:.3f} s, build and dispatch {st['host_build_s']:.3f} s, device wait {st['device_wait_s']:.3f} s, flush "
           f"{st['host_flush_s']:.3f} s; launches in the replays {st['replay_launches']}, "
@@ -1866,7 +1953,19 @@ def check_arrivals(label, res, s: int) -> None:
         fail(f"{label}: arrivals by staleness {hist} against {st['async_arrivals']} arrivals")
 
 
-def async_phase(torch, timer, bandwidth, ds, model, params, scan_runs) -> tuple:
+def quick_async_run(dev: str):
+    """The quick BenchConfig at ``max_staleness=ASYNC_S`` on ``dev``, from
+    ``init(0)``: phase 2f's card-against-CPU job."""
+    from repro_torch.fl import AsyncConfig, run_federated
+
+    qds, qmodel, _, qmake = quick_federation()
+    return run_federated(qmodel, qds, qmake(), max_rounds=50, learning_rate=0.1, batch_size=32,
+                         seed=0, init_params=qmodel.init(0, "cpu"), driver="scan",
+                         scan_chunk_rounds=8, async_rounds=AsyncConfig(max_staleness=ASYNC_S),
+                         torch_device=dev)
+
+
+def async_phase(torch, timer, bandwidth, ds, model, params, scan_runs, worker) -> tuple:
     """Phase 2f: FLrce, FedAvg and Fedprox at max_staleness=0, bitwise their
     synchronous scan runs (phase 2e's where it ran them); FLrce at S = 2 on
     the synthetic trace; the quick BenchConfig at S = 2 on the card against
@@ -1874,7 +1973,7 @@ def async_phase(torch, timer, bandwidth, ds, model, params, scan_runs) -> tuple:
     kernels of the async round at its K = (S+1)·P = 30 rows.  Returns the
     kernel rows and the S = 2 run's wrapper launch counts."""
     from repro_torch.core.distributed import flatten_params
-    from repro_torch.fl import AsyncConfig, FLrce, baselines, run_federated, staleness_weights
+    from repro_torch.fl import AsyncConfig, FLrce, baselines, staleness_weights
     from repro_torch.fl.async_rounds import default_decay
     from repro_torch.fl.stats_schema import validate_driver_stats
 
@@ -1950,15 +2049,13 @@ def async_phase(torch, timer, bandwidth, ds, model, params, scan_runs) -> tuple:
           f"{profiled}: gram at K = {(ASYNC_S + 1) * 10} runs as the cross kernel, so its "
           "runs are counted under cross_gram")
 
-    # the quick BenchConfig at S = 2: the card against the CPU
-    qds, qmodel, _, qmake = quick_federation()
-    init = qmodel.init(0, "cpu")
+    # the quick BenchConfig at S = 2: the card against the CPU (the CPU
+    # worker's run, made beside the earlier phases)
     runs = {}
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        runs[dev] = run_federated(qmodel, qds, qmake(), max_rounds=50, learning_rate=0.1,
-                                  batch_size=32, seed=0, init_params=init, driver="scan",
-                                  scan_chunk_rounds=8, async_rounds=s2_cfg, torch_device=dev)
+        runs[dev] = (quick_async_run(dev) if dev == "cuda" else
+                     cpu_half(worker, "2f"))
         print(f"  quick BenchConfig async S={ASYNC_S} on the {dev}: {runs[dev].rounds_run} rounds "
               f"in {time.perf_counter() - t0:.2f} s, stopped early {runs[dev].stopped_early}, "
               f"arrivals {dict(sorted(runs[dev].ledger.arrivals_by_staleness.items()))}")
@@ -2420,22 +2517,34 @@ def init_leaf_check(torch, cfg, params, seed, launches) -> None:
                     checks.append((f"{i}.mlp.{name}", w, key, 1.0 / math.sqrt(w.shape[0]), None))
     rng = np.random.default_rng(seed)
     kinds = collections.Counter()
-    for label, leaf, key, scale, divisor in checks:
+    indices, words = [], []
+    for label, leaf, key, _, _ in checks:
         n = leaf.numel()
         idx = rng.choice(n, size=min(n, INIT_SAMPLES), replace=False)
         if label in ("embed", "unembed"):         # the last row of the vocabulary
             idx = np.concatenate([idx, np.arange(n - leaf.shape[-1], n)])
-        index = torch.from_numpy(idx).cuda()
-        z = ktf.normal_plain(key, index=index, device="cuda")
+        indices.append(idx)
+        words.append(np.asarray(key, np.uint32).astype(np.int64))
+    # every leaf's samples in one pass of the plain version, each element
+    # under its leaf's key
+    sizes = [len(idx) for idx in indices]
+    every = torch.from_numpy(np.concatenate(indices)).cuda()
+    key_words = torch.from_numpy(np.repeat(np.stack(words), sizes, axis=0)).cuda()
+    z_all = ktf.normal_plain((key_words[:, 0], key_words[:, 1]), index=every, device="cuda")
+    same = []
+    for (label, leaf, _, scale, divisor), z, index in zip(checks, z_all.split(sizes),
+                                                          every.split(sizes)):
         if scale is not None:
             z = z * float(np.float32(scale))
         if divisor:
             z = z / torch.tensor(divisor, device="cuda")
         got = leaf.reshape(-1)[index]
         view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
-        if not torch.equal(got.view(view), z.to(got.dtype).view(view)):
-            fail(f"init {cfg.name}: leaf {label} differs from the reference's draw")
+        same.append((got.view(view) == z.to(got.dtype).view(view)).all())
         kinds[f"{tuple(leaf.shape)} {str(leaf.dtype).removeprefix('torch.')}"] += 1
+    for (label, *_), ok in zip(checks, torch.stack(same).tolist()):
+        if not ok:
+            fail(f"init {cfg.name}: leaf {label} differs from the reference's draw")
     # a stacked (E, …) expert leaf is E draws
     drawn = sum(t.dim() >= 2 for t in tensors(params)) + sum(
         (layer["mlp"][name].shape[0] - 1) for layer in params["layers"]
@@ -2765,18 +2874,44 @@ def decode_gap(torch, model, params, tokens, full, cache, start: int = 0, keep_a
     return worst, same, kept
 
 
-def fault_gap(torch, model, params, tokens, full, kept, label: str, at: int, layers) -> float:
-    """A planted fault: decode on from ``kept``, a copy of the sound cache as
-    it stood before position ``at``, with the caches of ``layers`` (every
-    layer where None) emptied, and print and return its gap from ``full``."""
+def fault_gaps(torch, model, params, tokens, full, kept, faults, at: int) -> list:
+    """The planted faults (label, layers) decoded together: each decodes on
+    from ``kept``, a copy of the sound cache as it stood before position
+    ``at``, with the caches of ``layers`` (every layer where None) emptied.
+    The faults' caches are stacked along the batch (one decode of
+    len(faults) x B sequences, not one of B each); each fault's gap from
+    ``full`` is read from its own rows, printed and returned."""
     b, positions = tokens.shape
-    fresh = model.init_cache(b, positions, tokens.device)
-    cache = [fresh[i] if layers is None or i in layers else c
-             for i, c in enumerate(clone_cache(kept))]
-    gap, same, _ = decode_gap(torch, model, params, tokens, full, cache, start=at)
-    print(f"  planted fault, {label} before position {at}: |Δ|/max|logit| {gap:.3e} over "
-          f"positions {at}..{positions - 1}, argmax equal at {same} of {b * (positions - at)}")
-    return gap
+    n = len(faults)
+    dev = tokens.device
+    fresh = model.init_cache(b, positions, dev)
+    probes = model.init_cache(1, positions, dev), model.init_cache(2, positions, dev)
+
+    def batch_dim(i, key):
+        one, two = probes[0][i][key].shape, probes[1][i][key].shape
+        return next(d for d, (x, y) in enumerate(zip(one, two)) if x != y)
+
+    cache = [{key: torch.cat([(fresh[i] if layers is None or i in layers else kept[i])[key]
+                              for _, layers in faults], dim=batch_dim(i, key))
+              for key in fresh[i]} for i in range(len(fresh))]
+    del probes
+    every = tokens.repeat(n, 1)
+    worst = torch.zeros(n, device=dev)
+    same = torch.zeros(n, dtype=torch.long, device=dev)
+    with torch.no_grad():
+        for pos in range(at, positions):
+            logits, cache = model.decode_step(params, every[:, pos:pos + 1], cache, pos)
+            got = logits[:, 0].reshape(n, b, -1)
+            want = full[:, pos]
+            gap = (got - want).abs().amax(dim=(1, 2)) / want.abs().max()
+            worst = torch.maximum(worst, gap)
+            same += (got.argmax(-1) == want.argmax(-1)).sum(-1)
+    gaps = worst.tolist()
+    for (label, _), gap, hits in zip(faults, gaps, same.tolist()):
+        print(f"  planted fault, {label} before position {at}: |Δ|/max|logit| {gap:.3e} over "
+              f"positions {at}..{positions - 1}, argmax equal at {hits} of {b * (positions - at)}")
+    print(f"  ({n} planted faults decoded together, {n * b} sequences a step)")
+    return gaps
 
 
 def fp32_decode_check(torch, arch: str, b: int, positions: int, rtol: float,
@@ -2812,8 +2947,8 @@ def fp32_decode_check(torch, arch: str, b: int, positions: int, rtol: float,
     print(f"  {cfg.name} fp32 ({n_bytes / 1e9:.2f} GB of parameters): decode-step logits against "
           f"forward's over {positions} positions at B={b}: |Δ|/max|logit| ≤ {worst:.3e} (limit "
           f"{rtol:.0e}), argmax equal at {same} of {b * positions}; {time.perf_counter() - t0:.1f} s")
-    for label, layers in faults:
-        gap = fault_gap(torch, model, params, tokens, full, kept, label, fault_at, layers)
+    gaps = fault_gaps(torch, model, params, tokens, full, kept, faults, fault_at) if faults else []
+    for (label, _), gap in zip(faults, gaps):
         if gap <= rtol:
             fail(f"{arch} fp32: a decode with {label} stays within the limit {rtol:.0e} "
                  f"({gap:.2e}): the check cannot tell it from a sound one")
@@ -3098,7 +3233,7 @@ def moe_reference_check(torch) -> None:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import generate
-    from repro_torch.models import TransformerLM, moe
+    from repro_torch.models import TransformerLM
 
     for arch in (MX_ARCH, DBRX_ARCH):
         kw = dict(window=8) if arch == MX_ARCH else {}
@@ -3116,19 +3251,8 @@ def moe_reference_check(torch) -> None:
             for dev, p in (("cuda", on_card), ("cpu", params)):
                 batch = {"tokens": tokens.to(dev), "labels": labels.to(dev)}
                 kept = []
-                inner = moe.slots
-
-                def counting(*args, _inner=inner, _kept=kept):
-                    slot, keep = _inner(*args)
-                    _kept.append(keep)
-                    return slot, keep
-
-                moe.slots = counting
-                try:
-                    with torch.no_grad():
-                        logits = model.forward(p, batch).cpu()
-                finally:
-                    moe.slots = inner
+                with recorded_slots(kept), torch.no_grad():
+                    logits = model.forward(p, batch).cpu()
                 with torch.no_grad():
                     out[dev] = (logits, float(model.loss(p, batch)))
                 dropped[(cf, group, dev)] = sum(int((~keep).sum()) for keep in kept)
@@ -3160,6 +3284,182 @@ def moe_reference_check(torch) -> None:
               f"{40 * cfg.moe.top_k * cfg.num_layers} (token, choice) pairs dropped on both) logits |Δ|/max ≤ {worst_logit:.2e}, loss (nll + aux) ≤ "
               f"{worst_loss:.2e} relative; 8 greedy tokens after 12 equal, "
               f"{cfg.num_layers * 19} kernel launches")
+
+
+# ---------------------------------------------------------------------------
+# phase 13c: the reduced MoE models' training on the card against the CPU
+# ---------------------------------------------------------------------------
+# (capacity factor, dispatch group; None: the model's 2,048, one group a
+# sequence): drops at 0.5; groups of 16 pad the 40 tokens of each sequence
+MOE_ROUTINGS = ((1.25, None), (0.5, None), (1.25, 16))
+MOE_TRAIN_SEQ = 40
+
+
+@contextlib.contextmanager
+def moe_routing(cf, group):
+    """While the block runs, ``LMClassifier`` and ``launch.train`` build
+    their ``TransformerLM`` with capacity factor ``cf`` and dispatch groups
+    of ``group`` tokens (the model's default where None)."""
+    import functools
+
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    saved = lm.TransformerLM, train.TransformerLM
+    kw = dict(moe_capacity_factor=cf, **({"moe_group_size": group} if group else {}))
+    lm.TransformerLM = functools.partial(saved[0], **kw)
+    train.TransformerLM = functools.partial(saved[1], **kw)
+    try:
+        yield
+    finally:
+        lm.TransformerLM, train.TransformerLM = saved
+
+
+@contextlib.contextmanager
+def recorded_slots(store: list):
+    """While the block runs, every ``moe.slots`` call appends its kept
+    (token, choice) mask to ``store``."""
+    from repro_torch.models import moe
+
+    inner = moe.slots
+
+    def recording(*args):
+        slot, kept = inner(*args)
+        store.append(kept)
+        return slot, kept
+
+    moe.slots = recording
+    try:
+        yield
+    finally:
+        moe.slots = inner
+
+
+def moe_train_cfg(arch: str):
+    """Phase 13c's config: the reduced ``arch`` in fp32 (mixtral's window
+    cut to 8, so that it masks)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    kw = dict(window=8) if arch == MX_ARCH else {}
+    return dataclasses.replace(get_arch(arch, reduced=True), dtype="float32", **kw)
+
+
+def moe_pretrain_cli(arch: str) -> list:
+    return ["--mode", "pretrain", "--arch", arch, "--silos", "4", "--participants", "2",
+            "--rounds", "2", "--local-steps", "1", "--batch", "2", "--seq", str(MOE_TRAIN_SEQ)]
+
+
+def moe_train_half(dev: str) -> dict:
+    """Phase 13c's runs on ``dev``, by (arch, capacity factor, group): for
+    each reduced MoE model (``moe_train_cfg``) at each routing of
+    ``MOE_ROUTINGS``, a per-sequence forward of 4 sequences of 40 tokens
+    (each layer's router probabilities, expert ids and kept pairs, and each
+    sequence's loss), one FLrce round of the full-model ``LMClassifier`` on
+    each engine, one LoRA FLrce round (batched engine), and ``launch.train
+    --mode pretrain`` for 2 rounds."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data import make_federated_lm
+    from repro_torch.fl import FLrce, run_federated
+    from repro_torch.launch import train
+    from repro_torch.models import LMClassifier, LoRAClassifier
+
+    out = {}
+    for arch in (MX_ARCH, DBRX_ARCH):
+        cfg = moe_train_cfg(arch)
+        base = LMClassifier(cfg, seq_len=MOE_TRAIN_SEQ)
+        host = base.init(0, "cpu")
+        params = {k: v.to(dev) for k, v in host.items()}
+        gen = torch.Generator().manual_seed(3)
+        x = torch.randint(0, cfg.vocab_size, (4, MOE_TRAIN_SEQ), generator=gen).float()
+        y = torch.randint(0, cfg.vocab_size, (4,), generator=gen)
+        ds = make_federated_lm(num_clients=6, samples_per_client=8, seq_len=MOE_TRAIN_SEQ,
+                               vocab_size=cfg.vocab_size, num_eval=16, seed=0)
+        kw = dict(max_rounds=1, learning_rate=0.05, batch_size=4, seed=0, torch_device=dev)
+        dim = sum(v.numel() for v in host.values())
+        for cf, group in MOE_ROUTINGS:
+            with moe_routing(cf, group):
+                probs, kept = [], []
+                with recorded_routes(probs), recorded_slots(kept), torch.no_grad():
+                    losses = base.per_example_loss(params, x.to(dev), y.to(dev)).cpu()
+                routes = [(p.cpu(), ids.cpu(), k.cpu()) for (p, ids), k in zip(probs, kept)]
+                runs = {engine: run_federated(base, ds, FLrce(6, 3, 1, dim=dim, seed=0),
+                                              init_params=host, engine=engine, **kw)
+                        for engine in ("batched", "sequential")}
+                lora = LoRAClassifier(base, params, rank=4)
+                runs["LoRA"] = run_federated(
+                    lora, ds, FLrce(6, 3, 1, dim=lora.adapter_dim(), seed=0), **kw)
+                get = train.get_arch
+                train.get_arch = lambda name, reduced=False: dataclasses.replace(
+                    get(name, reduced=reduced), dtype="float32")
+                try:
+                    hist = train.run_pretrain_mode(train.build_parser().parse_args(
+                        moe_pretrain_cli(arch) + ["--device", dev]))["history"]
+                finally:
+                    train.get_arch = get
+            for run in runs.values():
+                run.final_params = {k: v.cpu() for k, v in run.final_params.items()}
+            out[(arch, cf, group)] = {"routes": routes, "losses": losses, "runs": runs,
+                                      "hist": hist}
+    return out
+
+
+def moe_train_reference_check(torch, worker) -> None:
+    """Phase 13c: ``moe_train_half`` on the card against the CPU (the CPU
+    worker's): expert ids and kept (token, choice) pairs equal wherever a
+    token's gap between its k-th and (k+1)-th router probability is
+    ``MOE_TIE_GAP`` or more, each sequence's loss within
+    ``MOE_TRAIN_RTOL``; the FLrce rounds and the pretrain rounds with equal
+    selections, exploit flags and ledger, losses within 1e-4 and accuracy
+    within 2e-3; capacity factor 0.5 drops pairs on both."""
+    t_phase = time.perf_counter()
+    card = moe_train_half("cuda")
+    cpu = cpu_half(worker, "13c")
+    for key, got in card.items():
+        want = cpu[key]
+        arch, cf, group = key
+        label = f"{arch} at capacity factor {cf}, groups of {group or 'a sequence'}"
+        n_tokens = n_ties = n_dropped = 0
+        min_gap = float("inf")
+        for (pg, ig, kg), (pw, iw, kw_) in zip(got["routes"], want["routes"]):
+            k = iw.shape[1]
+            top = pw.sort(dim=-1, descending=True).values
+            gap = top[:, k - 1] - top[:, k]
+            clear = gap >= MOE_TIE_GAP
+            min_gap = min(min_gap, float(gap.min()))
+            n_tokens += len(gap)
+            n_ties += int((~clear).sum())
+            n_dropped += int((~kw_).sum())
+            if not (torch.equal(ig[clear], iw[clear]) and torch.equal(kg[clear], kw_[clear])):
+                fail(f"small {label}: the card's expert ids or kept pairs differ from the CPU's at "
+                     f"tokens clear of a tie")
+        if len(got["routes"]) != len(want["routes"]) or not got["routes"]:
+            fail(f"{label}: {len(got['routes'])} routed layers on the card, "
+                 f"{len(want['routes'])} on the CPU")
+        if cf < 1 and not n_dropped:
+            fail(f"{label}: nothing dropped")
+        rel = float(((got["losses"] - want["losses"]).abs() / want["losses"].abs()).max())
+        if rel > MOE_TRAIN_RTOL:
+            fail(f"{label}: per-sequence losses {rel:.2e} relative apart (limit "
+                 f"{MOE_TRAIN_RTOL:.0e})")
+        for name, run in got["runs"].items():
+            compare_runs(f"{label}, {name} FLrce", run, want["runs"][name])
+        for a, b in zip(got["hist"], want["hist"]):
+            if [a[f] for f in ("round", "silos", "exploit", "stopped", "conflicts")] != \
+                    [b[f] for f in ("round", "silos", "exploit", "stopped", "conflicts")] or \
+                    not abs(a["mean_loss"] - b["mean_loss"]) <= 1e-4:
+                fail(f"{label}, pretrain: card and CPU rounds differ: {a} vs {b}")
+        if len(got["hist"]) != len(want["hist"]) or len(got["hist"]) != 2:
+            fail(f"{label}, pretrain: {len(got['hist'])} / {len(want['hist'])} rounds")
+        print(f"  small {label}: routes equal at {n_tokens - n_ties} of {n_tokens} (token, layer) "
+              f"pairs clear of a tie (smallest top-k gap {min_gap:.2e}), {n_dropped} (token, "
+              f"choice) pairs dropped on both; per-sequence losses {rel:.2e} relative; pretrain "
+              f"2 rounds equal, losses {[round(r['mean_loss'], 5) for r in got['hist']]}")
+    print(f"  phase 13c wall {time.perf_counter() - t_phase:.1f} s")
 
 
 # ``--decode-variants``: csrc/decode_attention.cu with these substitutions,
@@ -3206,11 +3506,14 @@ def build_variants(variants: list, show: tuple = ()) -> list:
     work.mkdir(parents=True, exist_ok=True)
     nvcc = build.find_nvcc()
 
-    def compile_cmd(src, obj):
-        return [nvcc, *build.NVCC_FLAGS, f"-I{build.CSRC}", "-c", str(src), "-o", str(obj)]
+    def compile_cmd(src, flags, obj):
+        return [nvcc, *build.NVCC_FLAGS, *flags, f"-I{build.CSRC}", "-c", str(src), "-o",
+                str(obj)]
 
-    originals = {src: work / (Path(src).stem + ".o") for src in build.SOURCES}
-    cmds = [compile_cmd(build.CSRC / src, obj) for src, obj in originals.items()]
+    units = build.compile_units()
+    originals = [(src, work / f"{stem}.o") for src, _, stem in units]
+    cmds = [compile_cmd(build.CSRC / src, flags, work / f"{stem}.o") for src, flags, stem in units]
+    objs = []                    # each variant's objects: its source's units
     for i, (name, subs) in enumerate(variants):
         text = (build.CSRC / name).read_text()
         for old, new in subs:
@@ -3218,16 +3521,22 @@ def build_variants(variants: list, show: tuple = ()) -> list:
                 fail(f"{name} variant {i}: {old!r} not in the source")
             text = text.replace(old, new)
         (work / f"variant_{i}.cu").write_text(text)
-        cmds.append(compile_cmd(work / f"variant_{i}.cu", work / f"variant_{i}.o"))
+        objs.append([])
+        for src, flags, stem in units:
+            if src == name:
+                objs[i].append(work / f"variant_{i}.{stem}.o")
+                cmds.append(compile_cmd(work / f"variant_{i}.cu", flags, objs[i][-1]))
     t0 = time.perf_counter()
     logs = build._run_all(cmds)[len(originals):]
+    logs = ["\n".join(logs[sum(map(len, objs[:i])):sum(map(len, objs[:i + 1]))])
+            for i in range(len(variants))]
     for i, log in enumerate(logs):
         for line in ptxas_summary(log):
             if line.startswith(show):
                 print(f"  variant {i} ptxas: {line}")
     libs = [work / f"lib_{i}.so" for i in range(len(variants))]
-    build._run_all([[nvcc, *build.ARCH_FLAGS, "-shared", "-o", str(lib), str(work / f"variant_{i}.o"),
-                     *(str(obj) for src, obj in originals.items() if src != variants[i][0])]
+    build._run_all([[nvcc, *build.ARCH_FLAGS, "-shared", "-o", str(lib), *map(str, objs[i]),
+                     *(str(obj) for src, obj in originals if src != variants[i][0])]
                     for i, lib in enumerate(libs)])
     print(f"  {len(variants)} kernel variants built in {time.perf_counter() - t0:.1f} s")
     return libs
@@ -3582,13 +3891,14 @@ LORA_ARCH, LORA_RANK, LORA_SEQ = "gemma3-4b", 8, 128
 LORA_M, LORA_N, LORA_P, LORA_EVAL, LORA_BATCH = 16, 32, 4, 64, 8
 # the base models at full width, depth cut to keep the smoke within its
 # time (a LoRA round is host-bound, its work in proportion to the layers):
-# gemma3-4b 12 of 34 layers (2 whole cycles: 10 local, 2 global),
-# recurrentgemma-2b 11 of 26 (3 cycles and the 2 rest layers), xlstm-1.3b
-# 16 of 48 (2 cycles of 7 mLSTM and 1 sLSTM blocks)
-LORA_LAYERS, RG_LORA_LAYERS, XL_LORA_LAYERS = 12, 11, 16
-LORA_D = 5_259_264           # rank-8 adapters on gemma3-4b's 42 target leaves
-RG_LORA_D = 1_241_216        # rank-8 adapters on recurrentgemma-2b's 11 stacked target leaves
-XL_LORA_D = 2_932_960        # rank-8 adapters on xlstm-1.3b's 36 stacked target leaves
+# gemma3-4b 6 of 34 layers (a whole cycle: 5 local, 1 global),
+# recurrentgemma-2b 5 of 26 (a cycle and the 2 rest layers), xlstm-1.3b 8
+# of 48 (a cycle of 7 mLSTM and 1 sLSTM blocks); every block kind and leaf
+# of the full model stays
+LORA_LAYERS, RG_LORA_LAYERS, XL_LORA_LAYERS = 6, 5, 8
+LORA_D = 2_629_632           # rank-8 adapters on gemma3-4b's 42 target leaves
+RG_LORA_D = 434_240          # rank-8 adapters on recurrentgemma-2b's 11 stacked target leaves
+XL_LORA_D = 1_466_480        # rank-8 adapters on xlstm-1.3b's 36 stacked target leaves
 # phase 9 trains each client's 32 sequences as one batch: a client step's
 # host work (the sLSTM loop's autograd graph, 128 steps x 6 layers, and its
 # recomputation) does not grow with the batch, and at 4 steps a client a
@@ -3596,6 +3906,19 @@ XL_LORA_D = 2_932_960        # rank-8 adapters on xlstm-1.3b's 36 stacked target
 XL_LORA_BATCH = 32
 LORA_LR = 0.01
 LORA_KEEP = 0.1              # Fedcom's keep fraction
+# phases 13 and 13b: the MoE models at full width, depth cut to the most
+# layers whose LoRA round's measured peak stays under MOE_LORA_PEAK (the
+# frozen base, the merged copy of every target leaf and one stacked expert
+# leaf's fp32 merge are live at once); rank 8 adapts each layer's attention
+# (311,296) and its experts' wi, wg and wo (3·E·8·(d + f))
+MX_LORA_LAYERS, DBRX_LORA_LAYERS = 4, 3
+MX_LORA_D = 4 * 4_636_672      # 18,546,688
+DBRX_LORA_D = 3 * 6_799_360    # 20,398,080
+MOE_LORA_PEAK = 72 * 2**30
+# (d)'s depth for a model with experts: its fp32 engines and float64 referee
+# (dbrx-132b's 4.49 B parameters at one layer: 18 GB in fp32 beside the
+# referee's 36 GB of float64 merged weights and embeddings)
+MOE_REFEREE_LAYERS = 1
 # the runs' depth, cut to keep the smoke within its time: FLrce exploits in
 # round 2 (its check needs one exploit round); FedAvg and Fedcom launch
 # their kernels every round
@@ -3609,12 +3932,17 @@ LORA_ROUNDS, LORA_BASELINE_ROUNDS = 3, 1
 
 def lora_phase(torch, timer, bandwidth, arch=LORA_ARCH, want_dim=LORA_D, tag="6",
                batch=LORA_BATCH, layers=LORA_LAYERS) -> tuple:
-    """Phase 6 (gemma3-4b), 7 (recurrentgemma-2b) and 9 (xlstm-1.3b):
-    FLrce, FedAvg and Fedcom over rank-8 LoRA adapters on the full-width
-    bf16 model ``arch`` at ``layers`` of its layers, with checks (a) to (d),
-    the kernels at the phase's own operands, and a profile of FedAvg's
-    round (its wall then includes the profiler's overhead); ``batch``
-    sequences a local step."""
+    """Phase 6 (gemma3-4b), 7 (recurrentgemma-2b), 9 (xlstm-1.3b), 13
+    (mixtral-8x22b) and 13b (dbrx-132b): FLrce, FedAvg and Fedcom over
+    rank-8 LoRA adapters on the full-width bf16 model ``arch`` at ``layers``
+    of its layers, with checks (a) to (d), the kernels at the phase's own
+    operands, and a profile of FedAvg's round (its wall then includes the
+    profiler's overhead); ``batch`` sequences a local step.  For a model
+    with experts the FLrce job runs twice (equal selections, round 0's
+    update bitwise), its peak must stay under ``MOE_LORA_PEAK``, and (d)
+    holds each engine, at one layer, against its own function in float64
+    (``moe_first_step_check``), the two engines' functions being
+    different."""
     import numpy as np
 
     from repro_torch.data import make_federated_lm
@@ -3708,6 +4036,31 @@ def lora_phase(torch, timer, bandwidth, arch=LORA_ARCH, want_dim=LORA_D, tag="6"
           f"{[r.exploited for r in res.records]}; losses "
           f"{[round(r.mean_client_loss, 5) for r in res.records]}; launches {launches}; peak "
           f"device memory {peak / 2**30:.2f} GiB")
+    moe = cfg.moe is not None
+    if moe:
+        if peak >= MOE_LORA_PEAK:
+            fail(f"LoRA FLrce on {cfg.name} at {cfg.num_layers} layers: peak device memory "
+                 f"{peak / 2**30:.2f} GiB, over {MOE_LORA_PEAK / 2**30:.0f} GiB")
+        # the same job again: the routing's gathers and scatters, their
+        # backward and the merges must repeat bitwise on the card
+        again = FLrce(LORA_M, LORA_P, 1, dim=dim, explore_decay=0.5, seed=0)
+        u1 = capture_round0(again)
+        rerun = run_federated(lora, ds, again, max_rounds=LORA_ROUNDS, learning_rate=LORA_LR,
+                              batch_size=batch, seed=0, init_params=adapters,
+                              torch_device="cuda")
+        if [r.selected for r in rerun.records] != [r.selected for r in res.records] or \
+                [r.exploited for r in rerun.records] != [r.exploited for r in res.records]:
+            fail(f"LoRA FLrce on {cfg.name} run twice: selections "
+                 f"{[r.selected for r in res.records]} then {[r.selected for r in rerun.records]}")
+        if not torch.equal(u1["u"].view(torch.int32), u0["u"].view(torch.int32)):
+            fail(f"LoRA FLrce on {cfg.name} run twice: round 0's (P, D) update differs, max |Δ| "
+                 f"{float((u1['u'] - u0['u']).abs().max()):.3e}")
+        same_final = all(torch.equal(rerun.final_params[k], res.final_params[k])
+                         for k in res.final_params)
+        print(f"  FLrce run twice: selections and exploit flags equal, round 0's "
+              f"{tuple(u0['u'].shape)} update bitwise equal; final adapters bitwise equal: "
+              f"{same_final}; the second run {sum(r.wall_s for r in rerun.records):.2f} s")
+        del rerun, u1, again
 
     # (b) the four kernels on the phase's own operands
     state = strategy.server.state
@@ -3718,18 +4071,15 @@ def lora_phase(torch, timer, bandwidth, arch=LORA_ARCH, want_dim=LORA_D, tag="6"
 
     # (d) the first local step of round 0's cohort, batched against sequential;
     # where that step is a client's whole round, the batched side is the run's
-    # own round-0 rows
-    seq, bat = first_step_updates(torch, ds, lora, adapters, res.records[0].selected,
-                                  lr=LORA_LR, batch=batch, epochs=1,
-                                  batched=u0["u"] if batch >= LORA_N else None)
-    excess, gap, n_beyond = update_gap(torch, seq, bat)
-    ratios = torch.linalg.vector_norm(seq - bat, dim=1) / torch.linalg.vector_norm(bat, dim=1)
-    print(f"  (d) first local step, batched against sequential: max |Δ| {gap:.3e} (max|U| "
-          f"{float(bat.abs().max()):.3e}), {n_beyond} of {seq.numel()} elements beyond atol "
-          f"max(1e-5, 1e-4·max|U|) + rtol 1e-3; ‖ΔU_k‖/‖U_k‖ ≤ {float(ratios.max()):.3e}")
-    if excess > 0 or not bool(torch.isfinite(seq).all()):
-        fail(f"(d) first local step: beyond the reference's engine tolerance by {excess:.3e}")
-    del seq, bat, u0, u, w
+    # own round-0 rows (a model with experts: below, once its base is freed)
+    cohort = res.records[0].selected
+    if not moe:
+        seq, bat = first_step_updates(torch, ds, lora, adapters, cohort,
+                                      lr=LORA_LR, batch=batch, epochs=1,
+                                      batched=u0["u"] if batch >= LORA_N else None)
+        step_check(torch, "batched against sequential", seq, bat)
+        del seq, bat
+    del u0, u, w
 
     # FedAvg and Fedcom, each with the counts reset just before
     other = {}
@@ -3768,11 +4118,193 @@ def lora_phase(torch, timer, bandwidth, arch=LORA_ARCH, want_dim=LORA_D, tag="6"
 
     lora_profile_report(prof, prof_wall, r_fedavg, "the FedAvg run above, under the profiler")
     del prof
-    print(f"  phase {tag} wall {time.perf_counter() - t_phase:.1f} s")
-    del lora, base_params, adapters, strategy, res
+    del lora, base_params, adapters, strategy, res, state, r_fedavg, r, strat
     gc.collect()
     torch.cuda.empty_cache()
+    if moe:
+        moe_first_step_check(torch, arch, ds, cohort, batch)
+    print(f"  phase {tag} wall {time.perf_counter() - t_phase:.1f} s")
     return rows, launches
+
+
+def moe_lora_peaks(torch) -> None:
+    """``--moe-lora-peaks``: one FLrce round of phase 13's and 13b's LoRA
+    federation on each MoE model at full width, at the phase's depth and one
+    layer deeper: the peak device memory of each, or that it ran out, beside
+    ``MOE_LORA_PEAK``."""
+    from repro_torch.data import make_federated_lm
+    from repro_torch.fl import FLrce, run_federated
+    from repro_torch.models import LMClassifier, LoRAClassifier
+
+    for arch, layers in ((MX_ARCH, MX_LORA_LAYERS), (DBRX_ARCH, DBRX_LORA_LAYERS)):
+        for depth in (layers, layers + 1):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            cfg = cut_config(arch, depth)
+            t0 = time.perf_counter()
+            try:
+                base = LMClassifier(cfg, seq_len=LORA_SEQ)
+                lora = LoRAClassifier(base, base.init(0, "cuda"), rank=LORA_RANK)
+                ds = make_federated_lm(num_clients=LORA_M, samples_per_client=LORA_N,
+                                       seq_len=LORA_SEQ, vocab_size=cfg.vocab_size,
+                                       num_eval=LORA_EVAL, seed=0)
+                res = run_federated(lora, ds, FLrce(LORA_M, LORA_P, 1, dim=lora.adapter_dim(),
+                                                    explore_decay=0.5, seed=0),
+                                    max_rounds=1, learning_rate=LORA_LR, batch_size=LORA_BATCH,
+                                    seed=0, torch_device="cuda")
+                torch.cuda.synchronize()
+                what = (f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, round wall "
+                        f"{res.records[0].wall_s:.2f} s, D = {lora.adapter_dim():,}")
+            except torch.cuda.OutOfMemoryError:
+                what = (f"out of device memory (peak before it "
+                        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+            base = lora = ds = res = None
+            print(f"  {arch} at {depth} layers: {what} (limit {MOE_LORA_PEAK / 2**30:.0f} GiB); "
+                  f"{time.perf_counter() - t0:.1f} s")
+
+
+def step_check(torch, label: str, got, want) -> None:
+    """(d): first-step update rows ``got`` against ``want`` within the
+    reference's engine tolerance (``update_gap``)."""
+    excess, gap, n_beyond = update_gap(torch, got, want)
+    ratios = torch.linalg.vector_norm(got - want, dim=1) / torch.linalg.vector_norm(want, dim=1)
+    print(f"  (d) first local step, {label}: max |Δ| {gap:.3e} (max|U| "
+          f"{float(want.abs().max()):.3e}), {n_beyond} of {got.numel()} elements beyond atol "
+          f"max(1e-5, 1e-4·max|U|) + rtol 1e-3; ‖ΔU_k‖/‖U_k‖ ≤ {float(ratios.max()):.3e}")
+    if excess > 0 or not bool(torch.isfinite(got).all()):
+        fail(f"(d) first local step, {label}: beyond the reference's engine tolerance by "
+             f"{excess:.3e}")
+
+
+class Widened:
+    """A base-parameter dict read once in float64: each leaf taken out of
+    ``params`` and widened as it is read, so that the fp32 base shrinks as
+    the float64 copy grows; the router's fp32 weights as they are (the
+    model routes in fp32 in every dtype)."""
+
+    def __init__(self, params):
+        self.params = params
+
+    def __getitem__(self, name):
+        leaf = self.params.pop(name)
+        return leaf if name.split(".")[-1] == "router" else leaf.double()
+
+
+def widened_merge(torch, lora, adapters) -> tuple:
+    """``lora``'s model in float64 and its merged weights there, W + scale ·
+    A·B in float64 for each adapted leaf; ``lora``'s base dict is emptied
+    (``Widened``)."""
+    import dataclasses
+
+    from repro_torch.models import LMClassifier, LoRAClassifier
+
+    model = LMClassifier(dataclasses.replace(lora.base.cfg, dtype="float64"),
+                         seq_len=lora.base.seq_len)
+    ref = LoRAClassifier(model, lora.base_params, rank=lora.rank, scale=lora.scale,
+                         targets=lora.targets)
+    ref.base_params = Widened(lora.base_params)
+    with torch.no_grad():
+        return model, ref.merge({k: v.double() for k, v in adapters.items()})
+
+
+def moe_referee_updates(torch, model, merged, adapters, scale, batches, lr) -> tuple:
+    """Each client's first-step update, ``-lr`` times the gradient of the
+    adapters, for the two engines' functions computed by their definitions
+    in float64 (``model`` at the merged weights ``merged`` of
+    ``widened_merge``; norms, attention, the router and the cross-entropy
+    stay fp32, as in every dtype): the batched engine's, the mean over the
+    batch of ``loss`` of each sequence alone (the reference's ``jax.vmap``
+    of ``model.loss``, ``src/repro/fl/client.py:329-332``: no dispatch group
+    spans two sequences, and none runs the per-sequence route), and the
+    sequential engine's, ``loss`` of the batch routed together.  An
+    adapter's gradient comes from G = dL/dW at its merged leaf, dA =
+    scale·G·Bᵀ and dB = scale·Aᵀ·G, with a backward pass for the attention
+    leaves and one for each stacked expert leaf, so that one expert leaf's
+    float64 G is live at a time.  ``batches``: each client's (x, y) in the
+    order its engines took them.  Returns the (P, D) rows of each."""
+    from repro_torch.core.distributed import flatten_params
+
+    names = [k[:-2] for k in adapters if k.endswith(".a")]
+    passes = [p for p in ([n for n in names if merged[n].dim() < 4],
+                          *([n] for n in names if merged[n].dim() == 4)) if p]
+
+    def grads(x, y):
+        out = {}
+        for group in passes:
+            w = dict(merged)
+            for n in group:
+                w[n] = merged[n].detach().requires_grad_(True)
+            gs = torch.autograd.grad(model.loss(w, x, y), [w[n] for n in group])
+            for n, g in zip(group, gs):
+                a, b = adapters[f"{n}.a"].double(), adapters[f"{n}.b"].double()
+                out[f"{n}.a"] = scale * (g @ b.transpose(-1, -2))
+                out[f"{n}.b"] = scale * (a.transpose(-1, -2) @ g)
+            del w, gs, g
+        return {k: out[k] for k in adapters}
+
+    rows = {"per-sequence": [], "batch": []}
+    for x, y in batches:
+        n = len(x)
+        each = [grads(x[i:i + 1], y[i:i + 1]) for i in range(n)]
+        per = {k: sum(g[k] for g in each) / n for k in adapters}
+        for key, got in (("per-sequence", per), ("batch", grads(x, y))):
+            rows[key].append(flatten_params({k: -lr * g for k, g in got.items()})[0])
+    return torch.stack(rows["per-sequence"]), torch.stack(rows["batch"])
+
+
+def moe_first_step_check(torch, arch: str, ds, ids, batch: int) -> None:
+    """(d) for a model with experts, whose engines train two functions (the
+    batched one routes each sequence alone, the sequential one the batch
+    together), at ``MOE_REFEREE_LAYERS`` full-width layer in fp32 (a bf16
+    step is no match for a float64 one within the engines' tolerance, and
+    the float64 weights of the phase's depth would not fit the card): each
+    engine's first local step of round 0's cohort ``ids`` against its own
+    function computed by definition in float64 (``moe_referee_updates``),
+    within the reference's engine tolerance, each batch in the plan's
+    order; the gap between the two engines' own steps is printed.  Every
+    first batch must be full, so that the batched engine's weights are all
+    1."""
+    import dataclasses
+
+    from repro_torch.models import LMClassifier, LoRAClassifier
+
+    t0 = time.perf_counter()
+    if not all(len(ds.client_data(c)[1]) >= batch for c in ids):
+        fail(f"(d): a client of {ids} has fewer than {batch} sequences")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(cut_config(arch, MOE_REFEREE_LAYERS), dtype="float32")
+    base = LMClassifier(cfg, seq_len=LORA_SEQ)
+    lora = LoRAClassifier(base, base.init(0, "cuda"), rank=LORA_RANK)
+    adapters = lora.init(0, "cuda")
+    seq, bat = first_step_updates(torch, ds, lora, adapters, ids, lr=LORA_LR, batch=batch,
+                                  epochs=1, in_order=True)
+    plan = first_batch_plan(ds, ids, batch, 1)
+    batches = [(torch.from_numpy(plan.x[k, 0, :n]).cuda(),
+                torch.from_numpy(plan.y[k, 0, :n]).cuda().long())
+               for k, n in enumerate(int(w.sum()) for w in plan.sample_w[:, 0])]
+    n_params = sum(p.numel() for p in lora.base_params.values())
+    scale = lora.scale
+    model, merged = widened_merge(torch, lora, adapters)
+    del lora
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_bat, ref_seq = moe_referee_updates(torch, model, merged, adapters, scale, batches,
+                                           LORA_LR)
+    del merged
+    print(f"  (d) at {MOE_REFEREE_LAYERS} full-width layer of {cfg.name} in fp32 "
+          f"({n_params:,} parameters), each engine against its function in float64:")
+    step_check(torch, "batched engine against its per-sequence function", bat, ref_bat)
+    step_check(torch, "sequential engine against its batch-routed function", seq, ref_seq)
+    _, gap, n_beyond = update_gap(torch, seq, bat)
+    ratios = torch.linalg.vector_norm(seq - bat, dim=1) / torch.linalg.vector_norm(bat, dim=1)
+    print(f"  (d) the two engines' own functions apart (information): max |Δ| {gap:.3e}, "
+          f"{n_beyond} of {seq.numel()} elements beyond the engines' tolerance; "
+          f"‖ΔU_k‖/‖U_k‖ up to {float(ratios.max()):.3e}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {time.perf_counter() - t0:.1f} s")
+    del adapters, seq, bat, ref_bat, ref_seq, batches
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def lora_checks(label, res, strategy, dim, *, need_exploit: bool) -> None:
@@ -3876,7 +4408,8 @@ def fl_kernel_rows(torch, timer, bandwidth, u, v, w, weights, tag="6", topk=True
     return {r["name"]: r for r in rows}
 
 
-LORA_SPANS = ("chunked_attention", "cross_entropy", "lora_merge", "rglru", "mlstm", "slstm")
+LORA_SPANS = ("chunked_attention", "cross_entropy", "lora_merge", "rglru", "mlstm", "slstm",
+              "moe")
 
 
 def lora_profiled(torch, run) -> tuple:
@@ -3884,13 +4417,14 @@ def lora_profiled(torch, run) -> tuple:
     (its result, the profiler, its wall)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import attention, lora as lora_mod, rglru, ssm, transformer
+    from repro_torch.models import attention, lora as lora_mod, moe, rglru, ssm, transformer
 
     spans = [(attention, "chunked_attention", "chunked_attention"),
              (transformer, "_chunk_nll", "cross_entropy"),
              (lora_mod.LoRAClassifier, "merge", "lora_merge"),
              (rglru, "apply_rglru", "rglru"),
-             (ssm, "apply_mlstm", "mlstm"), (ssm, "apply_slstm", "slstm")]
+             (ssm, "apply_mlstm", "mlstm"), (ssm, "apply_slstm", "slstm"),
+             (moe, "apply_moe", "moe")]
     with annotated(spans), profile(activities=[ProfilerActivity.CPU,
                                                ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3945,7 +4479,9 @@ def lora_group(name: str, label, op: str) -> str:
                 "mlstm": "mLSTM blocks (chunkwise, fp32 matrix memory; forward, recompute, "
                          "backward)",
                 "slstm": "sLSTM blocks (the loop over positions; forward, recompute, "
-                         "backward)"}[label]
+                         "backward)",
+                "moe": "MoE MLPs (router, slotting, dispatch, expert products, combine; "
+                       "forward, recompute, backward)"}[label]
     if "gemm" in low or "xmma" in low or "nvjet" in low or "cutlass" in low:
         return "projection and unembedding GEMMs (forward, recompute, backward)"
     return "other kernels (norms, RoPE, MLP activations, residuals, gathers, SGD)"
@@ -4050,10 +4586,10 @@ def device_groups(prof, labels: tuple, group_of, host: bool = False, since=None)
     return groups, busy_ns / 1e3, len(kernels), top_sorted, host_s
 
 
-def lora_reference_check(torch) -> None:
-    """Phase 6b: a reduced gemma3 config on the card against the CPU: LoRA
-    FLrce over a bf16 and an fp32 base, the full-model LMClassifier under
-    FedAvg, and LoRA FedAvg through driver="scan" against the loop."""
+def lora_reference_runs(dev: str) -> dict:
+    """Phase 6b's runs on ``dev``, by label: LoRA FLrce over a bf16 and an
+    fp32 base of the reduced gemma3 config (3 rounds each), and the
+    full-model fp32 LMClassifier under FedAvg (2 rounds)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -4062,35 +4598,55 @@ def lora_reference_check(torch) -> None:
     from repro_torch.fl.baselines import FedAvg
     from repro_torch.models import LMClassifier, LoRAClassifier
 
-    t_phase = time.perf_counter()
     reduced = get_arch(LORA_ARCH, reduced=True)
-    kw = dict(learning_rate=0.01, batch_size=8, seed=0)
+    kw = dict(learning_rate=0.01, batch_size=8, seed=0, torch_device=dev)
+    runs = {}
     for dtype in ("bfloat16", "float32"):
         cfg = dataclasses.replace(reduced, dtype=dtype)
         base = LMClassifier(cfg, seq_len=32)
         ds = make_federated_lm(num_clients=8, samples_per_client=16, seq_len=32,
                                vocab_size=cfg.vocab_size, num_eval=32, seed=0)
         host = base.init(0, "cpu")
-        models = {dev: LoRAClassifier(base, {k: v.to(dev) for k, v in host.items()}, rank=8)
-                  for dev in ("cuda", "cpu")}
-        dim = models["cpu"].adapter_dim()
-        runs = {dev: run_federated(m, ds, FLrce(8, 4, 1, dim=dim, explore_decay=0.5, seed=0),
-                                   max_rounds=3, torch_device=dev, **kw)
-                for dev, m in models.items()}
-        compare_runs(f"LoRA FLrce over a {dtype} base ({cfg.name})", runs["cuda"], runs["cpu"])
+        lora = LoRAClassifier(base, {k: v.to(dev) for k, v in host.items()}, rank=8)
+        runs[f"LoRA FLrce over a {dtype} base ({cfg.name})"] = run_federated(
+            lora, ds, FLrce(8, 4, 1, dim=lora.adapter_dim(), explore_decay=0.5, seed=0),
+            max_rounds=3, **kw)
         if dtype == "float32":
-            full = {dev: run_federated(base, ds, FedAvg(8, 4, 1, seed=0), max_rounds=2,
-                                       init_params=host, torch_device=dev, **kw)
-                    for dev in ("cuda", "cpu")}
-            compare_runs("full-model LMClassifier FedAvg (fp32)", full["cuda"], full["cpu"])
-            loop = run_federated(models["cuda"], ds, FedAvg(8, 4, 1, seed=0), max_rounds=4,
-                                 torch_device="cuda", **kw)
-            scan = run_federated(models["cuda"], ds, FedAvg(8, 4, 1, seed=0), max_rounds=4,
-                                 torch_device="cuda", driver="scan", scan_chunk_rounds=2, **kw)
-            compare_scan("LoRA FedAvg driver='scan' on the card", loop, scan, torch)
-            st = scan.driver_stats
-            print(f"  LoRA FedAvg scan: captures {st['captures_chunk']}, replays {st['replays']}, "
-                  f"host syncs {st['host_syncs']} in {st['chunks']} chunks")
+            runs["full-model LMClassifier FedAvg (fp32)"] = run_federated(
+                base, ds, FedAvg(8, 4, 1, seed=0), max_rounds=2, init_params=host, **kw)
+    return runs
+
+
+def lora_reference_check(torch, worker) -> None:
+    """Phase 6b: a reduced gemma3 config on the card against the CPU: LoRA
+    FLrce over a bf16 and an fp32 base, the full-model LMClassifier under
+    FedAvg, and LoRA FedAvg through driver="scan" against the loop."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_federated_lm
+    from repro_torch.fl import run_federated
+    from repro_torch.fl.baselines import FedAvg
+    from repro_torch.models import LMClassifier, LoRAClassifier
+
+    t_phase = time.perf_counter()
+    card = lora_reference_runs("cuda")
+    cpu = cpu_half(worker, "6b")
+    for label, run in card.items():
+        compare_runs(label, run, cpu[label])
+    cfg = dataclasses.replace(get_arch(LORA_ARCH, reduced=True), dtype="float32")
+    base = LMClassifier(cfg, seq_len=32)
+    ds = make_federated_lm(num_clients=8, samples_per_client=16, seq_len=32,
+                           vocab_size=cfg.vocab_size, num_eval=32, seed=0)
+    lora = LoRAClassifier(base, {k: v.cuda() for k, v in base.init(0, "cpu").items()}, rank=8)
+    kw = dict(learning_rate=0.01, batch_size=8, seed=0, torch_device="cuda")
+    loop = run_federated(lora, ds, FedAvg(8, 4, 1, seed=0), max_rounds=4, **kw)
+    scan = run_federated(lora, ds, FedAvg(8, 4, 1, seed=0), max_rounds=4, driver="scan",
+                         scan_chunk_rounds=2, **kw)
+    compare_scan("LoRA FedAvg driver='scan' on the card", loop, scan, torch)
+    st = scan.driver_stats
+    print(f"  LoRA FedAvg scan: captures {st['captures_chunk']}, replays {st['replays']}, "
+          f"host syncs {st['host_syncs']} in {st['chunks']} chunks")
     print(f"  phase 6b wall {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -4102,120 +4658,143 @@ RG_PRETRAIN_CLI = ["--mode", "pretrain", "--arch", RG_ARCH, "--silos", "4", "--p
                    "--rounds", "2", "--local-steps", "1", "--batch", "2", "--seq", "32"]
 
 
-def rg_train_reference_check(torch) -> None:
-    """Phase 7b: recurrentgemma-2b's training on the card against the CPU
-    in fp32, on the CPU tests' 5-layer reduced config (a cycle of two RG-LRU
-    blocks and a local attention layer, two RG-LRU rest blocks, window 4)."""
+def rg_train_cfg():
+    """Phase 7b's small config: the CPU tests' 5-layer reduced
+    recurrentgemma-2b (a cycle of two RG-LRU blocks and a local attention
+    layer, two RG-LRU rest blocks, window 4), fp32."""
     import dataclasses
 
     from repro_torch.configs import get_arch
 
-    cfg = dataclasses.replace(get_arch(RG_ARCH, reduced=True), dtype="float32", num_layers=5,
-                              window=4)
-    train_reference_check(torch, RG_ARCH, RG_PRETRAIN_CLI, cfg, "7b")
+    return dataclasses.replace(get_arch(RG_ARCH, reduced=True), dtype="float32", num_layers=5,
+                               window=4)
 
 
-def train_reference_check(torch, arch: str, cli: list, cfg, tag: str,
-                          seq: int = 32) -> None:
-    """Phases 7b and 9b: ``arch``'s training on the card against the CPU in
-    fp32: the reference CLI's pretrain case (``cli``, the reduced config),
-    then on the small config ``cfg`` (sequences of ``seq`` tokens) one
-    LMClassifier gradient, LoRA FLrce
-    rounds (round 0's update rows), and a LoRA FedAvg round captured by
-    ``driver="scan"`` against the loop and bitwise against the same body
-    run eagerly."""
+def rg_train_reference_check(torch, worker) -> None:
+    """Phase 7b: recurrentgemma-2b's training on the card against the CPU
+    in fp32, on ``rg_train_cfg``."""
+    train_reference_check(torch, RG_ARCH, RG_PRETRAIN_CLI, rg_train_cfg(), "7b", worker)
+
+
+def train_half(dev: str, cli: list, cfg, seq: int = 32) -> dict:
+    """Phases 7b and 9b (and 13c)'s runs on ``dev``, in fp32: the reference
+    CLI's pretrain case (``cli``, the reduced config), then on the small
+    config ``cfg`` (sequences of ``seq`` tokens) one LMClassifier loss and
+    gradient and 3 rounds of LoRA FLrce with round 0's update rows."""
     import dataclasses
 
     import numpy as np
+    import torch
 
     from repro_torch.data import make_federated_lm
     from repro_torch.fl import FLrce, run_federated
-    from repro_torch.fl.baselines import FedAvg
-    from repro_torch.fl.scan_driver import run_scan_driver
     from repro_torch.launch import train
     from repro_torch.models import LMClassifier, LoRAClassifier
 
-    t_phase = time.perf_counter()
     get = train.get_arch
     train.get_arch = lambda name, reduced=False: dataclasses.replace(get(name, reduced=reduced),
                                                                      dtype="float32")
     try:
-        hist = {dev: train.run_pretrain_mode(train.build_parser().parse_args(
-            cli + ["--device", dev]))["history"] for dev in ("cuda", "cpu")}
+        hist = train.run_pretrain_mode(train.build_parser().parse_args(
+            cli + ["--device", dev]))["history"]
     finally:
         train.get_arch = get
-    loss_gap = 0.0
-    for a, b in zip(hist["cuda"], hist["cpu"]):
-        if [a[k] for k in ("round", "silos", "exploit", "stopped", "conflicts")] != \
-                [b[k] for k in ("round", "silos", "exploit", "stopped", "conflicts")]:
-            fail(f"pretrain {arch}: card and CPU rounds differ: {a} vs {b}")
-        loss_gap = max(loss_gap, abs(a["mean_loss"] - b["mean_loss"]) / abs(b["mean_loss"]))
-    if len(hist["cuda"]) != len(hist["cpu"]) or loss_gap > RG_TRAIN_RTOL:
-        fail(f"pretrain {arch}: {len(hist['cuda'])} / {len(hist['cpu'])} rounds, mean loss "
-             f"{loss_gap:.2e} relative")
-    if not all(math.isfinite(r["mean_loss"]) for r in hist["cuda"]):
-        fail(f"pretrain {arch}: a non-finite loss on the card: {hist['cuda']}")
-    print(f"  pretrain CLI ({' '.join(cli[2:])}, fp32) card == CPU over "
-          f"{len(hist['cpu'])} rounds: silos {[r['silos'] for r in hist['cpu']]}, exploit "
-          f"{[r['exploit'] for r in hist['cpu']]}, conflicts {[r['conflicts'] for r in hist['cpu']]}; "
-          f"mean loss {loss_gap:.2e} relative (limit {RG_TRAIN_RTOL:.0e})")
-
     base = LMClassifier(cfg, seq_len=seq)
     host = base.init(0, "cpu")
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, seq)).astype(np.float32))
     y = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4,)))
-    out = {}
-    for dev in ("cuda", "cpu"):
-        live = {k: v.to(dev).requires_grad_(True) for k, v in host.items()}
-        loss = base.loss(live, x.to(dev), y.to(dev))
-        grads = torch.autograd.grad(loss, list(live.values()))
-        out[dev] = (float(loss.detach()), [g.cpu() for g in grads])
-    loss_gap = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    live = {k: v.to(dev).requires_grad_(True) for k, v in host.items()}
+    loss = base.loss(live, x.to(dev), y.to(dev))
+    grads = [g.cpu() for g in torch.autograd.grad(loss, list(live.values()))]
+    del live
+    ds = make_federated_lm(num_clients=8, samples_per_client=16, seq_len=seq,
+                           vocab_size=cfg.vocab_size, num_eval=32, seed=0)
+    lora = LoRAClassifier(base, {k: v.to(dev) for k, v in host.items()}, rank=8)
+    dim = lora.adapter_dim()
+    strategy = FLrce(8, 4, 1, dim=dim, explore_decay=0.5, seed=0)
+    rows = capture_round0(strategy)
+    run = run_federated(lora, ds, strategy, max_rounds=3, torch_device=dev, learning_rate=0.01,
+                        batch_size=8, seed=0)
+    return {"hist": hist, "loss": float(loss.detach()), "grads": grads, "n_leaves": len(host),
+            "dim": dim, "lora": run, "u0": rows["u"].cpu()}
+
+
+def train_reference_check(torch, arch: str, cli: list, cfg, tag: str, worker,
+                          seq: int = 32) -> None:
+    """Phases 7b and 9b: ``arch``'s training on the card against the CPU in
+    fp32 (``train_half`` on each; the CPU's from the worker): the
+    reference CLI's pretrain case, one LMClassifier gradient and
+    LoRA FLrce rounds (round 0's update rows) on the small config ``cfg``;
+    then a LoRA FedAvg round captured by ``driver="scan"`` against the loop
+    and bitwise against the same body run eagerly."""
+    from repro_torch.data import make_federated_lm
+    from repro_torch.fl import run_federated
+    from repro_torch.fl.baselines import FedAvg
+    from repro_torch.fl.scan_driver import run_scan_driver
+    from repro_torch.models import LMClassifier, LoRAClassifier
+
+    t_phase = time.perf_counter()
+    card = train_half("cuda", cli, cfg, seq)
+    cpu = cpu_half(worker, tag)
+    loss_gap = 0.0
+    for a, b in zip(card["hist"], cpu["hist"]):
+        if [a[k] for k in ("round", "silos", "exploit", "stopped", "conflicts")] != \
+                [b[k] for k in ("round", "silos", "exploit", "stopped", "conflicts")]:
+            fail(f"pretrain {arch}: card and CPU rounds differ: {a} vs {b}")
+        loss_gap = max(loss_gap, abs(a["mean_loss"] - b["mean_loss"]) / abs(b["mean_loss"]))
+    if len(card["hist"]) != len(cpu["hist"]) or loss_gap > RG_TRAIN_RTOL:
+        fail(f"pretrain {arch}: {len(card['hist'])} / {len(cpu['hist'])} rounds, mean loss "
+             f"{loss_gap:.2e} relative")
+    if not all(math.isfinite(r["mean_loss"]) for r in card["hist"]):
+        fail(f"pretrain {arch}: a non-finite loss on the card: {card['hist']}")
+    print(f"  pretrain CLI ({' '.join(cli[2:])}, fp32) card == CPU over "
+          f"{len(cpu['hist'])} rounds: silos {[r['silos'] for r in cpu['hist']]}, exploit "
+          f"{[r['exploit'] for r in cpu['hist']]}, conflicts "
+          f"{[r['conflicts'] for r in cpu['hist']]}; mean loss {loss_gap:.2e} relative (limit "
+          f"{RG_TRAIN_RTOL:.0e})")
+
+    loss_gap = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
     grad_gap = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-                   for a, b in zip(out["cuda"][1], out["cpu"][1]))
+                   for a, b in zip(card["grads"], cpu["grads"]))
     if loss_gap > RG_TRAIN_RTOL or grad_gap > RG_TRAIN_RTOL:
         fail(f"LMClassifier {cfg.name}: card against CPU loss {loss_gap:.2e} relative, gradient "
              f"leaves {grad_gap:.2e} of their max (limit {RG_TRAIN_RTOL:.0e})")
     print(f"  LMClassifier ({cfg.num_layers} layers: {', '.join(cfg.layer_kinds())}; remat) "
-          f"gradient card == CPU: loss {loss_gap:.2e} relative, {len(host)} gradient leaves within "
-          f"{grad_gap:.2e} of their max")
+          f"gradient card == CPU: loss {loss_gap:.2e} relative, {card['n_leaves']} gradient "
+          f"leaves within {grad_gap:.2e} of their max")
 
-    ds = make_federated_lm(num_clients=8, samples_per_client=16, seq_len=seq,
-                           vocab_size=cfg.vocab_size, num_eval=32, seed=0)
-    models = {dev: LoRAClassifier(base, {k: v.to(dev) for k, v in host.items()}, rank=8)
-              for dev in ("cuda", "cpu")}
-    dim = models["cpu"].adapter_dim()
-    kw = dict(learning_rate=0.01, batch_size=8, seed=0)
-    runs, rows = {}, {}
-    for dev, m in models.items():
-        strategy = FLrce(8, 4, 1, dim=dim, explore_decay=0.5, seed=0)
-        rows[dev] = capture_round0(strategy)
-        runs[dev] = run_federated(m, ds, strategy, max_rounds=3, torch_device=dev, **kw)
-    compare_runs(f"LoRA FLrce over {cfg.name} (fp32, D = {dim})", runs["cuda"], runs["cpu"])
-    ua, ub = rows["cuda"]["u"].cpu(), rows["cpu"]["u"]
+    compare_runs(f"LoRA FLrce over {cfg.name} (fp32, D = {card['dim']})", card["lora"],
+                 cpu["lora"])
+    ua, ub = card["u0"], cpu["u0"]
     row_gap = float(((ua - ub).abs().amax(dim=1) / ub.abs().amax(dim=1).clamp_min(1e-30)).max())
     if row_gap > RG_TRAIN_RTOL:
         fail(f"LoRA {cfg.name}: round 0's update rows {row_gap:.2e} of their max apart")
     print(f"  round 0's {tuple(ub.shape)} update rows card == CPU within {row_gap:.2e} of each "
           f"row's max (limit {RG_TRAIN_RTOL:.0e})")
-    loop = run_federated(models["cuda"], ds, FedAvg(8, 4, 1, seed=0), max_rounds=4,
+    del card, cpu
+
+    base = LMClassifier(cfg, seq_len=seq)
+    ds = make_federated_lm(num_clients=8, samples_per_client=16, seq_len=seq,
+                           vocab_size=cfg.vocab_size, num_eval=32, seed=0)
+    lora = LoRAClassifier(base, {k: v.cuda() for k, v in base.init(0, "cpu").items()}, rank=8)
+    kw = dict(learning_rate=0.01, batch_size=8, seed=0)
+    loop = run_federated(lora, ds, FedAvg(8, 4, 1, seed=0), max_rounds=4,
                          torch_device="cuda", **kw)
-    scan = run_federated(models["cuda"], ds, FedAvg(8, 4, 1, seed=0), max_rounds=4,
+    scan = run_federated(lora, ds, FedAvg(8, 4, 1, seed=0), max_rounds=4,
                          torch_device="cuda", driver="scan", scan_chunk_rounds=2, **kw)
     compare_scan(f"LoRA FedAvg over {cfg.name}, driver='scan' on the card", loop, scan, torch)
-    skw = dict(max_rounds=4, learning_rate=0.01, batch_size=8, device="jetson_nano",
-               eval_every=1, seed=0, init_params=None, verbose=False, chunk_rounds=2)
-    dev = torch.device("cuda")
-    graph = run_scan_driver(models["cuda"], ds, FedAvg(8, 4, 1, seed=0), torch_device=dev,
-                            capture=True, **skw)
-    eager = run_scan_driver(models["cuda"], ds, FedAvg(8, 4, 1, seed=0), torch_device=dev,
-                            capture=False, **skw)
-    st = graph.driver_stats
+    # the same job with the round body run eagerly: the scan run above is
+    # its captured twin (run_federated's defaults), held to it bitwise
+    eager = run_scan_driver(lora, ds, FedAvg(8, 4, 1, seed=0), max_rounds=4,
+                            learning_rate=0.01, batch_size=8, device="jetson_nano",
+                            eval_every=1, seed=0, init_params=None, verbose=False,
+                            chunk_rounds=2, torch_device=torch.device("cuda"), capture=False)
+    st = scan.driver_stats
     if st["captures_chunk"] < 1 or st["replays"] != 4 or st["host_syncs"] != st["chunks"]:
         fail(f"LoRA {cfg.name}: the scan driver did not capture and replay its rounds: {st}")
     compare_scan(f"LoRA FedAvg over {cfg.name}, captured rounds against the eager body", eager,
-                 graph, torch, bitwise=True)
+                 scan, torch, bitwise=True)
     print(f"  captured: {st['captures_chunk']} captures, {st['replays']} replays, "
           f"{st['host_syncs']} host syncs in {st['chunks']} chunks, bitwise the eager body")
     print(f"  phase {tag} wall {time.perf_counter() - t_phase:.1f} s")
@@ -4312,8 +4891,7 @@ def xlstm_gap(torch) -> None:
                                        keep_at=XL_FAULT_AT)
         print(f"  card, 48 layers, d_model {d}: |Δ|/max|logit| {worst:.3e}, argmax equal at "
               f"{same} of {XL_FP32_B * XL_FP32_POSITIONS}; {time.perf_counter() - t0:.1f} s")
-    for label, layers in XL_FAULTS:
-        fault_gap(torch, model, params, tokens, full, kept, label, XL_FAULT_AT, layers)
+    fault_gaps(torch, model, params, tokens, full, kept, XL_FAULTS, XL_FAULT_AT)
     del kept
     t0 = time.perf_counter()
     host = tree_to(params, "cpu")
@@ -4364,20 +4942,26 @@ XL_PRETRAIN_CLI = ["--mode", "pretrain", "--arch", XL_ARCH, "--silos", "4", "--p
                    "--rounds", "2", "--local-steps", "1", "--batch", "2", "--seq", "32"]
 
 
-def xl_train_reference_check(torch) -> None:
-    """Phase 9b: xLSTM's training on the card against the CPU in fp32, on
-    the reduced width (d_model 256, 4 heads) with both block kinds: three
-    layers, a cycle of an mLSTM and an sLSTM block and an mLSTM rest block
-    (the reduced xlstm-1.3b has two mLSTM layers and no sLSTM), sequences
-    of 16 tokens: the sLSTM loop's host work grows with the length."""
+def xl_train_cfg():
+    """Phase 9b's small config: the reduced width (d_model 256, 4 heads)
+    with both block kinds, three layers, a cycle of an mLSTM and an sLSTM
+    block and an mLSTM rest block (the reduced xlstm-1.3b has two mLSTM
+    layers and no sLSTM), fp32."""
     import dataclasses
 
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import MLSTM, SLSTM
 
-    cfg = dataclasses.replace(get_arch(XL_ARCH, reduced=True), dtype="float32", num_layers=3,
-                              pattern=(MLSTM, SLSTM))
-    train_reference_check(torch, XL_ARCH, XL_PRETRAIN_CLI, cfg, "9b", seq=16)
+    return dataclasses.replace(get_arch(XL_ARCH, reduced=True), dtype="float32", num_layers=3,
+                               pattern=(MLSTM, SLSTM))
+
+
+def xl_train_reference_check(torch, worker) -> None:
+    """Phase 9b: xLSTM's training on the card against the CPU in fp32, on
+    ``xl_train_cfg`` at sequences of 16 tokens: the sLSTM loop's host work
+    grows with the length."""
+    train_reference_check(torch, XL_ARCH, XL_PRETRAIN_CLI, xl_train_cfg(), "9b", worker,
+                          seq=16)
 
 
 # ---------------------------------------------------------------------------
@@ -4510,11 +5094,27 @@ def fedlm_phase(torch, timer, bandwidth) -> tuple:
 EX_FVB_ROUNDS = 10
 EX_FEDLM_ARGS = ["--size", "5m", "--rounds", "2", "--chunk", "1"]
 CPU_SIDE_THREADS = 3
+# the CPU halves of the phases' card-against-CPU checks, by phase: the CPU
+# worker makes those of the selected phases beside the earlier ones
+CPU_HALVES = {
+    "2f": lambda: quick_async_run("cpu"),
+    "3": lambda: reference_runs("cpu"),
+    "6b": lambda: lora_reference_runs("cpu"),
+    "7b": lambda: train_half("cpu", RG_PRETRAIN_CLI, rg_train_cfg()),
+    "9b": lambda: train_half("cpu", XL_PRETRAIN_CLI, xl_train_cfg(), 16),
+    "13c": lambda: moe_train_half("cpu"),
+}
+# the worker's parts in the order it makes them (the phases' order), each
+# with the phase that needs it
+WORKER_PARTS = (("2f", "2f"), ("fleet", "2d"), ("3", "3"), ("6b", "6b"), ("7b", "7b"),
+                ("9b", "9b"), ("examples", "11"), ("13c", "13c"))
 
 
 def cpu_side(out: str, parts: str) -> None:
     """``--cpu-side DIR PARTS CORES``: host work of later phases, written
-    under ``DIR``: ``fleet`` phase 2d's federation (``fleet.npz``),
+    under ``DIR`` in the order of ``PARTS`` (the order the phases need it):
+    a phase's tag in ``CPU_HALVES`` the CPU half of its card-against-CPU
+    checks (``<tag>.pt``), ``fleet`` phase 2d's federation (``fleet.npz``),
     ``examples`` the CPU runs phase 11 holds the card's against
     (``examples.pt``); last ``ended``, the wall clock at its end.  The
     smoke starts this in a worker process after the build, pinned to
@@ -4524,18 +5124,25 @@ def cpu_side(out: str, parts: str) -> None:
     import torch
 
     torch.set_num_threads(CPU_SIDE_THREADS)
-    if "fleet" in parts.split(","):
-        ds = fleet_data()
-        save_dataset(ds, os.path.join(out, "fleet.npz"))
-        del ds
-    if "examples" in parts.split(","):
-        fvb = load_example("flrce_vs_baselines_torch")
-        fvb.T = EX_FVB_ROUNDS
-        results = {"fvb": fvb.main(["--device", "cpu"])}
-        results["fedlm"] = load_example("federated_pretrain_torch").main(EX_FEDLM_ARGS +
-                                                                         ["--device", "cpu"])
-        torch.save(results, os.path.join(out, "examples.pt.part"))
-        os.replace(os.path.join(out, "examples.pt.part"), os.path.join(out, "examples.pt"))
+
+    def save(name, value):
+        torch.save(value, os.path.join(out, name + ".part"))
+        os.replace(os.path.join(out, name + ".part"), os.path.join(out, name))
+
+    for part in parts.split(","):
+        if part in CPU_HALVES:
+            save(f"{part}.pt", CPU_HALVES[part]())
+        elif part == "fleet":
+            ds = fleet_data()
+            save_dataset(ds, os.path.join(out, "fleet.npz"))
+            del ds
+        elif part == "examples":
+            fvb = load_example("flrce_vs_baselines_torch")
+            fvb.T = EX_FVB_ROUNDS
+            results = {"fvb": fvb.main(["--device", "cpu"])}
+            results["fedlm"] = load_example("federated_pretrain_torch").main(
+                EX_FEDLM_ARGS + ["--device", "cpu"])
+            save("examples.pt", results)
     with open(os.path.join(out, "ended"), "w") as f:
         f.write(repr(time.time()))
 
@@ -4564,7 +5171,7 @@ class CpuWorker:
         import os
         import tempfile
 
-        self.torch, self.threads = torch, torch.get_num_threads()
+        self.torch, self.threads, self.parts = torch, torch.get_num_threads(), list(parts)
         self.all_cores = sorted(os.sched_getaffinity(0))
         split = len(self.all_cores) > CPU_SIDE_THREADS + 1
         self.cores = self.all_cores[-CPU_SIDE_THREADS:] if split else self.all_cores
@@ -4637,6 +5244,19 @@ def worker_file(worker: CpuWorker, name: str, timeout: float = 900.0) -> str:
     return path
 
 
+def worker_result(worker: CpuWorker, name: str):
+    """The object the worker saved as ``name``, once it is written (the
+    file is removed after loading)."""
+    import os
+
+    import torch
+
+    path = worker_file(worker, name)
+    value = torch.load(path, weights_only=False)
+    os.unlink(path)
+    return value
+
+
 def examples_phase(torch, worker) -> None:
     """Phase 11: ``flrce_vs_baselines_torch`` (T cut to ``EX_FVB_ROUNDS``)
     and ``federated_pretrain_torch`` at ``--size 5m`` on the card, each
@@ -4645,7 +5265,6 @@ def examples_phase(torch, worker) -> None:
     shipped (bf16 where the config is), and in fp32 card against CPU,
     tokens equal."""
     import dataclasses
-    import os
 
     from repro_torch.configs import list_archs
 
@@ -4655,10 +5274,8 @@ def examples_phase(torch, worker) -> None:
     card = fvb.main([])
     fedlm = load_example("federated_pretrain_torch").main(EX_FEDLM_ARGS)
     t0 = time.perf_counter()
-    path = worker_file(worker, "examples.pt")
+    cpu = worker_result(worker, "examples.pt")
     waited = time.perf_counter() - t0
-    cpu = torch.load(path, weights_only=False)
-    os.unlink(path)
     print(f"  the CPU worker's runs ({CPU_SIDE_THREADS} threads, beside the earlier phases) "
           f"were waited for {waited:.1f} s")
     if list(card) != list(cpu["fvb"]):
@@ -4787,9 +5404,13 @@ def main() -> int:
         print("topk_mask_rows and gram variants")
         kernel_variants(torch, Timer(torch), bandwidth)
         return 0
+    if mode == "--moe-lora-peaks":
+        print("the MoE models' LoRA round at full width: peak device memory by depth")
+        moe_lora_peaks(torch)
+        return 0
 
     # host work of phases 2d and 11, in a worker beside the card's phases
-    parts = [part for part, name in (("fleet", "2d"), ("examples", "11")) if name in selected]
+    parts = [part for part, name in WORKER_PARTS if name in selected]
     worker = CpuWorker(torch, parts) if parts else None
     try:
         return run_phases(torch, selected, bandwidth, worker, t_start)
@@ -4854,7 +5475,7 @@ def run_phases(torch, selected: set, bandwidth: float, worker, t_start: float) -
                    f"runs, FLrce at max_staleness={ASYNC_S} for {ASYNC_ROUNDS} rounds, the quick "
                    f"BenchConfig at max_staleness={ASYNC_S} card against CPU"):
         timer = Timer(torch)
-        fl_rows["async"] = async_phase(torch, timer, bandwidth, *fed, scan_runs or {})
+        fl_rows["async"] = async_phase(torch, timer, bandwidth, *fed, scan_runs or {}, worker)
         del timer
     fed = scan_runs = ds = model = params = main_res = main_u0 = None
     gc.collect()
@@ -4868,7 +5489,7 @@ def run_phases(torch, selected: set, bandwidth: float, worker, t_start: float) -
         torch.cuda.empty_cache()
 
     if phase("3", "small federations, GPU against CPU"):
-        reference_check(torch)
+        reference_check(torch, worker)
         torch.cuda.empty_cache()
 
     if phase("4", f"serve gemma3-4b at full width, {SERVE_LAYERS} of its layers, {SERVE_B} "
@@ -4918,7 +5539,7 @@ def run_phases(torch, selected: set, bandwidth: float, worker, t_start: float) -
         torch.cuda.empty_cache()
 
     if phase("6b", "a reduced gemma3 config, LoRA and full-model federations, GPU against CPU"):
-        lora_reference_check(torch)
+        lora_reference_check(torch, worker)
         torch.cuda.empty_cache()
 
     if phase("7", f"federated LoRA (rank {LORA_RANK}) on {RG_ARCH} at full width, "
@@ -4932,7 +5553,7 @@ def run_phases(torch, selected: set, bandwidth: float, worker, t_start: float) -
         torch.cuda.empty_cache()
 
     if phase("7b", f"{RG_ARCH}'s training, reduced configs in fp32, GPU against CPU"):
-        rg_train_reference_check(torch)
+        rg_train_reference_check(torch, worker)
         torch.cuda.empty_cache()
 
     if phase("8", f"serve {XL_ARCH} at full width, {XL_B} requests x ({XL_PROMPT} prompt + "
@@ -4968,7 +5589,7 @@ def run_phases(torch, selected: set, bandwidth: float, worker, t_start: float) -
         torch.cuda.empty_cache()
 
     if phase("9b", f"{XL_ARCH}'s training, reduced configs in fp32, GPU against CPU"):
-        xl_train_reference_check(torch)
+        xl_train_reference_check(torch, worker)
         torch.cuda.empty_cache()
 
     if phase("10", f"examples/federated_pretrain_torch.py {' '.join(FEDLM_ARGS)}: a "
@@ -5005,6 +5626,24 @@ def run_phases(torch, selected: set, bandwidth: float, worker, t_start: float) -
         moe_reference_check(torch)
         torch.cuda.empty_cache()
 
+    for arch, tag, layers, want_dim in ((MX_ARCH, "13", MX_LORA_LAYERS, MX_LORA_D),
+                                        (DBRX_ARCH, "13b", DBRX_LORA_LAYERS, DBRX_LORA_D)):
+        if phase(tag, f"federated LoRA (rank {LORA_RANK}) on {arch} at full width, {layers} of "
+                      f"its layers, M={LORA_M}, P={LORA_P}, {LORA_N} sequences of {LORA_SEQ} "
+                      "tokens a client: FLrce (twice), FedAvg, Fedcom"):
+            timer = Timer(torch)
+            fl_rows[f"{arch}-lora"] = lora_phase(torch, timer, bandwidth, arch, want_dim, tag,
+                                                 layers=layers)
+            del timer
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    if phase("13c", "small MoE models' training (mixtral and dbrx families, per-sequence "
+                    "routing at capacity factors 1.25 and 0.5 and in groups of 16), GPU against "
+                    "CPU"):
+        moe_train_reference_check(torch, worker)
+        torch.cuda.empty_cache()
+
     # every kernel row of the phases that ran (with no --phases, all of them)
     kernels = []
     for name in ("cross_gram", "gram", "weighted_aggregate", "topk_mask_rows", "decode_attention",
@@ -5029,7 +5668,7 @@ def run_phases(torch, selected: set, bandwidth: float, worker, t_start: float) -
     # the FL kernels at phase 6's and 7's operands (LoRA), and at phase 2f's
     # async round, with those runs' launches
     for tag in (f"{LORA_ARCH}-lora", f"{RG_ARCH}-lora", "async", f"{XL_ARCH}-lora",
-                "fedlm-100m"):
+                "fedlm-100m", f"{MX_ARCH}-lora", f"{DBRX_ARCH}-lora"):
         if tag not in fl_rows:
             continue
         lrows, llaunches = fl_rows[tag]

@@ -2,8 +2,10 @@
 
 The sources under ``csrc/`` have a plain C interface, so they compile in
 seconds without PyTorch's headers.  At first use each ``.cu`` file is
-compiled to an object by its own ``nvcc`` process, all started together,
-then the objects are linked into one ``.so`` for ``sm_90a``.  The library
+compiled to an object by its own ``nvcc`` process, all started together
+(``decode_attention.cu``, whose 48 instances took most of the build, as six
+objects of 8 instances each: ``PARTS``), then the objects are linked into
+one ``.so`` for ``sm_90a``.  The library
 lands in ``kernels/_build/<hash>/``, keyed by a hash of the sources and the
 flags, so an edited source rebuilds and an unchanged one loads at once.
 Nothing here runs at import: the CPU never builds or loads anything.
@@ -13,12 +15,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
@@ -27,6 +30,9 @@ HEADERS = ("common.cuh",)
 LIB_NAME = "libflrce_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *ARCH_FLAGS]
+# sources compiled as several objects, each with the macro that picks a part;
+# the source itself defines the count as that macro's name + "S"
+PARTS = {"decode_attention.cu": "FLRCE_DECODE_PART"}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -50,7 +56,31 @@ def source_hash() -> str:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(PARTS.items())).encode())
     return h.hexdigest()[:16]
+
+
+def part_count(src: str, macro: str) -> int:
+    """The parts of ``src``: its ``#define <macro>S n`` line."""
+    found = re.search(rf"^#define {macro}S (\d+)$", (CSRC / src).read_text(), re.M)
+    if found is None:
+        raise RuntimeError(f"{src} defines no {macro}S, the count of its parts")
+    return int(found.group(1))
+
+
+def compile_units() -> List[Tuple[str, List[str], str]]:
+    """Each object of the library as (source, its extra nvcc flags, object
+    stem): one a source, or one a part of a source in ``PARTS``."""
+    units: List[Tuple[str, List[str], str]] = []
+    for src in SOURCES:
+        stem = Path(src).stem
+        if src in PARTS:
+            macro = PARTS[src]
+            n = part_count(src, macro)
+            units += [(src, [f"-D{macro}={p}"], f"{stem}.{p}") for p in range(n)]
+        else:
+            units.append((src, [], stem))
+    return units
 
 
 def _run_all(cmds: List[List[str]]) -> List[str]:
@@ -85,10 +115,11 @@ def build() -> Path:
     t0 = time.perf_counter()
     work = Path(tempfile.mkdtemp(prefix="build-", dir=BUILD_ROOT))
     try:
-        objs = [work / (Path(src).stem + ".o") for src in SOURCES]
+        units = compile_units()
+        objs = [work / f"{stem}.o" for _, _, stem in units]
         logs = _run_all([
-            [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-c", str(CSRC / src), "-o", str(obj)]
-            for src, obj in zip(SOURCES, objs)
+            [nvcc, *NVCC_FLAGS, *flags, f"-I{CSRC}", "-c", str(CSRC / src), "-o", str(obj)]
+            for (src, flags, _), obj in zip(units, objs)
         ])
         logs += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(work / LIB_NAME),
                            *map(str, objs)]])

@@ -510,22 +510,109 @@ cudaError_t visit_g(int g, F& f) {
   }
 }
 
-template <typename T, typename F>
-cudaError_t visit_hd(int hd, int g, F& f) {
-  switch (hd) {
-    case 64: return visit_g<T, 64>(g, f);
-    case 128: return visit_g<T, 128>(g, f);
-    case 256: return visit_g<T, 256>(g, f);
-    default: return cudaErrorInvalidValue;
+}  // namespace
+
+// One launch's arguments, as flrce_decode_attention takes them.
+struct FlrceDecodeArgs {
+  const void* q;
+  const void* kc;
+  const void* vc;
+  const int* length;
+  float* part_acc;
+  float* part_ml;
+  int* arrivals;
+  void* out;
+  dim3 grid;
+  int s, k, group, n_sub, ns, w, r;
+  float scale;
+  cudaStream_t stream;
+};
+
+// The build compiles this file once for each (dtype, head_dim) pair, with
+// FLRCE_DECODE_PART = 3 * dtype + the index of head_dim among 64, 128, 256:
+// that object holds the pair's instances (a block's G = 1..8) and the two
+// host functions below that launch and size them, and part 0's object holds
+// the entry points too, which pick the part.  Six compiles of 8 instances
+// run side by side where one of 48 took most of the build.  The build reads
+// the count of parts from the next line.
+#define FLRCE_DECODE_PARTS 6
+#ifndef FLRCE_DECODE_PART
+#error "decode_attention.cu compiles one part at a time: define FLRCE_DECODE_PART"
+#endif
+#define FLRCE_DECODE_PART_FNS(P, T, HD)                                                           \
+  cudaError_t flrce_decode_launch_##P(const FlrceDecodeArgs& a, int gs) {                          \
+    auto launch = [&](auto t, auto hd, auto g) -> cudaError_t {                                    \
+      using U = typename decltype(t)::type;                                                        \
+      constexpr int kHd = decltype(hd)::value, kG = decltype(g)::value;                            \
+      cudaError_t err = prepare<U, kHd, kG>();                                                     \
+      if (err != cudaSuccess) return err;                                                          \
+      decode_attention_kernel<U, kHd, kG>                                                          \
+          <<<a.grid, kThreads, Shape<U, kHd, kG>::kSmemBytes, a.stream>>>(                         \
+              static_cast<const U*>(a.q), static_cast<const U*>(a.kc),                             \
+              static_cast<const U*>(a.vc), a.length, a.part_acc, a.part_ml, a.arrivals,            \
+              static_cast<U*>(a.out), a.s, a.k, a.group, a.n_sub, a.ns, a.w, a.r, a.scale);        \
+      return cudaGetLastError();                                                                   \
+    };                                                                                             \
+    return visit_g<T, HD>(gs, launch);                                                             \
+  }                                                                                                \
+  cudaError_t flrce_decode_occupancy_##P(int gs, int* blocks_per_sm, int* smem_bytes) {            \
+    auto query = [&](auto t, auto hd, auto g) -> cudaError_t {                                     \
+      using U = typename decltype(t)::type;                                                        \
+      constexpr int kHd = decltype(hd)::value, kG = decltype(g)::value;                            \
+      cudaError_t err = prepare<U, kHd, kG>();                                                     \
+      if (err != cudaSuccess) return err;                                                          \
+      *smem_bytes = Shape<U, kHd, kG>::kSmemBytes;                                                 \
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(                                        \
+          blocks_per_sm, decode_attention_kernel<U, kHd, kG>, kThreads, *smem_bytes);              \
+    };                                                                                             \
+    return visit_g<T, HD>(gs, query);                                                              \
   }
+
+#define FLRCE_DECODE_PART_DECL(P)                                          \
+  cudaError_t flrce_decode_launch_##P(const FlrceDecodeArgs& a, int gs); \
+  cudaError_t flrce_decode_occupancy_##P(int gs, int* blocks_per_sm, int* smem_bytes);
+
+FLRCE_DECODE_PART_DECL(0)
+FLRCE_DECODE_PART_DECL(1)
+FLRCE_DECODE_PART_DECL(2)
+FLRCE_DECODE_PART_DECL(3)
+FLRCE_DECODE_PART_DECL(4)
+FLRCE_DECODE_PART_DECL(5)
+
+#if FLRCE_DECODE_PART == 0
+FLRCE_DECODE_PART_FNS(0, float, 64)
+#endif
+#if FLRCE_DECODE_PART == 1
+FLRCE_DECODE_PART_FNS(1, float, 128)
+#endif
+#if FLRCE_DECODE_PART == 2
+FLRCE_DECODE_PART_FNS(2, float, 256)
+#endif
+#if FLRCE_DECODE_PART == 3
+FLRCE_DECODE_PART_FNS(3, __nv_bfloat16, 64)
+#endif
+#if FLRCE_DECODE_PART == 4
+FLRCE_DECODE_PART_FNS(4, __nv_bfloat16, 128)
+#endif
+#if FLRCE_DECODE_PART == 5
+FLRCE_DECODE_PART_FNS(5, __nv_bfloat16, 256)
+#endif
+
+#if FLRCE_DECODE_PART == 0
+namespace {
+
+// the part of (dtype, HD), or -1: dtype 0 is fp32, 1 is bf16
+int part_of(int dtype, int hd) {
+  const int at = hd == 64 ? 0 : hd == 128 ? 1 : hd == 256 ? 2 : -1;
+  return (dtype != 0 && dtype != 1) || at < 0 ? -1 : 3 * dtype + at;
 }
 
-template <typename F>
-cudaError_t visit(int dtype, int hd, int g, F& f) {
-  if (dtype == 0) return visit_hd<float>(hd, g, f);
-  if (dtype == 1) return visit_hd<__nv_bfloat16>(hd, g, f);
-  return cudaErrorInvalidValue;
-}
+cudaError_t (*const kLaunch[FLRCE_DECODE_PARTS])(const FlrceDecodeArgs&, int) = {
+    flrce_decode_launch_0, flrce_decode_launch_1, flrce_decode_launch_2,
+    flrce_decode_launch_3, flrce_decode_launch_4, flrce_decode_launch_5};
+cudaError_t (*const kOccupancy[FLRCE_DECODE_PARTS])(int, int*, int*) = {
+    flrce_decode_occupancy_0, flrce_decode_occupancy_1, flrce_decode_occupancy_2,
+    flrce_decode_occupancy_3, flrce_decode_occupancy_4, flrce_decode_occupancy_5};
 
 }  // namespace
 
@@ -551,21 +638,14 @@ int flrce_decode_attention(const void* q, const void* kc, const void* vc, const 
       (n_splits > 1 && (part_acc == nullptr || part_ml == nullptr || arrivals == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int part = part_of((int)dtype, (int)HD);
+  if (part < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int n_sub = (int)((G + GS - 1) / GS);
-  const dim3 grid((unsigned)n_splits, (unsigned)(K * n_sub), (unsigned)B);
-  const int s = (int)S, k = (int)K, group = (int)G, ns = (int)n_splits, w = (int)window,
-            r = ring ? 1 : 0;
-  auto launch = [&](auto t, auto hd, auto g) -> cudaError_t {
-    using T = typename decltype(t)::type;
-    constexpr int kHd = decltype(hd)::value, kG = decltype(g)::value;
-    cudaError_t err = prepare<T, kHd, kG>();
-    if (err != cudaSuccess) return err;
-    decode_attention_kernel<T, kHd, kG><<<grid, kThreads, Shape<T, kHd, kG>::kSmemBytes, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), length,
-        part_acc, part_ml, arrivals, static_cast<T*>(out), s, k, group, n_sub, ns, w, r, scale);
-    return cudaGetLastError();
-  };
-  return static_cast<int>(visit((int)dtype, (int)HD, (int)GS, launch));
+  const FlrceDecodeArgs a{q, kc, vc, length, part_acc, part_ml, arrivals, out,
+                          dim3((unsigned)n_splits, (unsigned)(K * n_sub), (unsigned)B),
+                          (int)S, (int)K, (int)G, n_sub, (int)n_splits, (int)window,
+                          ring ? 1 : 0, scale, stream};
+  return static_cast<int>(kLaunch[part](a, (int)GS));
 }
 
 // Blocks of the (dtype, HD, G) instance (G heads a block, 1..8) an SM holds at once
@@ -573,16 +653,10 @@ int flrce_decode_attention(const void* q, const void* kc, const void* vc, const 
 // the instance's dynamic shared memory, written to *smem_bytes).
 int flrce_decode_attention_occupancy(int32_t dtype, int64_t HD, int64_t G, int* blocks_per_sm,
                                      int* smem_bytes) {
-  auto query = [&](auto t, auto hd, auto g) -> cudaError_t {
-    using T = typename decltype(t)::type;
-    constexpr int kHd = decltype(hd)::value, kG = decltype(g)::value;
-    cudaError_t err = prepare<T, kHd, kG>();
-    if (err != cudaSuccess) return err;
-    *smem_bytes = Shape<T, kHd, kG>::kSmemBytes;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, decode_attention_kernel<T, kHd, kG>, kThreads, *smem_bytes);
-  };
-  return static_cast<int>(visit((int)dtype, (int)HD, (int)G, query));
+  const int part = part_of((int)dtype, (int)HD);
+  if (part < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(kOccupancy[part]((int)G, blocks_per_sm, smem_bytes));
 }
 
 }  // extern "C"
+#endif

@@ -96,8 +96,13 @@ def _counts(n: Optional[int], index: Optional[torch.Tensor], device) -> torch.Te
 def random_bits_plain(key, n: Optional[int] = None, *, index=None,
                       device="cpu") -> torch.Tensor:
     """Elements ``range(n)`` (or ``index``) of ``_random_bits(key, 32, ·)``
-    as int64 tensors holding uint32 words."""
-    k0, k1 = (int(v) for v in np.asarray(key, np.uint32))
+    as int64 tensors holding uint32 words.  ``key`` is a (2,) key, or a
+    pair of int64 tensors of key words that broadcast against the counts:
+    each element then draws under its own key (many draws in one pass)."""
+    if isinstance(key, tuple) and isinstance(key[0], torch.Tensor):
+        k0, k1 = key
+    else:
+        k0, k1 = (int(v) for v in np.asarray(key, np.uint32))
     lo = _counts(n, index, device)
     b0, b1 = threefry_block(k0, k1, lo >> 32, lo & _MASK)
     return b0 ^ b1

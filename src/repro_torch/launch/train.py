@@ -22,9 +22,12 @@ Runs on CUDA unless ``--device cpu`` is given.  Pretrain mode draws the model
 from ``--seed`` with ``TransformerLM.init``, the reference's weights for that
 seed; a bf16 model trains in bf16, each round's flat fp32
 mean cast back to every leaf's dtype, as the reference's ``flatten_pytree``
-inverse does.  ``--arch`` offers every architecture the port serves, but
-pretraining a mixture-of-experts model (mixtral-8x22b, dbrx-132b) raises
-``NotImplementedError``: it waits for ROADMAP A.7.4's training half.
+inverse does.  ``--arch`` offers every architecture the port serves.  A
+local step takes ``TransformerLM.loss`` of its batch, as the reference's
+does: a mixture-of-experts model (mixtral-8x22b, dbrx-132b) routes the
+batch's tokens together and adds the batch's load-balance loss, which is
+the sequential engine's function, not the batched engine's per-sequence
+one (``models/lm.py``).
 """
 from __future__ import annotations
 
@@ -48,7 +51,6 @@ from repro_torch.kernels import ops as kops
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import MLPClassifier, TransformerLM, param_count
 from repro_torch.models.lm import flat_from_lm, lm_from_flat
-from repro_torch.models.transformer import check_trainable
 from repro_torch.optim import sgd
 
 STRATS = {
@@ -84,7 +86,6 @@ def run_pretrain_mode(args, params: Optional[Dict[str, Any]] = None) -> dict:
     ``params`` (``TransformerLM`` parameters on the device) replaces the
     random draw, so a caller can start from given weights."""
     cfg = get_arch(args.arch, reduced=not args.full_config)
-    check_trainable(cfg, "launch.train --mode pretrain")
     dev = resolve_device(args.device)
     model = TransformerLM(cfg, remat=True)
     if params is None:

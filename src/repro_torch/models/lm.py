@@ -12,6 +12,13 @@ path.  The dataset convention (:func:`repro_torch.data.lm.make_federated_lm`):
 ``loss`` supervises every next-token position (labels ``[x[1:], y]``) and
 ``accuracy`` is top-1 at the final position against ``y``.
 
+For a model with experts the two engines train two functions, as in the
+reference.  ``loss``, which the sequential engine (``ClientTrainer``) calls,
+routes the batch's tokens together and adds the batch's load-balance loss;
+``per_example_loss``, which the batched engine calls, routes each sequence
+alone and adds its own, as the reference's ``jax.vmap`` of ``model.loss``
+over one-sequence batches does.  Without experts they agree.
+
 Parameters are a flat dict in the reference's pytree leaf order, element for
 element the reference's flattened vector: the layers of pattern position
 ``pos`` stacked over the NC cycles as ``decoder.cycles.<pos>.<leaf>`` with a
@@ -33,7 +40,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.distributed import flatten_tree
 from repro_torch.device import DeviceLike
-from repro_torch.models.transformer import TransformerLM, check_trainable
+from repro_torch.models.transformer import TransformerLM
 
 Params = Dict[str, torch.Tensor]
 
@@ -108,9 +115,6 @@ class LMClassifier:
     # under ``torch.func``'s transforms, which the vmapped step is made of.
     vmap_clients = False
 
-    def __post_init__(self):
-        check_trainable(self.cfg, "LMClassifier")
-
     @property
     def lm(self) -> TransformerLM:
         return TransformerLM(self.cfg, remat=self.remat)
@@ -131,9 +135,11 @@ class LMClassifier:
         return self.lm.loss(lm_from_flat(self.cfg, params), self._batch(x, y))
 
     def per_example_loss(self, params: Params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """(N,) each sequence's loss, ``loss`` of that sequence alone."""
-        sums = self.lm.nll_sums(lm_from_flat(self.cfg, params), self._batch(x, y))
-        return sums / x.shape[1]
+        """(N,) each sequence's loss, ``loss`` of that sequence alone
+        (``TransformerLM.sequence_losses``): with experts, each sequence is
+        routed alone and adds its own aux, as the reference's batched engine
+        computes it (``src/repro/fl/client.py:329-332``)."""
+        return self.lm.sequence_losses(lm_from_flat(self.cfg, params), self._batch(x, y))
 
     def accuracy(self, params: Params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         lm = self.lm

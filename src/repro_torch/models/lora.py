@@ -23,6 +23,14 @@ presume the full parameter vector (Dropout's masks, TimelyFL's layer
 freezing) declare ``supports_param_subset = False`` and ``run_federated``
 rejects them.
 
+A stacked leaf adapts slice by slice: an LM's cycle leaves (NC, d_in,
+d_out) and a mixture-of-experts MLP's (NC, E, d_in, d_out) ``wi``, ``wg``
+and ``wo`` get A (…, d_in, r) and B (…, r, d_out) over the same leading
+dims; an MoE's ``router`` matches no target and stays frozen.  ``loss`` and
+``per_example_loss`` evaluate the base's two functions at the merged
+weights, which for an MoE differ (``models/lm.py``): the sequential engine
+trains the batch-routed one, the batched engine the per-sequence one.
+
 Adapter names and order: a target leaf ``n`` of the base dict gets ``n.a``
 and ``n.b``; under ``train_rest`` a non-target leaf ``n`` trains as ``n``.
 The reference keys its adapter dict by path strings (``n`` with ``/`` for

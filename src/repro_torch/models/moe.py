@@ -11,6 +11,16 @@ residual passes through and the kept gates are not renormalised again.
 ``apply_moe`` returns the Switch-style load-balance loss beside the
 output; the decode step calls ``mix``, which leaves it out.
 
+Two routings of a (B, S, D) batch.  By default its B·S tokens are routed
+together, in groups of ``g = min(group_size, B·S)`` that cross sequences,
+and the aux loss is the batch's: the reference's ``apply_moe`` on that
+batch.  With ``per_sequence`` each sequence is routed alone, as the
+reference's batched engine routes it (``jax.vmap`` of ``model.loss`` over
+one-sequence batches, ``src/repro/fl/client.py:329-332``): groups of ``g =
+min(group_size, S)`` tokens, each sequence padded on its own to a multiple
+of g, capacity from that g, and the aux loss a (B,) tensor, each sequence's
+own.  Both run as one pass over the batch, with no loop over sequences.
+
 The reference moves tokens through dense one-hot dispatch and combine
 tensors (G, g, E, C).  Here each kept (token, choice) gets its slot's index
 in an (E, G·C, D) expert buffer: an index gather fills the buffer (exactly
@@ -70,22 +80,30 @@ def route(params: Params, xt: torch.Tensor, k: int) -> Tuple[torch.Tensor, ...]:
     return probs, gates, expert
 
 
-def slots(expert: torch.Tensor, e: int, g: int, capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def slots(expert: torch.Tensor, e: int, g: int, capacity: int,
+          seqs: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """(slot (N, k), kept (N, k)) of each (token, choice) in the expert
-    buffer laid out (E, groups, capacity): token t's group is t // g, its
-    place in its expert's group buffer the count of earlier (token, choice)
-    pairs of that group routed there, token-major and choice-minor."""
+    buffer laid out (E, groups, capacity).  The N tokens are ``seqs``
+    sequences of N / seqs tokens, each padded on its own to a multiple of
+    ``g`` (pad tokens route nowhere): a token's group is its sequence's
+    first group plus its position // g, its place in its expert's group
+    buffer the count of earlier (token, choice) pairs of that group routed
+    there, token-major and choice-minor."""
     n, k = expert.shape
-    pad = (-n) % g
-    ng = (n + pad) // g
+    s = n // seqs
+    pad = (-s) % g
+    per_seq = (s + pad) // g                     # groups a sequence
+    ng = seqs * per_seq
     onehot = (expert[..., None] == torch.arange(e, device=expert.device)).to(torch.int32)
+    onehot = onehot.reshape(seqs, s, k, e)
     if pad:                                      # pad tokens route nowhere
-        onehot = torch.cat([onehot, onehot.new_zeros((pad, k, e))])
+        onehot = torch.cat([onehot, onehot.new_zeros((seqs, pad, k, e))], dim=1)
     flat = onehot.reshape(ng, g * k, e)
     pos = torch.sum(torch.cumsum(flat, dim=1) * flat, dim=-1) - 1     # (G, g·k)
-    pos = pos.reshape(ng * g, k)[:n]
+    pos = pos.reshape(seqs, s + pad, k)[:, :s].reshape(n, k)
     kept = pos < capacity
-    group = torch.arange(n, device=expert.device)[:, None] // g
+    at = torch.arange(n, device=expert.device)
+    group = (at // s * per_seq + at % s // g)[:, None]
     return (expert * ng + group) * capacity + pos, kept
 
 
@@ -101,15 +119,16 @@ def experts(params: Params, expert_in: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def mix(params: Params, x: torch.Tensor, cfg: ArchConfig, *,
-        capacity_factor: Optional[float], group_size: Optional[int]
-        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        capacity_factor: Optional[float], group_size: Optional[int],
+        per_sequence: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (B, S, D) → (output (B, S, D), router probabilities (N, E), expert
     ids (N, k)): routing, dispatch, the experts and the combine, without the
     load-balance loss (the decode step has no use for it).
 
     ``capacity_factor=None`` drops nothing (capacity = the group's tokens):
     the decode path's setting.  ``group_size`` dispatches within groups of
-    that many tokens (all N at once when None)."""
+    that many tokens (all of a routing unit's tokens at once when None); the
+    unit is the batch, or with ``per_sequence`` each sequence alone."""
     moe = cfg.moe
     b, s, d = x.shape
     e, k = moe.num_experts, moe.top_k
@@ -117,10 +136,11 @@ def mix(params: Params, x: torch.Tensor, cfg: ArchConfig, *,
     xt = x.reshape(n, d)
     probs, gates, expert = route(params, xt, k)
 
-    g = n if not group_size else min(group_size, n)
-    ng = -(-n // g)
+    seqs, unit = (b, s) if per_sequence else (1, n)
+    g = unit if not group_size else min(group_size, unit)
+    ng = seqs * -(-unit // g)
     capacity = g if capacity_factor is None else max(1, int(capacity_factor * g * k / e))
-    slot, kept = slots(expert, e, g, capacity)
+    slot, kept = slots(expert, e, g, capacity, seqs)
     # a dropped (token, choice) points past the buffer, at a slot of its own
     # that reads zeros: every index below is written once
     buffer = e * ng * capacity
@@ -138,21 +158,29 @@ def mix(params: Params, x: torch.Tensor, cfg: ArchConfig, *,
     return out, probs, expert
 
 
-def aux_loss(probs: torch.Tensor, expert: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def aux_loss(probs: torch.Tensor, expert: torch.Tensor, cfg: ArchConfig,
+             seqs: Optional[int] = None) -> torch.Tensor:
     """Switch aux loss, E · Σ_e (share of choices routed to e) · (mean router
-    probability of e), the choices counted before any drop: an fp32 scalar."""
+    probability of e), the choices counted before any drop: an fp32 scalar
+    over all N tokens, or with ``seqs`` a (seqs,) tensor, each sequence's
+    over its own N / seqs tokens."""
     n, e = probs.shape
-    routed = torch.sum((expert[..., None] == torch.arange(e, device=probs.device)).float(),
-                       dim=(0, 1))
-    return e * torch.sum(routed / n * torch.mean(probs, dim=0)) * cfg.moe.aux_loss_weight
+    b = seqs or 1
+    onehot = (expert[..., None] == torch.arange(e, device=probs.device)).float()
+    routed = torch.sum(onehot.reshape(b, n // b, -1, e), dim=(1, 2))          # (b, E)
+    mean_probs = torch.mean(probs.reshape(b, n // b, e), dim=1)
+    aux = e * torch.sum(routed / (n // b) * mean_probs, dim=-1) * cfg.moe.aux_loss_weight
+    return aux if seqs else aux[0]
 
 
 def apply_moe(params: Params, x: torch.Tensor, cfg: ArchConfig, *,
               capacity_factor: Optional[float] = 1.25,
-              group_size: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+              group_size: Optional[int] = None,
+              per_sequence: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's ``apply_moe``: x (B, S, D) → (output (B, S, D), aux
-    load-balance loss, an fp32 scalar); ``mix`` gives the arguments'
+    load-balance loss, fp32: a scalar, or with ``per_sequence`` a (B,)
+    tensor, each sequence routed alone); ``mix`` gives the arguments'
     meaning."""
     out, probs, expert = mix(params, x, cfg, capacity_factor=capacity_factor,
-                             group_size=group_size)
-    return out, aux_loss(probs, expert, cfg)
+                             group_size=group_size, per_sequence=per_sequence)
+    return out, aux_loss(probs, expert, cfg, x.shape[0] if per_sequence else None)

@@ -39,13 +39,17 @@ mean NLL plus aux, as the reference's.  ``hidden``, ``forward`` and
 alone, where the reference returns the first two beside aux; for a model
 without experts aux is ``None`` and ``loss`` adds nothing.  Full sequences
 route with the model's ``moe_capacity_factor`` and ``moe_group_size`` (the
-reference's 1.25 and 2048), the decode step drop-free.  Training an MoE
-through the federated and launch-level paths waits for ROADMAP A.7.4's
-training half (``check_trainable``).  ``remat`` is a memory
-policy, not semantics: each layer is recomputed in the backward pass
-(``torch.utils.checkpoint``) where the reference checkpoints each scanned
-cycle and each rest block; each loss chunk is recomputed either way, as in
-the reference.  Gradients flow through every block kind: autograd carries
+reference's 1.25 and 2048), the decode step drop-free.  A batch routes its
+tokens together and adds its aux (``loss``: the reference's ``model.loss``
+on that batch, what its sequential engine and pretrain mode train), or with
+``per_sequence`` routes each sequence alone with its own aux
+(``sequence_losses``: ``model.loss`` of each one-sequence batch, what the
+reference's batched engine trains).  For a model with experts these are two
+functions, in the reference as here; without experts they are one.
+``remat`` is a memory policy, not semantics: each layer is recomputed in
+the backward pass (``torch.utils.checkpoint``) where the reference
+checkpoints each scanned cycle and each rest block; each loss chunk is
+recomputed either way, as in the reference.  Gradients flow through every block kind: autograd carries
 them through the mLSTM's chunkwise form and the RG-LRU's scan, and the
 sLSTM's loop carries its derivatives written out (``ssm._SLSTMSequence``);
 the in-place decode steps stay off training.
@@ -69,7 +73,9 @@ from repro_torch.models.layers import apply_mlp, apply_norm, embed_init, init_ml
 
 _ATTN_KINDS = (ATTN_GLOBAL, ATTN_LOCAL)
 _KINDS = _ATTN_KINDS + (RGLRU, MLSTM, SLSTM)
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# float64: a referee's weights and products (norms, attention, the router
+# and the cross-entropy stay fp32, as in every dtype)
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
 
 Params = Dict[str, object]
 
@@ -90,20 +96,6 @@ def check_supported(cfg: ArchConfig) -> None:
             f"the dense attention-only and mixture-of-experts architectures, the RG-LRU hybrid "
             f"and xLSTM"
         )
-
-
-def check_trainable(cfg: ArchConfig, who: str) -> None:
-    """Raise ``NotImplementedError`` for a model with experts where the
-    federated and launch-level training paths would take it: their
-    per-example loss is a sequence's loss alone, but an MoE routes each
-    dispatch group's sequences against one another for expert capacity
-    and adds a batch-level load-balance loss.  That design is ROADMAP
-    A.7.4's training half; this slice serves MoE models."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{who}: {cfg.name} has mixture-of-experts MLPs, whose training waits for ROADMAP "
-            f"A.7.4's training half (a sequence's loss alone against group routing and the "
-            f"batch's load-balance loss); this slice of the port serves them")
 
 
 # ===========================================================================
@@ -157,11 +149,13 @@ def layer_key(r_dec: np.ndarray, i: int, cfg: ArchConfig) -> np.ndarray:
 
 def apply_block_train(params: Dict, kind: str, x: torch.Tensor, positions: torch.Tensor,
                       cfg: ArchConfig, moe_capacity_factor: Optional[float],
-                      moe_group_size: Optional[int]
+                      moe_group_size: Optional[int], per_sequence: bool
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Pre-norm residual block over whole sequences (causal): (x, the MoE
     MLP's aux loss, or None without experts).  An MoE MLP routes with
-    ``TransformerLM``'s ``moe_capacity_factor`` and ``moe_group_size``."""
+    ``TransformerLM``'s ``moe_capacity_factor`` and ``moe_group_size``, the
+    batch together (aux a scalar) or each sequence alone (``per_sequence``:
+    aux (B,))."""
     h = apply_norm(cfg.norm, params["norm1"], x)
     if kind == RGLRU:
         x = x + rglru.apply_rglru(params["mixer"], h, cfg)
@@ -177,7 +171,7 @@ def apply_block_train(params: Dict, kind: str, x: torch.Tensor, positions: torch
         if cfg.moe is not None:
             mlp_out, aux = moe.apply_moe(params["mlp"], h2, cfg,
                                          capacity_factor=moe_capacity_factor,
-                                         group_size=moe_group_size)
+                                         group_size=moe_group_size, per_sequence=per_sequence)
         else:
             mlp_out = apply_mlp(params["mlp"], h2, cfg.act)
         x = x + mlp_out
@@ -277,18 +271,20 @@ class TransformerLM(nn.Module):
         return h @ params["unembed"]
 
     # -- full-sequence forward (train / prefill) -----------------------------
-    def hidden_aux(self, params: Params, batch: Dict[str, torch.Tensor]
-                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def hidden_aux(self, params: Params, batch: Dict[str, torch.Tensor],
+                   per_sequence: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(final-norm hidden states (B, S, D) of ``batch["tokens"]`` (B, S),
         the layers' summed MoE aux loss, or None for a model without
-        experts)."""
+        experts).  The experts route the batch together and aux is a
+        scalar, or with ``per_sequence`` each sequence alone and aux is
+        (B,), each sequence's own."""
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
         h = params["embed"][tokens].to(self.dtype)
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
         remat = self.remat and torch.is_grad_enabled()
-        route = (self.moe_capacity_factor, self.moe_group_size)
+        route = (self.moe_capacity_factor, self.moe_group_size, per_sequence)
         aux = None
         for kind, layer in zip(cfg.layer_kinds(), params["layers"]):
             if remat:
@@ -313,7 +309,8 @@ class TransformerLM(nn.Module):
         positions (labels -1 are not counted): the reference's
         sequence-chunked cross-entropy, summed per sequence.  Each S-chunk's
         logits are fp32; the gold logit is a row gather of the unembedding.
-        A model's MoE aux loss is not in it (``loss`` adds it)."""
+        A model's MoE aux loss is not in it (``loss`` and
+        ``sequence_losses`` add it)."""
         return self._nll_sums(params, self.hidden(params, batch), batch["labels"])
 
     def _nll_sums(self, params: Params, h: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -339,6 +336,15 @@ class TransformerLM(nn.Module):
         b, s = batch["tokens"].shape
         h, aux = self.hidden_aux(params, batch)
         nll = torch.sum(self._nll_sums(params, h, batch["labels"])) / (b * s)
+        return nll if aux is None else nll + aux
+
+    def sequence_losses(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """(B,) each sequence's ``loss`` alone: its summed NLL over ``s``,
+        plus, for a model with experts, its own aux with the sequence routed
+        alone (the reference's ``model.loss`` of that one-sequence batch)."""
+        s = batch["tokens"].shape[1]
+        h, aux = self.hidden_aux(params, batch, per_sequence=True)
+        nll = self._nll_sums(params, h, batch["labels"]) / s
         return nll if aux is None else nll + aux
 
     # -- decode ---------------------------------------------------------------

@@ -928,6 +928,113 @@ def test_moe_generate_on_the_card_matches_cpu(cuda, arch):
         torch.cuda.set_sync_debug_mode("default")
 
 
+@pytest.mark.parametrize("cf,group", [(1.25, None), (0.5, None), (1.25, 16)])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "dbrx-132b"])
+def test_per_sequence_apply_moe_on_the_card_matches_cpu(cuda, arch, cf, group):
+    """Each of 4 sequences of 40 tokens routed alone, with capacity drops
+    (cf 0.5) and with groups of 16 that pad each sequence: the same expert
+    ids and kept (token, choice) pairs, the output within 1e-5 of its max
+    and each sequence's aux within 1e-6 relative on the card as on the
+    CPU."""
+    import dataclasses
+
+    from repro_torch import random as prng
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_arch(arch, reduced=True), dtype="float32")
+    params = moe.init_moe(prng.PRNGKey(1), cfg, torch.float32, torch.device("cpu"))
+    x = torch.randn(4, 40, cfg.d_model, generator=torch.Generator().manual_seed(3))
+    want, want_aux = moe.apply_moe(params, x, cfg, capacity_factor=cf, group_size=group,
+                                   per_sequence=True)
+    got, got_aux = moe.apply_moe(_to(params, cuda), x.to(cuda), cfg, capacity_factor=cf,
+                                 group_size=group, per_sequence=True)
+    assert got_aux.shape == (4,)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.all((got_aux.cpu() - want_aux).abs() <= 1e-6 * want_aux.abs())
+    k, e, g = cfg.moe.top_k, cfg.moe.num_experts, group or 40
+    capacity = max(1, int(cf * g * k / e))
+    routes = []
+    for p, xs in ((params, x), (_to(params, cuda), x.to(cuda))):
+        _, _, ids = moe.route(p, xs.reshape(-1, cfg.d_model), k)
+        routes.append((ids.cpu(), moe.slots(ids, e, g, capacity, seqs=4)[1].cpu()))
+    assert torch.equal(routes[0][0], routes[1][0]) and torch.equal(routes[0][1], routes[1][1])
+    if cf < 1:
+        assert not bool(routes[0][1].all())
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "dbrx-132b"])
+def test_moe_per_example_loss_on_the_card_matches_cpu(cuda, arch):
+    """LMClassifier.per_example_loss (each sequence routed alone, its own
+    aux) and loss (the batch routed together) on the reduced model in fp32,
+    in groups of 16 that pad 40-token sequences and at capacity factor 0.5:
+    each within 1e-5 relative on the card as on the CPU."""
+    import dataclasses
+    import functools
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import LMClassifier, TransformerLM, lm
+
+    cfg = dataclasses.replace(get_arch(arch, reduced=True), dtype="float32")
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randint(0, cfg.vocab_size, (4, 40), generator=gen).float()
+    y = torch.randint(0, cfg.vocab_size, (4,), generator=gen)
+    for cf, group in ((1.25, 16), (0.5, 2048)):
+        saved = lm.TransformerLM
+        lm.TransformerLM = functools.partial(TransformerLM, moe_capacity_factor=cf,
+                                             moe_group_size=group)
+        try:
+            model = LMClassifier(cfg, seq_len=40)
+            params = model.init(0, "cpu")
+            with torch.no_grad():
+                want = model.per_example_loss(params, x, y), model.loss(params, x, y)
+                got = (model.per_example_loss(_to(params, cuda), x.to(cuda), y.to(cuda)),
+                       model.loss(_to(params, cuda), x.to(cuda), y.to(cuda)))
+        finally:
+            lm.TransformerLM = saved
+        assert got[0].shape == (4,)
+        assert torch.all((got[0].cpu() - want[0]).abs() <= 1e-5 * want[0].abs())
+        assert abs(float(got[1]) - float(want[1])) <= 1e-5 * abs(float(want[1]))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "dbrx-132b"])
+def test_moe_training_step_reads_nothing_back(cuda, arch):
+    """A LoRA client step of the batched engine on a reduced MoE model in
+    bf16 (per-sequence routing, the merge, remat, the SGD update) run
+    under ``set_sync_debug_mode("error")``: no host read; and the step
+    repeats bitwise."""
+    from repro_torch.configs import get_arch
+    from repro_torch.fl.client import client_loss, sgd_leaf
+    from repro_torch.models import LMClassifier, LoRAClassifier
+
+    cfg = get_arch(arch, reduced=True)
+    base = LMClassifier(cfg, seq_len=32)
+    lora = LoRAClassifier(base, base.init(0, cuda), rank=4)
+    adapters = lora.init(0, cuda)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randint(0, cfg.vocab_size, (4, 32), generator=gen).float().to(cuda)
+    y = torch.randint(0, cfg.vocab_size, (4,), generator=gen).to(cuda)
+    w = torch.ones(4, device=cuda)
+
+    def step():
+        live = {k: v.detach().requires_grad_(True) for k, v in adapters.items()}
+        with torch.enable_grad():
+            loss = client_loss(lora, live, x, y, w, None, live, 0.0, False)
+            grads = torch.autograd.grad(loss, list(live.values()))
+        with torch.no_grad():
+            return {k: sgd_leaf(p, g, 0.01) for (k, p), g in zip(live.items(), grads)}
+
+    want = step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}

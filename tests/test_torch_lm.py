@@ -369,8 +369,8 @@ def test_gemma3_4b_is_3_88b_parameters():
 
 def test_unported_archs_raise():
     """The reference's archs the port lacks raise KeyError; an MoE model
-    serves, but LMClassifier refuses to train it (ROADMAP A.7.4's training
-    half); cross-attention raises."""
+    trains (LMClassifier's per-sequence losses are finite); cross-attention
+    raises."""
     from repro_torch.models import LMClassifier
 
     assert tconfigs.list_archs() == sorted(PORTED_ARCHS)
@@ -381,8 +381,11 @@ def test_unported_archs_raise():
         tconfigs.get_arch("no-such-model")
     moe = dataclasses.replace(tconfigs.get_arch("gemma3-4b", reduced=True),
                               moe=tconfigs.MoEConfig(num_experts=4, top_k=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7.4"):
-        LMClassifier(moe, seq_len=8)
+    lmc = LMClassifier(moe, seq_len=8)
+    x = torch.randint(0, moe.vocab_size, (2, 8), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        per = lmc.per_example_loss(lmc.init(0, "cpu"), x.float(), x[:, 0])
+    assert per.shape == (2,) and bool(torch.isfinite(per).all())
     cross = dataclasses.replace(tconfigs.get_arch("gemma3-4b", reduced=True),
                                 pattern=("attn_cross",))
     with pytest.raises(NotImplementedError, match="attn_cross"):

@@ -5,8 +5,8 @@ the same numpy inputs: init bitwise, routing (expert ids, the dropped
 (token, choice) set), outputs, aux and gradients of ``apply_moe`` with and
 without capacity drops and dispatch groups; ``forward``, ``loss`` and
 ``decode_step`` of the reduced models; decode against drop-free
-``forward``; the converter over the MoE leaves; and the training entry
-points' refusal."""
+``forward``; and the converter over the MoE leaves.  Training is held to
+the reference in ``tests/test_torch_moe_train.py``."""
 import dataclasses
 
 import pytest
@@ -295,19 +295,3 @@ def test_converter_round_trips_moe_leaves(arch):
             assert got.dtype == want.dtype and got.shape == want.shape, path
             np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8),
                                           err_msg=str(path))
-
-
-def test_training_entry_points_refuse_moe():
-    """LMClassifier, LoRAClassifier and launch.train's pretrain mode raise
-    for an MoE, naming ROADMAP A.7.4's training half."""
-    from repro_torch.launch import train
-    from repro_torch.models import LMClassifier, LoRAClassifier
-
-    for arch in MOE_ARCHS:
-        cfg = tconfigs.get_arch(arch, reduced=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP A.7.4"):
-            LMClassifier(cfg, seq_len=8)
-        with pytest.raises(NotImplementedError, match="ROADMAP A.7.4"):
-            LoRAClassifier(LMClassifier(cfg, seq_len=8), {}, rank=2)
-        with pytest.raises(NotImplementedError, match="ROADMAP A.7.4"):
-            train.main(["--mode", "pretrain", "--arch", arch, "--device", "cpu", "--rounds", "1"])

@@ -95,6 +95,20 @@ def test_index_set_draws_are_the_whole_draws_elements():
                        tf.uniform_plain(key, 100_003)[index].view(torch.int32))
 
 
+@pytest.mark.parametrize("draw", ["normal", "uniform"])
+def test_per_element_keys_draw_as_their_keys_alone(draw):
+    """Keys given per element (int64 tensors of key words): each element is
+    its own key's draw at its index, bitwise, as one key a call gives it."""
+    fn = getattr(tf, f"{draw}_plain")
+    rng = np.random.default_rng(1)
+    keys = [np.array(words, np.uint32) for words in KEYS]
+    index = [torch.from_numpy(rng.choice(10_007, 300, replace=False)) for _ in keys]
+    words = torch.from_numpy(np.repeat(np.stack(keys).astype(np.int64), 300, axis=0))
+    got = fn((words[:, 0], words[:, 1]), index=torch.cat(index))
+    want = torch.cat([fn(key, index=ix) for key, ix in zip(keys, index)])
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def test_index_set_reaches_a_671m_leaf_and_the_count_limit():
     """Counts far past any draw this machine could make whole: the last rows
     of gemma3-4b's 262,144 × 2,560 embedding and the last 32-bit count, as
